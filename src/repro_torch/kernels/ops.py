@@ -1,0 +1,116 @@
+"""The kernel plane: backend dispatch for the engine's hot paths (port of
+``repro.kernels.ops``).
+
+A *kernel plane* is one of
+
+  * ``"torch"``  — scatter-min arbitration and indexed gathers in plain
+    PyTorch (the counterpart of the reference's ``"jnp"`` plane);
+  * ``"kernel"`` — the hand-written CUDA kernels (``lock_arbiter``,
+    ``multi_read``; the counterpart of ``"pallas"``).  On CPU tensors the
+    same dispatch runs the kernels' plain versions, the CPU tests'
+    counterpart of ``"pallas_interpret"``.
+
+``"auto"`` resolves to ``"kernel"`` on a CUDA device and ``"torch"`` on the
+CPU.  Both planes give bitwise-equal integer counters: the kernels
+implement exactly the reference semantics (lexicographic-min arbitration
+with no index tiebreak, exact int32 gathers).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.arbiter import scatter_min_winner
+from repro_torch.kernels.lock_arbiter import lock_arbiter
+from repro_torch.kernels.multi_read import multi_read
+
+TORCH = "torch"
+KERNEL = "kernel"
+KERNEL_PLANES = (TORCH, KERNEL)
+AUTO = "auto"
+
+
+def default_plane(device) -> str:
+    """What ``"auto"`` resolves to for tensors on ``device``."""
+    return KERNEL if torch.device(device).type == "cuda" else TORCH
+
+
+def resolve_plane(plane, device) -> str:
+    """Validate/resolve a kernel-plane knob (``None``/"auto" -> by device)."""
+    if plane is None or plane == AUTO:
+        return default_plane(device)
+    if plane not in KERNEL_PLANES:
+        raise ValueError(f"kernel_plane={plane!r}: pass 'auto' or one of {KERNEL_PLANES}")
+    return plane
+
+
+def describe_plane(plane: str) -> str:
+    return {
+        TORCH: "plain PyTorch (scatter-min arbitration, indexed gathers)",
+        KERNEL: "hand-written CUDA kernels (plain versions on CPU tensors)",
+    }[plane]
+
+
+# ---------------------------------------------------------------------------
+# Engine hot-path dispatch
+# ---------------------------------------------------------------------------
+
+
+def cas_arbitrate(keys, prio_hi, prio_lo, active, n_records: int, *, plane: str = TORCH):
+    """Per-key lexicographic-min CAS arbitration over a flat request batch.
+
+    keys/prio_hi/prio_lo (M,) int32, active (M,) bool -> won (M,) bool,
+    bitwise-equal across planes (``scatter_min_winner`` semantics)."""
+    if plane != KERNEL:
+        return scatter_min_winner(keys, prio_hi, prio_lo, active, n_records)
+    won = lock_arbiter(
+        keys.contiguous()[None], prio_hi.contiguous()[None],
+        prio_lo.contiguous()[None], active.contiguous()[None],
+    )
+    return won[0]
+
+
+def version_select(wts_hi, wts_lo, ctts_hi, ctts_lo, lock_hi, lock_lo, *, plane: str = TORCH):
+    """MVCC Cond R1/R2 version pick: not ported yet."""
+    raise NotImplementedError(
+        "version_select (mvcc_version_select) is not ported yet: ROADMAP B.3"
+    )
+
+
+def gather_rows_batch(table, keys, *, plane: str = TORCH):
+    """Packed-row gather: table (R, A) int32 at keys (M,) -> (M, A)."""
+    if plane != KERNEL:
+        return table[keys]
+    return multi_read(table, keys)
+
+
+def pack_rows(arrs):
+    """Flatten several (R, ...) int32 arrays into one (R, A) packed table
+    (the doorbell payload) + the per-array flat widths."""
+    R = arrs[0].shape[0]
+    cols = [a.reshape(R, -1) for a in arrs]
+    table = cols[0].contiguous() if len(cols) == 1 else torch.cat(cols, dim=1)
+    return table, [c.shape[1] for c in cols]
+
+
+def unpack_rows(out, arrs, widths, keys_shape):
+    """Split a gathered (M, A) packed payload back into per-array results
+    shaped ``keys_shape + arr.shape[1:]``."""
+    outs, pos = [], 0
+    for a, w in zip(arrs, widths):
+        outs.append(out[:, pos : pos + w].reshape(tuple(keys_shape) + tuple(a.shape[1:])))
+        pos += w
+    return tuple(outs)
+
+
+def gather_many(arrs, keys, *, plane: str = TORCH):
+    """Doorbell-batched multi-array gather: ONE packed dispatch for several
+    store arrays at the same keys (engine.read_rows_many's kernel path)."""
+    kf = keys.reshape(-1).contiguous()
+    table, widths = pack_rows(arrs)
+    out = gather_rows_batch(table, kf, plane=plane)
+    return unpack_rows(out, arrs, widths, keys.shape)
+
+
+def attention_op(q, k, v, *, causal=True, block_q=128, block_k=128):
+    """Flash attention for the LM stack: not ported yet."""
+    raise NotImplementedError("attention_op (flash_attention) is not ported yet: ROADMAP B.4")

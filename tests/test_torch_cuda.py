@@ -1,0 +1,76 @@
+"""The CUDA kernels against their plain PyTorch versions, on the card.
+
+Every test is marked ``cuda`` and skips without a card.  The file imports
+no JAX, so it runs on the card's machine:
+
+    python -m pytest -q -m cuda tests/test_torch_cuda.py
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import ref
+from repro_torch.kernels.lock_arbiter import lock_arbiter
+from repro_torch.kernels.multi_read import multi_read
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (and nvcc) to build and launch the CUDA kernels")
+    return torch.device("cuda")
+
+
+def _arbiter_case(G, M, n_keys, seed, *, ties=False, pad=False):
+    """Random batch: inactive rows, narrow priorities; ``ties`` makes pairs
+    share a priority, ``pad`` adds a tail of inactive -1 keys."""
+    rng = np.random.default_rng(seed)
+    keys = rng.integers(0, n_keys, (G, M)).astype(np.int32)
+    hi = rng.integers(-3, 4, (G, M)).astype(np.int32)
+    lo = np.stack([rng.permutation(M) for _ in range(G)]).astype(np.int32).reshape(G, M)
+    if ties:
+        lo //= 2
+    act = rng.random((G, M)) < 0.7
+    if pad and M:
+        keys[:, -max(1, M // 4):] = -1
+        act[:, -max(1, M // 4):] = False
+    return keys, hi, lo, act
+
+
+@pytest.mark.parametrize(
+    "G,M,n_keys,ties,pad",
+    [(1, 480, 262144, False, False), (1, 480, 64, True, False), (3, 37, 9, False, True), (3, 1, 1, False, False),
+     (1, 0, 1, False, False), (1, 2048, 300, True, False), (2, 2048, 40, False, True)],
+)
+def test_lock_arbiter_cuda_matches_plain(card, G, M, n_keys, ties, pad):
+    args = [torch.tensor(a) for a in _arbiter_case(G, M, n_keys, M + n_keys, ties=ties, pad=pad)]
+    n = lock_arbiter.launches
+    got = lock_arbiter(*[a.to(card) for a in args])
+    assert lock_arbiter.launches == n + (1 if G * M else 0)
+    assert torch.equal(got.cpu(), ref.lock_arbiter_ref(*args))
+
+
+@pytest.mark.parametrize("R,M,A", [(262144, 480, 2), (262144, 480, 3), (1000, 37, 1), (1000, 0, 2)])
+def test_multi_read_cuda_matches_plain(card, R, M, A):
+    rng = np.random.default_rng(R + M + A)
+    table = torch.tensor(rng.integers(-(2**31), 2**31 - 1, (R, A)), dtype=torch.int32)
+    keys = torch.tensor(rng.integers(-3, R + 3, M), dtype=torch.int32)  # padding and keys >= R
+    n = multi_read.launches
+    got = multi_read(table.to(card), keys.to(card))
+    assert multi_read.launches == n + (1 if M else 0)
+    assert torch.equal(got.cpu(), ref.multi_read_ref(table, keys))
+
+
+def test_kernel_plane_matches_torch_plane_on_the_card(card):
+    from repro_torch.api import ExperimentSpec, run
+
+    kw = dict(protocol="nowait", workload="smallbank", configs=[{"hybrid": c} for c in (0, 63, 21, 42)],
+              n_nodes=2, coroutines=6, records_per_node=64, ticks=32, warmup=4)
+    k_rows = run(ExperimentSpec(kernel_plane="kernel", **kw)).rows
+    t_rows = run(ExperimentSpec(kernel_plane="torch", **kw)).rows
+    c_rows = run(ExperimentSpec(kernel_plane="torch", device="cpu", **kw)).rows
+    for k, t, c in zip(k_rows, t_rows, c_rows):
+        for key in ("commits", "aborts", "abort_rate", "throughput_mtps", "avg_round_trips"):
+            assert k[key] == t[key] == c[key], key

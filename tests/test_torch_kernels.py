@@ -1,0 +1,156 @@
+"""The port's kernels against the JAX kernels and their plain references.
+
+On the CPU each kernel wrapper runs its plain version; those are held
+bitwise against the Pallas kernels in interpret mode and against
+``repro.kernels.ref``.  The CUDA kernels against their plain versions are
+in ``tests/test_torch_cuda.py``, which imports no JAX so that it runs on
+the card's machine.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core.arbiter import scatter_min_winner as j_scatter_min_winner
+from repro.kernels import ref as jref
+from repro.kernels.lock_arbiter import lock_arbiter as j_lock_arbiter
+from repro.kernels.multi_read import multi_read as j_multi_read
+from repro_torch.core.arbiter import scatter_min_winner
+from repro_torch.kernels import ops
+from repro_torch.kernels.lock_arbiter import lock_arbiter
+from repro_torch.kernels.multi_read import multi_read
+
+I32_MIN, I32_MAX = -(2**31), 2**31 - 1
+
+
+def _arbiter_case(G, M, n_keys, seed, *, ties=False, pad=False):
+    """Random arbitration batch: unique (hi, lo) per group unless ``ties``
+    (then pairs share a priority and several requests win), inactive rows,
+    and, with ``pad``, a tail of inactive -1 padding keys."""
+    rng = np.random.default_rng(seed)
+    keys = rng.integers(0, n_keys, (G, M)).astype(np.int32)
+    hi = rng.integers(-3, 4, (G, M)).astype(np.int32)  # narrow: lo decides often
+    lo = np.stack([rng.permutation(M) for _ in range(G)]).astype(np.int32).reshape(G, M)
+    if ties:
+        lo //= 2
+        hi[:] = 1
+    act = rng.random((G, M)) < 0.7
+    if pad and M:
+        tail = max(1, M // 4)
+        keys[:, -tail:] = -1
+        act[:, -tail:] = False
+    return keys, hi, lo, act
+
+
+ARBITER_CASES = [
+    (G, M, n_keys, ties, pad)
+    for G in (1, 3)
+    for M in (1, 37, 480)
+    for n_keys, ties, pad in ((7, False, False), (500, False, True), (5, True, False), (11, True, True))
+]
+
+
+@pytest.mark.parametrize("G,M,n_keys,ties,pad", ARBITER_CASES)
+def test_lock_arbiter_plain_matches_pallas_and_ref(G, M, n_keys, ties, pad):
+    keys, hi, lo, act = _arbiter_case(G, M, n_keys, G * 1000 + M + n_keys, ties=ties, pad=pad)
+    got = lock_arbiter(*map(torch.tensor, (keys, hi, lo, act))).numpy()
+    pallas = np.asarray(j_lock_arbiter(*map(jnp.asarray, (keys, hi, lo, act)), interpret=True))
+    jax_ref = np.asarray(jref.lock_arbiter_ref(*map(jnp.asarray, (keys, hi, lo, act))))
+    np.testing.assert_array_equal(got, pallas)
+    np.testing.assert_array_equal(got, jax_ref)
+
+
+def test_lock_arbiter_exact_tie_leaves_several_winners():
+    keys = np.array([[5, 5, 5, 2, -1]], np.int32)
+    hi = np.array([[1, 1, 2, 0, -9]], np.int32)
+    lo = np.array([[3, 3, 0, 0, -9]], np.int32)
+    act = np.array([[True, True, True, True, False]])
+    got = lock_arbiter(*map(torch.tensor, (keys, hi, lo, act))).numpy()
+    np.testing.assert_array_equal(got, [[True, True, False, True, False]])
+    np.testing.assert_array_equal(got, np.asarray(j_lock_arbiter(*map(jnp.asarray, (keys, hi, lo, act)), interpret=True)))
+
+
+def test_lock_arbiter_empty_batch():
+    z = torch.zeros((3, 0), dtype=torch.int32)
+    won = lock_arbiter(z, z, z, torch.zeros((3, 0), dtype=torch.bool))
+    assert won.shape == (3, 0) and won.dtype == torch.bool
+
+
+@pytest.mark.parametrize("R", [37, 1000, 4096])
+@pytest.mark.parametrize("M", [1, 37, 480])
+@pytest.mark.parametrize("A", [1, 2, 3])
+def test_multi_read_plain_matches_pallas_and_ref(R, M, A):
+    rng = np.random.default_rng(R * 7 + M * 3 + A)
+    table = rng.integers(I32_MIN, I32_MAX, (R, A), dtype=np.int64).astype(np.int32)
+    keys = rng.integers(-2, R + 3, M).astype(np.int32)  # -1/-2 padding and keys >= R
+    got = multi_read(torch.tensor(table), torch.tensor(keys)).numpy()
+    pallas = np.asarray(j_multi_read(jnp.asarray(table), jnp.asarray(keys), interpret=True))
+    np.testing.assert_array_equal(got, pallas)
+    # the JAX ref clamps keys >= R, so it is compared on keys < R only
+    inside = keys < R
+    jax_ref = np.asarray(jref.multi_read_ref(jnp.asarray(table), jnp.asarray(keys)))
+    np.testing.assert_array_equal(got[inside], jax_ref[inside])
+    assert (got[(keys < 0) | (keys >= R)] == 0).all()
+
+
+def test_multi_read_empty_batch():
+    out = multi_read(torch.ones((10, 3), dtype=torch.int32), torch.zeros((0,), dtype=torch.int32))
+    assert out.shape == (0, 3)
+
+
+@pytest.mark.parametrize("M,n_records", [(1, 4), (37, 9), (480, 262144), (480, 64)])
+@pytest.mark.parametrize("ties", [False, True])
+def test_scatter_min_winner_matches_jax(M, n_records, ties):
+    keys, hi, lo, act = _arbiter_case(1, M, n_records, M + n_records, ties=ties)
+    args = (keys[0], hi[0], lo[0], act[0])
+    got = scatter_min_winner(*map(torch.tensor, args), n_records).numpy()
+    want = np.asarray(j_scatter_min_winner(*map(jnp.asarray, args), n_records))
+    np.testing.assert_array_equal(got, want)
+    # and the kernel plane's dispatch gives the same winners
+    kern = ops.cas_arbitrate(*map(torch.tensor, args), n_records, plane=ops.KERNEL).numpy()
+    np.testing.assert_array_equal(kern, want)
+
+
+def test_gather_many_planes_agree_and_unpack():
+    rng = np.random.default_rng(3)
+    data = torch.tensor(rng.integers(0, 99, (50, 2)), dtype=torch.int32)
+    ver = torch.tensor(rng.integers(0, 99, 50), dtype=torch.int32)
+    keys = torch.tensor(rng.integers(0, 50, (6, 2)), dtype=torch.int32)
+    a = ops.gather_many((data, ver), keys, plane=ops.TORCH)
+    b = ops.gather_many((data, ver), keys, plane=ops.KERNEL)
+    assert a[0].shape == (6, 2, 2) and a[1].shape == (6, 2)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+    assert torch.equal(a[0], data[keys.long()]) and torch.equal(a[1], ver[keys.long()])
+
+
+def test_wrappers_check_inputs_and_count_only_cuda_launches():
+    before = (lock_arbiter.launches, multi_read.launches)
+    k = torch.zeros((1, 4), dtype=torch.int32)
+    b = torch.zeros((1, 4), dtype=torch.bool)
+    lock_arbiter(k, k, k, b)
+    multi_read(torch.zeros((4, 2), dtype=torch.int32), k[0])
+    assert (lock_arbiter.launches, multi_read.launches) == before  # plain versions ran
+    with pytest.raises(TypeError, match="int32"):
+        lock_arbiter(k.long(), k, k, b)
+    with pytest.raises(ValueError, match="shape"):
+        lock_arbiter(k, k[:, :2], k, b)
+    with pytest.raises(ValueError, match="contiguous"):
+        multi_read(torch.zeros((2, 4), dtype=torch.int32).t(), k[0])
+    with pytest.raises(TypeError, match="int32"):
+        multi_read(torch.zeros((4, 2)), k[0])
+
+
+def test_unported_kernels_raise():
+    with pytest.raises(NotImplementedError, match="ROADMAP B.3"):
+        ops.version_select(*([None] * 6))
+    with pytest.raises(NotImplementedError, match="ROADMAP B.4"):
+        ops.attention_op(None, None, None)
+
+
+def test_auto_plane_follows_the_device():
+    assert ops.resolve_plane("auto", "cpu") == ops.TORCH
+    assert ops.resolve_plane("auto", "cuda") == ops.KERNEL
+    assert ops.resolve_plane("kernel", "cpu") == ops.KERNEL
+    with pytest.raises(ValueError):
+        ops.resolve_plane("pallas", "cpu")

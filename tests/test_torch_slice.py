@@ -1,0 +1,163 @@
+"""The port's main path end to end against the JAX reference.
+
+``repro_torch.api.run(ExperimentSpec(..., device="cpu"))`` and
+``repro.api.run(...)`` on the same spec: integer counters, the ratios
+built only from them and the final stores match BITWISE on both port
+planes; the float latency metrics match to rtol=1e-5, because the float32
+per-round sum in ``account_round`` (``per_txn.sum()``) runs in another
+order in each framework.  The full-size golden counters that
+``chip_smoke.py`` checks on the card are recomputed here from the JAX
+reference (run this file as a script to rewrite them).
+"""
+import json
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from repro import api as japi
+from repro.core import engine as jeng
+from repro.core.costmodel import CostModel as JCostModel
+from repro.core.registry import get_protocol as jget_protocol
+from repro.workloads import make_workload as jmake_workload
+from repro_torch import api as tapi
+from repro_torch.core import engine as teng
+from repro_torch.core.costmodel import CostModel as TCostModel
+from repro_torch.core.registry import get_protocol as tget_protocol
+from repro_torch.workloads import make_workload as tmake_workload
+
+KW = dict(n_nodes=2, coroutines=6, records_per_node=64, ticks=32, warmup=4)
+CODES = (0, 63, 21, 42)
+EXACT = ("commits", "aborts", "abort_rate", "throughput_mtps", "avg_round_trips")
+# float32 latency sums accumulate in another order in torch than in XLA
+LATENCY = ("avg_latency_us", "stage_us_per_commit")
+RTOL = 1e-5
+
+GOLDEN = os.path.join(
+    os.path.dirname(__file__), "..", "src", "repro_torch", "data", "golden_nowait_smallbank.json"
+)
+# the full-size spec chip_smoke.py runs: ExperimentSpec defaults
+# (n_nodes=4, coroutines=60, records_per_node=65536, ticks=400, warmup=80)
+GOLDEN_SPEC = dict(protocol="nowait", workload="smallbank")
+
+
+def _rows_both(proto, plane, **over):
+    kw = dict(KW, **over)
+    configs = kw.pop("configs", [{"hybrid": c} for c in CODES])
+    j = japi.run(japi.ExperimentSpec(protocol=proto, workload="smallbank", configs=configs, **kw)).rows
+    t = tapi.run(
+        tapi.ExperimentSpec(
+            protocol=proto, workload="smallbank", configs=configs, kernel_plane=plane, device="cpu", **kw
+        )
+    ).rows
+    return j, t
+
+
+@pytest.mark.parametrize("plane", ["torch", "kernel"])
+@pytest.mark.parametrize("proto", ["nowait", "waitdie"])
+def test_slice_rows_match_reference(proto, plane):
+    j_rows, t_rows = _rows_both(proto, plane)
+    assert len(j_rows) == len(t_rows) == len(CODES)
+    assert sum(r["commits"] for r in j_rows) > 0 and sum(r["aborts"] for r in j_rows) > 0
+    for a, b in zip(j_rows, t_rows):
+        for k in EXACT:
+            assert a[k] == b[k], (proto, plane, a["hybrid"], k, a[k], b[k])
+        for k in LATENCY:
+            np.testing.assert_allclose(b[k], a[k], rtol=RTOL, err_msg=k)
+        for k in ("hybrid", "protocol", "workload", "grid_size", "coroutines", "records_per_node", "ticks"):
+            assert a[k] == b[k], k
+        assert set(a) == set(b)
+
+
+@pytest.mark.parametrize("plane", ["torch", "kernel"])
+def test_slice_merge_stages_matches_reference(plane):
+    j_rows, t_rows = _rows_both("nowait", plane, merge_stages=True, configs=[{"hybrid": 63}, {"hybrid": 21}])
+    for a, b in zip(j_rows, t_rows):
+        for k in EXACT:
+            assert a[k] == b[k], (plane, a["hybrid"], k)
+        for k in LATENCY:
+            np.testing.assert_allclose(b[k], a[k], rtol=RTOL, err_msg=k)
+
+
+@pytest.mark.parametrize("plane", ["torch", "kernel"])
+@pytest.mark.parametrize("proto,code", [("nowait", 21), ("waitdie", 42)])
+def test_final_store_matches_reference(proto, code, plane):
+    """engine.run on both sides: final store and state counters bitwise."""
+    n_rec = KW["n_nodes"] * KW["records_per_node"]
+    hybrid = tuple((code >> i) & 1 for i in range(6))
+    common = dict(
+        protocol=proto, n_nodes=KW["n_nodes"], coroutines=KW["coroutines"],
+        records_per_node=KW["records_per_node"], rw=2, max_ops=2, hybrid=hybrid, seed=5,
+    )
+    jst, jstore, jm = jeng.run(
+        jget_protocol(proto).tick, jeng.EngineConfig(**common), JCostModel(),
+        jmake_workload("smallbank", n_rec), KW["ticks"], warmup=KW["warmup"],
+    )
+    tst, tstore, tm = teng.run(
+        tget_protocol(proto).tick, teng.EngineConfig(**common, kernel_plane=plane, device="cpu"),
+        TCostModel(), tmake_workload("smallbank", n_rec), KW["ticks"], warmup=KW["warmup"],
+    )
+    assert set(jstore) == set(tstore)
+    for k in jstore:
+        np.testing.assert_array_equal(tstore[k].numpy(), np.asarray(jstore[k]), err_msg=k)
+    for k in ("n_commit", "n_abort", "txn_no", "keys", "stage", "rounds"):
+        np.testing.assert_array_equal(tst[k].numpy(), np.asarray(jst[k]), err_msg=k)
+    assert int(tm["commits"]) == int(jm["commits"]) > 0
+
+
+def test_plan_defaults_to_cuda_and_refuses_without_it():
+    spec = tapi.ExperimentSpec(protocol="nowait", workload="smallbank", **KW)
+    assert spec.device == "cuda"
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA: the refusal is what a CPU-only machine shows")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tapi.plan(spec)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tapi.plan(tapi.ExperimentSpec(protocol="nowait", workload="smallbank", kernel_plane="kernel", **KW))
+
+
+def test_plan_names_plane_and_device_and_rejects_unported_layouts():
+    pl = tapi.plan(tapi.ExperimentSpec(protocol="nowait", workload="smallbank", device="cpu", **KW))
+    assert pl.kernel_plane == "torch"  # "auto" on the CPU
+    s = pl.summary()
+    assert "kernel plane: torch" in s and "device: cpu" in s
+    pk = tapi.plan(tapi.ExperimentSpec(protocol="nowait", workload="smallbank", device="cpu",
+                                       kernel_plane="kernel", **KW))
+    assert "kernel plane: kernel" in pk.summary()
+    for bad in (dict(layout="node"), dict(devices="auto"), dict(node_shards=2),
+                dict(configs=[{"coroutines": 4}])):
+        with pytest.raises(NotImplementedError, match="ROADMAP A.9"):
+            tapi.plan(tapi.ExperimentSpec(protocol="nowait", workload="smallbank", device="cpu",
+                                          **dict(KW, **bad)))
+    with pytest.raises(KeyError, match="unknown protocol 'occ'"):
+        tapi.plan(tapi.ExperimentSpec(protocol="occ", workload="smallbank", device="cpu", **KW))
+    with pytest.raises(NotImplementedError, match="ROADMAP A.2"):
+        tapi.run(tapi.ExperimentSpec(protocol="nowait", workload="ycsb", device="cpu", **KW))
+
+
+def golden_rows():
+    """The JAX reference's counters at the full-size spec (about 17 s on a CPU)."""
+    rows = japi.run(japi.ExperimentSpec(configs=[{"hybrid": c} for c in CODES], **GOLDEN_SPEC)).rows
+    return [{"hybrid": r["hybrid"], "commits": r["commits"], "aborts": r["aborts"]} for r in rows]
+
+
+def test_golden_file_matches_jax_reference():
+    with open(GOLDEN) as f:
+        golden = json.load(f)
+    assert golden["spec"] == dict(GOLDEN_SPEC, configs=[{"hybrid": c} for c in CODES])
+    assert golden["rows"] == golden_rows()
+
+
+if __name__ == "__main__":
+    # rewrite the golden file from the JAX reference
+    golden = {
+        "about": "JAX reference (repro.api) counters for chip_smoke.py's full-size "
+        "NOWAIT/SmallBank spec, default jax_threefry_partitionable=True PRNG mode; "
+        "written by tests/test_torch_slice.py",
+        "spec": dict(GOLDEN_SPEC, configs=[{"hybrid": c} for c in CODES]),
+        "rows": golden_rows(),
+    }
+    with open(GOLDEN, "w") as f:
+        json.dump(golden, f, indent=1)
+        f.write("\n")
