@@ -242,7 +242,7 @@ def regen_txns(ec: EngineConfig, wl: Workload, st: Dict, mask, *, new_ts=True) -
     return st
 
 
-def _per_op(x, k: int):
+def per_op(x, k: int):
     """(N,) -> (N*k,): each slot's value repeated for its k ops (``jnp.repeat``)."""
     return x[:, None].expand(-1, k).reshape(-1)
 
@@ -279,7 +279,7 @@ def service_ops(ec: EngineConfig, cm: CostModel, st: Dict, op_mask, primitive_is
     rpc_cap = torch.clamp(cm.handler_cap - exec_load * max(1, ec.exec_ticks), min=1)
     nic_cap = int(np.float32(cm.nic_eff_cap()))
 
-    prio = hash_prio(op_index(ec, K).reshape(-1) + _per_op(st["ts_lo"], K), salt)
+    prio = hash_prio(op_index(ec, K).reshape(-1) + per_op(st["ts_lo"], K), salt)
     group = dest * 2 + plane
     sort_key = torch.where(active, group * (2**20) + (prio & (2**20 - 1)), 2**30)
     order = torch.argsort(sort_key, stable=True)
@@ -450,8 +450,8 @@ def try_lock(ec: EngineConfig, store, st, op_mask, prio_hi, prio_lo):
     won = win.reshape(N, K) & free & op_mask
     wf = won.reshape(-1)
     ts = txn_ts(st)
-    new_hi = _per_op(ts.hi, K)
-    new_lo = _per_op(ts.lo, K)
+    new_hi = per_op(ts.hi, K)
+    new_lo = per_op(ts.lo, K)
     store = dict(store)
     idx_w = torch.where(wf, keys_f, ec.n_records)
     store["lock_hi"] = write_rows(ec, store["lock_hi"], idx_w, torch.where(wf, new_hi, 0))

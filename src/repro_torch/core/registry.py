@@ -1,8 +1,8 @@
 """Protocol plugin registry (port of ``repro.core.registry``).
 
 A protocol is one module plus one :func:`register_protocol` call; every
-front-door surface picks it up by name.  The port registers the 2PL family
-(nowait, waitdie) when ``repro_torch.core.protocols`` is imported;
+front-door surface picks it up by name.  The port registers nowait,
+waitdie, occ, mvcc and sundial when ``repro_torch.core.protocols`` is imported;
 :func:`get_protocol` triggers that import lazily.  Only the dense run is
 ported: ``RunHooks.node_run`` raises.
 """

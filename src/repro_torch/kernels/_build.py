@@ -32,6 +32,10 @@ SIGNATURES: Dict[str, Tuple[str, list]] = {
     "lock_arbiter": ("rt_lock_arbiter", [_P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int, _P]),
     # table, keys, out, R, A, M, stream
     "multi_read": ("rt_multi_read", [_P, _P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _P]),
+    # wts_hi, wts_lo, ctts_hi, ctts_lo, lock_hi, lock_lo, found, slot, ok, M, S, stream
+    "mvcc_version_select": (
+        "rt_mvcc_version_select", [_P] * 9 + [ctypes.c_longlong, ctypes.c_int, _P],
+    ),
 }
 
 _FNS: Dict[str, ctypes._CFuncPtr] = {}

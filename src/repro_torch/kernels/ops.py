@@ -6,14 +6,14 @@ A *kernel plane* is one of
   * ``"torch"``  — scatter-min arbitration and indexed gathers in plain
     PyTorch (the counterpart of the reference's ``"jnp"`` plane);
   * ``"kernel"`` — the hand-written CUDA kernels (``lock_arbiter``,
-    ``multi_read``; the counterpart of ``"pallas"``).  On CPU tensors the
-    same dispatch runs the kernels' plain versions, the CPU tests'
-    counterpart of ``"pallas_interpret"``.
+    ``multi_read``, ``mvcc_version_select``; the counterpart of
+    ``"pallas"``).  On CPU tensors the same dispatch runs the kernels'
+    plain versions, the CPU tests' counterpart of ``"pallas_interpret"``.
 
 ``"auto"`` resolves to ``"kernel"`` on a CUDA device and ``"torch"`` on the
 CPU.  Both planes give bitwise-equal integer counters: the kernels
 implement exactly the reference semantics (lexicographic-min arbitration
-with no index tiebreak, exact int32 gathers).
+with no index tiebreak, exact int32 gathers, first-index version picks).
 """
 from __future__ import annotations
 
@@ -22,6 +22,7 @@ import torch
 from repro_torch.core.arbiter import scatter_min_winner
 from repro_torch.kernels.lock_arbiter import lock_arbiter
 from repro_torch.kernels.multi_read import multi_read
+from repro_torch.kernels.mvcc_version_select import mvcc_version_select
 
 TORCH = "torch"
 KERNEL = "kernel"
@@ -45,7 +46,7 @@ def resolve_plane(plane, device) -> str:
 
 def describe_plane(plane: str) -> str:
     return {
-        TORCH: "plain PyTorch (scatter-min arbitration, indexed gathers)",
+        TORCH: "plain PyTorch (scatter-min arbitration, indexed gathers, inline version picks)",
         KERNEL: "hand-written CUDA kernels (plain versions on CPU tensors)",
     }[plane]
 
@@ -69,11 +70,15 @@ def cas_arbitrate(keys, prio_hi, prio_lo, active, n_records: int, *, plane: str 
     return won[0]
 
 
-def version_select(wts_hi, wts_lo, ctts_hi, ctts_lo, lock_hi, lock_lo, *, plane: str = TORCH):
-    """MVCC Cond R1/R2 version pick: not ported yet."""
-    raise NotImplementedError(
-        "version_select (mvcc_version_select) is not ported yet: ROADMAP B.3"
-    )
+def version_select(wts_hi, wts_lo, ctts_hi, ctts_lo, lock_hi, lock_lo):
+    """MVCC Cond R1 slot pick + Cond R2 lock check over a flat op batch, on
+    the kernel plane (the torch plane picks inline: ``mvcc._best_version``).
+
+    wts_* (M, S), the rest (M,) int32 -> (found, slot, r2_ok).  Inputs may be
+    views (``unpack_rows`` hands out column slices): the kernel gets
+    contiguous copies."""
+    args = (wts_hi, wts_lo, ctts_hi, ctts_lo, lock_hi, lock_lo)
+    return mvcc_version_select(*(a.contiguous() for a in args))
 
 
 def gather_rows_batch(table, keys, *, plane: str = TORCH):

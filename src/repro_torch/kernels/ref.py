@@ -8,6 +8,8 @@ from __future__ import annotations
 
 import torch
 
+_I32_MIN = -(2**31)
+
 
 def lock_arbiter_ref(keys, prio_hi, prio_lo, active):
     """(G, M) -> won (G, M): per-group per-key lexicographic
@@ -26,3 +28,33 @@ def multi_read_ref(table, keys):
     inside = (keys >= 0) & (keys < R)
     out = table[torch.clamp(keys, 0, max(R - 1, 0)).long()]
     return torch.where(inside[:, None], out, 0)
+
+
+def mvcc_version_select_ref(wts_hi, wts_lo, ctts_hi, ctts_lo, lock_hi, lock_lo):
+    """wts_* (M, S), the rest (M,) int32 -> (found (M,) bool, slot (M,)
+    int32, r2_ok (M,) bool).
+
+    Cond R1: the slot with the lexicographically largest signed
+    (wts_hi, wts_lo) strictly below (ctts_hi, ctts_lo), empty (0, 0) slots
+    skipped; ``slot`` is the first index among tied winners, 0 when nothing
+    is found.  Cond R2: the lock is free (0, 0) or ctts < lock.
+    """
+    ch, cl = ctts_hi[:, None], ctts_lo[:, None]
+    lt = (wts_hi < ch) | ((wts_hi == ch) & (wts_lo < cl))
+    cand = lt & ((wts_hi != 0) | (wts_lo != 0))
+    bh = torch.where(cand, wts_hi, _I32_MIN).amax(dim=1, keepdim=True)
+    at_h = cand & (wts_hi == bh)
+    bl = torch.where(at_h, wts_lo, _I32_MIN).amax(dim=1, keepdim=True)
+    slot = first_true(at_h & (wts_lo == bl))
+    free = (lock_hi == 0) & (lock_lo == 0)
+    after = (ctts_hi < lock_hi) | ((ctts_hi == lock_hi) & (ctts_lo < lock_lo))
+    return cand.any(dim=1), slot, free | after
+
+
+def first_true(mask):
+    """Index of the first True along the last axis, 0 where there is none
+    (``jnp.argmax`` of a bool mask), int32."""
+    S = mask.shape[-1]
+    idx = torch.arange(S, dtype=torch.int32, device=mask.device)
+    first = torch.where(mask, idx, S).amin(dim=-1)
+    return torch.where(first == S, 0, first).to(torch.int32)

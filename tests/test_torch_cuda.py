@@ -12,6 +12,7 @@ import torch
 from repro_torch.kernels import ref
 from repro_torch.kernels.lock_arbiter import lock_arbiter
 from repro_torch.kernels.multi_read import multi_read
+from repro_torch.kernels.mvcc_version_select import mvcc_version_select
 
 pytestmark = pytest.mark.cuda
 
@@ -63,10 +64,53 @@ def test_multi_read_cuda_matches_plain(card, R, M, A):
     assert torch.equal(got.cpu(), ref.multi_read_ref(table, keys))
 
 
-def test_kernel_plane_matches_torch_plane_on_the_card(card):
+def _version_case(M, S, seed, kind):
+    """Narrow words (ties, empty slots, ctts == wts all occur) or one edge
+    case: all slots empty, ctts equal to a wts, tied winners, lock == ctts,
+    int32 extremes."""
+    rng = np.random.default_rng(seed)
+    wh, wl = (rng.integers(-2, 3, (M, S)).astype(np.int32) for _ in range(2))
+    ch, cl = (rng.integers(-2, 3, M).astype(np.int32) for _ in range(2))
+    lh, ll = (rng.integers(-1, 2, M).astype(np.int32) for _ in range(2))
+    if kind == "empty":
+        wh[:], wl[:] = 0, 0
+    elif kind == "ctts_eq" and M:
+        pick = rng.integers(0, S, M)
+        ch, cl = wh[np.arange(M), pick].copy(), wl[np.arange(M), pick].copy()
+    elif kind == "ties":
+        wh[:, : S // 2 + 1], wl[:, : S // 2 + 1] = 1, 1
+        wh[:, 0] = 0
+        ch[:], cl[:] = 1, 2
+    elif kind == "lock_eq":
+        lh, ll = ch.copy(), cl.copy()
+    elif kind == "extremes":
+        words = np.array([-(2**31), -(2**31) + 1, -1, 0, 1, 2**31 - 2, 2**31 - 1], np.int32)
+        wh, wl = (words[rng.integers(0, 7, (M, S))] for _ in range(2))
+        ch, cl, lh, ll = (words[rng.integers(0, 7, M)] for _ in range(4))
+    return [torch.tensor(a) for a in (wh, wl, ch, cl, lh, ll)]
+
+
+@pytest.mark.parametrize(
+    "M,S,kind",
+    [(2400, 4, "random"), (2400, 1, "random"), (2400, 16, "random"), (0, 4, "random"), (1, 3, "random"),
+     (37, 8, "empty"), (37, 4, "ctts_eq"), (37, 4, "ties"), (37, 2, "lock_eq"), (37, 4, "extremes")],
+)
+def test_mvcc_version_select_cuda_matches_plain(card, M, S, kind):
+    args = _version_case(M, S, M * 7 + S, kind)
+    n = mvcc_version_select.launches
+    got = mvcc_version_select(*[a.to(card) for a in args])
+    assert mvcc_version_select.launches == n + (1 if M else 0)
+    for g, w in zip(got, ref.mvcc_version_select_ref(*args)):
+        assert g.dtype == w.dtype and torch.equal(g.cpu(), w)
+    if kind == "ties":
+        assert bool((got[1] == 1).all())
+
+
+@pytest.mark.parametrize("protocol,workload", [("nowait", "smallbank"), ("mvcc", "ycsb")])
+def test_kernel_plane_matches_torch_plane_on_the_card(card, protocol, workload):
     from repro_torch.api import ExperimentSpec, run
 
-    kw = dict(protocol="nowait", workload="smallbank", configs=[{"hybrid": c} for c in (0, 63, 21, 42)],
+    kw = dict(protocol=protocol, workload=workload, configs=[{"hybrid": c} for c in (0, 63, 21, 42)],
               n_nodes=2, coroutines=6, records_per_node=64, ticks=32, warmup=4)
     k_rows = run(ExperimentSpec(kernel_plane="kernel", **kw)).rows
     t_rows = run(ExperimentSpec(kernel_plane="torch", **kw)).rows

@@ -17,6 +17,7 @@ from repro.core import arbiter as jarb
 from repro.core import costmodel as jcm
 from repro.core import engine as jeng
 from repro.core.registry import get_protocol as jget_protocol
+from repro.core.registry import protocol_family
 from repro.core.store import init_store as jinit_store
 from repro.workloads import make_workload as jmake_workload
 from repro_torch import convert
@@ -46,22 +47,21 @@ def _hybrid(code):
 
 
 def _pair(proto, code, plane="torch", *, active_coroutines=None, active_records_per_node=None,
-          merge_stages=False, cm=None, seed=3):
+          merge_stages=False, cm=None, seed=3, workload="smallbank", wkw=None):
     """(JAX side, port side): each an (ec, cm, wl, tick) tuple.  Under record
     padding the workload draws over the active (logical) record space."""
     n_rec = SHAPE["n_nodes"] * (active_records_per_node or SHAPE["records_per_node"])
+    jwl = jmake_workload(workload, n_rec, **(wkw or {}))
+    twl = tmake_workload(workload, n_rec, **(wkw or {}))
     common = dict(
-        protocol=proto, **SHAPE, rw=2, max_ops=2, hybrid=_hybrid(code), seed=seed,
+        protocol=proto, **SHAPE, rw=jwl.rw, max_ops=jwl.max_ops, hybrid=_hybrid(code), seed=seed,
         active_coroutines=active_coroutines, active_records_per_node=active_records_per_node,
         merge_stages=merge_stages,
     )
-    jside = (
-        jeng.EngineConfig(**common), cm[0] if cm else jcm.CostModel(),
-        jmake_workload("smallbank", n_rec), _jtick(proto),
-    )
+    jside = (jeng.EngineConfig(**common), cm[0] if cm else jcm.CostModel(), jwl, _jtick(proto))
     tside = (
         teng.EngineConfig(**common, kernel_plane=plane, device="cpu"), cm[1] if cm else tcm.CostModel(),
-        tmake_workload("smallbank", n_rec), tget_protocol(proto).tick,
+        twl, tget_protocol(proto).tick,
     )
     return jside, tside
 
@@ -104,16 +104,28 @@ CASES = [
     ("waitdie", 63, "kernel", dict(active_coroutines=5, active_records_per_node=48)),
     ("nowait", 63, "kernel", dict(merge_stages=True)),
     ("waitdie", 0, "torch", dict(cm=(jcm.CostModel.tcp(), tcm.CostModel.tcp()))),
+    ("mvcc", 63, "kernel", dict(workload="ycsb", wkw=dict(hot_prob=0.6))),
+    ("mvcc", 21, "torch", dict(workload="ycsb", wkw=dict(hot_prob=0.6))),
+    ("mvcc", 42, "kernel", dict(active_coroutines=5, active_records_per_node=48)),
+    ("occ", 21, "kernel", dict(workload="ycsb", wkw=dict(hot_prob=0.6))),
+    ("occ", 63, "torch", dict(merge_stages=True)),
+    ("sundial", 42, "kernel", dict(workload="ycsb", wkw=dict(hot_prob=0.6))),
+    ("sundial", 0, "torch", {}),
+    ("waitdie", 63, "kernel", dict(workload="ycsb", wkw=dict(hot_prob=0.6))),
+    ("waitdie", 21, "torch", dict(workload="tpcc")),
 ]
 
 
-@pytest.mark.parametrize("proto,code,plane,over", CASES, ids=[f"{c[0]}-{c[1]}-{c[2]}-{'-'.join(c[3]) or 'plain'}" for c in CASES])
+@pytest.mark.parametrize("proto,code,plane,over", CASES, ids=[
+    f"{c[0]}-{c[1]}-{c[2]}-{'-'.join(str(v) if k == 'workload' else k for k, v in c[3].items() if k != 'wkw') or 'plain'}"
+    for c in CASES])
 def test_tick_by_tick_matches_jax(proto, code, plane, over):
     (jec, jc, jwl, jtick), (tec, tc, twl, ttick) = _pair(proto, code, plane, **over)
+    family = protocol_family(proto)
     jst = jeng.init_state(jec, jwl)
-    jstore = jinit_store("twopl", jec.n_records, jwl.rw, jwl.init_value)
+    jstore = jinit_store(family, jec.n_records, jwl.rw, jwl.init_value)
     tst, tstore = convert.from_numpy(_np(jst), "cpu"), convert.from_numpy(_np(jstore), "cpu")
-    _assert_same(jstore, tinit_store("twopl", tec.n_records, twl.rw, twl.init_value, device="cpu"), "init store")
+    _assert_same(jstore, tinit_store(family, tec.n_records, twl.rw, twl.init_value, device="cpu"), "init store")
     _assert_same(jst, teng.init_state(tec, twl), "init state")
     commits = 0
     for t in range(32):
@@ -216,3 +228,24 @@ def test_summarize_matches(mid_run):
         np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]), err_msg=k)
     for k in ("avg_latency_us", "stage_us_per_commit"):
         np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]), rtol=RTOL, err_msg=k)
+
+
+@pytest.mark.parametrize("M,n_records,seed", [(1, 4, 0), (37, 9, 1), (2400, 262144, 2), (2400, 64, 3), (0, 8, 4)])
+def test_scatter_ts_max_matches_jax(M, n_records, seed):
+    """Lexicographic scatter-max with duplicate keys, ties on hi, inactive
+    requests and drop-sentinel indices (>= n_records), against the JAX one."""
+    rng = np.random.default_rng(seed)
+    hi_arr = rng.integers(-3, 4, n_records).astype(np.int32)
+    lo_arr = rng.integers(-3, 4, n_records).astype(np.int32)
+    idx = rng.integers(0, min(n_records, 16), M).astype(np.int32)  # many duplicate keys
+    idx[rng.random(M) < 0.1] = n_records  # the drop sentinel
+    ch = rng.integers(-3, 4, M).astype(np.int32)  # narrow: hi ties are common
+    cl = rng.integers(-(2**31), 2**31 - 1, M, dtype=np.int64).astype(np.int32)
+    active = rng.random(M) < 0.7
+    common = dict(protocol="mvcc", n_nodes=1, coroutines=1, records_per_node=n_records)
+    want = jeng.scatter_ts_max(jeng.EngineConfig(**common), *map(jnp.asarray, (hi_arr, lo_arr, idx, ch, cl, active)))
+    got = teng.scatter_ts_max(teng.EngineConfig(**common, device="cpu"), *map(torch.tensor, (hi_arr, lo_arr, idx, ch, cl, active)))
+    for w, g in zip(want, got):
+        assert g.dtype == torch.int32
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    assert M < 37 or (got[0].numpy() != hi_arr).any()  # some maxima land

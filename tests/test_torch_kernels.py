@@ -15,10 +15,13 @@ from repro.core.arbiter import scatter_min_winner as j_scatter_min_winner
 from repro.kernels import ref as jref
 from repro.kernels.lock_arbiter import lock_arbiter as j_lock_arbiter
 from repro.kernels.multi_read import multi_read as j_multi_read
+from repro.kernels.mvcc_version_select import mvcc_version_select as j_mvcc_version_select
 from repro_torch.core.arbiter import scatter_min_winner
 from repro_torch.kernels import ops
 from repro_torch.kernels.lock_arbiter import lock_arbiter
 from repro_torch.kernels.multi_read import multi_read
+from repro_torch.kernels.mvcc_version_select import mvcc_version_select
+from repro_torch.kernels.ref import mvcc_version_select_ref
 
 I32_MIN, I32_MAX = -(2**31), 2**31 - 1
 
@@ -125,12 +128,19 @@ def test_gather_many_planes_agree_and_unpack():
 
 
 def test_wrappers_check_inputs_and_count_only_cuda_launches():
-    before = (lock_arbiter.launches, multi_read.launches)
+    before = (lock_arbiter.launches, multi_read.launches, mvcc_version_select.launches)
     k = torch.zeros((1, 4), dtype=torch.int32)
     b = torch.zeros((1, 4), dtype=torch.bool)
     lock_arbiter(k, k, k, b)
     multi_read(torch.zeros((4, 2), dtype=torch.int32), k[0])
-    assert (lock_arbiter.launches, multi_read.launches) == before  # plain versions ran
+    mvcc_version_select(k, k, k[0, :1], k[0, :1], k[0, :1], k[0, :1])
+    assert (lock_arbiter.launches, multi_read.launches, mvcc_version_select.launches) == before  # plain versions ran
+    with pytest.raises(ValueError, match="contiguous"):
+        mvcc_version_select(torch.zeros((4, 2), dtype=torch.int32).t(), k, k[0, :1], k[0, :1], k[0, :1], k[0, :1])
+    with pytest.raises(ValueError, match="shape"):
+        mvcc_version_select(k, k, k[0], k[0, :1], k[0, :1], k[0, :1])
+    with pytest.raises(TypeError, match="int32"):
+        mvcc_version_select(k, k.long(), k[0, :1], k[0, :1], k[0, :1], k[0, :1])
     with pytest.raises(TypeError, match="int32"):
         lock_arbiter(k.long(), k, k, b)
     with pytest.raises(ValueError, match="shape"):
@@ -142,10 +152,71 @@ def test_wrappers_check_inputs_and_count_only_cuda_launches():
 
 
 def test_unported_kernels_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP B.3"):
-        ops.version_select(*([None] * 6))
     with pytest.raises(NotImplementedError, match="ROADMAP B.4"):
         ops.attention_op(None, None, None)
+
+
+def _version_case(M, S, seed, kind):
+    """A version-select batch of one ``kind``: "random" (narrow words, so
+    ties, empty slots and ctts equal to a wts all occur), "empty" (every
+    slot (0, 0)), "ctts_eq" (every ctts equals one of its row's wts),
+    "ties" (the winning pair repeated in several slots), "lock_eq" (lock ==
+    ctts) or "extremes" (int32 MIN/MAX words)."""
+    rng = np.random.default_rng(seed)
+    wh = rng.integers(-2, 3, (M, S)).astype(np.int32)
+    wl = rng.integers(-2, 3, (M, S)).astype(np.int32)
+    ch = rng.integers(-2, 3, M).astype(np.int32)
+    cl = rng.integers(-2, 3, M).astype(np.int32)
+    lh = rng.integers(-1, 2, M).astype(np.int32)
+    ll = rng.integers(-1, 2, M).astype(np.int32)
+    rows = np.arange(M)
+    if kind == "empty":
+        wh[:], wl[:] = 0, 0
+    elif kind == "ctts_eq" and M:
+        pick = rng.integers(0, S, M)
+        ch, cl = wh[rows, pick].copy(), wl[rows, pick].copy()
+    elif kind == "ties" and M:
+        wh[:, : S // 2 + 1], wl[:, : S // 2 + 1] = 1, 1
+        ch[:], cl[:] = 1, 2
+        wh[:, 0] = 0  # slot 0 is below the tie, so the first winner is slot 1
+    elif kind == "lock_eq":
+        lh, ll = ch.copy(), cl.copy()
+    elif kind == "extremes":
+        words = np.array([I32_MIN, I32_MIN + 1, -1, 0, 1, I32_MAX - 1, I32_MAX], np.int32)
+        wh, wl = (words[rng.integers(0, 7, (M, S))] for _ in range(2))
+        ch, cl, lh, ll = (words[rng.integers(0, 7, M)] for _ in range(4))
+    return wh, wl, ch, cl, lh, ll
+
+
+VERSION_CASES = [(M, S, kind) for S in (1, 2, 4, 16) for M, kind in (
+    (1, "random"), (37, "random"), (2400, "random"), (0, "random"), (37, "empty"), (37, "ctts_eq"),
+    (37, "ties"), (37, "lock_eq"), (37, "extremes"),
+)]
+
+
+@pytest.mark.parametrize("M,S,kind", VERSION_CASES)
+def test_mvcc_version_select_plain_matches_pallas_and_ref(M, S, kind):
+    args = _version_case(M, S, M * 31 + S, kind)
+    got = [t.numpy() for t in mvcc_version_select(*map(torch.tensor, args))]
+    kern = [t.numpy() for t in ops.version_select(*map(torch.tensor, args))]
+    plain = [t.numpy() for t in mvcc_version_select_ref(*map(torch.tensor, args))]
+    if M:
+        pallas = [np.asarray(t) for t in j_mvcc_version_select(*map(jnp.asarray, args), interpret=True)]
+    else:  # the Pallas kernel's grid cannot be empty: its plain reference stands in
+        pallas = [np.asarray(t) for t in jref.mvcc_version_select_ref(*map(jnp.asarray, args))]
+    jax_ref = [np.asarray(t) for t in jref.mvcc_version_select_ref(*map(jnp.asarray, args))]
+    for name, g, k, p, pa, r in zip(("found", "slot", "r2_ok"), got, kern, plain, pallas, jax_ref):
+        assert g.dtype == pa.dtype and g.shape == (M,), name
+        for other in (k, p, pa, r):
+            np.testing.assert_array_equal(g, other, err_msg=f"{name} {kind}")
+    if kind == "ties" and S > 1:
+        np.testing.assert_array_equal(got[1], 1)
+    if kind == "empty":
+        assert not got[0].any() and not got[1].any()
+    if kind == "ctts_eq":  # strictly below: the equal slot never wins
+        wh, wl, ch, cl = args[:4]
+        picked = np.stack([wh[np.arange(M), got[1]], wl[np.arange(M), got[1]]])
+        assert not (got[0] & (picked[0] == ch) & (picked[1] == cl)).any()
 
 
 def test_auto_plane_follows_the_device():

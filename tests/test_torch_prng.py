@@ -108,3 +108,31 @@ def test_smallbank_gen_matches_vmapped_jax(n_records, seed):
     for w, g in zip(want, got):
         assert np.asarray(w).dtype == g.numpy().dtype
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+@pytest.mark.parametrize("n_records", [128, 262144, 50])
+@pytest.mark.parametrize("workload,kw", [("ycsb", {}), ("ycsb", {"hot_prob": 0.6}), ("tpcc", {})])
+def test_ycsb_tpcc_gen_and_execute_match_vmapped_jax(workload, kw, n_records):
+    """The engine's draw of every slot key by key (randint with a nonzero
+    minval, float32 hot/write/remote thresholds, tpcc's shape-() n_items,
+    the sequential de-duplication), and the vectorised execute."""
+    jw, tw = jmake_workload(workload, n_records, **kw), tmake_workload(workload, n_records, **kw)
+    rng = np.random.default_rng(n_records)
+    lsid = np.arange(240, dtype=np.int32)
+    node = lsid // 60
+    txn_no = rng.integers(0, 5000, 240).astype(np.int32)
+    key0 = jax.random.PRNGKey(3)
+
+    def gen_one(s, n, t):
+        return jw.gen(jax.random.fold_in(jax.random.fold_in(key0, s), t), n, s)
+
+    want = jax.vmap(gen_one)(jnp.asarray(lsid), jnp.asarray(node), jnp.asarray(txn_no))
+    keys = prng.fold_in(prng.fold_in(prng.prng_key(3), torch.tensor(lsid)), torch.tensor(txn_no))
+    got = tw.gen(keys, torch.tensor(node), torch.tensor(lsid))
+    for w, g in zip(want, got):
+        assert np.asarray(w).dtype == g.numpy().dtype
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    rvals = rng.integers(-100, 100, (240, tw.max_ops, tw.rw)).astype(np.int32)
+    np.testing.assert_array_equal(
+        tw.execute(*got, torch.tensor(rvals)).numpy(), np.asarray(jax.vmap(jw.execute)(*want, jnp.asarray(rvals)))
+    )

@@ -42,27 +42,56 @@ GOLDEN = os.path.join(
 GOLDEN_SPEC = dict(protocol="nowait", workload="smallbank")
 
 
-def _rows_both(proto, plane, **over):
+# (protocol, workload, knobs of every config, spec overrides).  At this size
+# NOWAIT starves on ycsb's 64-record nodes (0 commits), so its cell has 256.
+CELLS = [
+    ("nowait", "smallbank", {}, {}),
+    ("waitdie", "smallbank", {}, {}),
+    ("nowait", "ycsb", {}, dict(records_per_node=256)),
+    ("waitdie", "ycsb", {"hot_prob": 0.6}, {}),
+    ("occ", "smallbank", {}, {}),
+    ("occ", "ycsb", {"hot_prob": 0.6}, {}),
+    ("mvcc", "smallbank", {}, {}),
+    ("mvcc", "ycsb", {"hot_prob": 0.6}, {}),
+    ("sundial", "smallbank", {}, {}),
+    ("sundial", "ycsb", {"hot_prob": 0.6}, {}),
+]
+_JROWS = {}
+
+
+def _jax_rows(proto, workload, configs, kw):
+    """repro.api rows, run once per distinct spec for the whole module."""
+    key = (proto, workload, repr(configs), repr(sorted(kw.items())))
+    if key not in _JROWS:
+        _JROWS[key] = japi.run(japi.ExperimentSpec(protocol=proto, workload=workload, configs=configs, **kw)).rows
+    return _JROWS[key]
+
+
+def _rows_both(proto, plane, workload="smallbank", knobs=None, **over):
     kw = dict(KW, **over)
-    configs = kw.pop("configs", [{"hybrid": c} for c in CODES])
-    j = japi.run(japi.ExperimentSpec(protocol=proto, workload="smallbank", configs=configs, **kw)).rows
+    configs = kw.pop("configs", [dict({"hybrid": c}, **(knobs or {})) for c in CODES])
+    j = _jax_rows(proto, workload, configs, kw)
     t = tapi.run(
         tapi.ExperimentSpec(
-            protocol=proto, workload="smallbank", configs=configs, kernel_plane=plane, device="cpu", **kw
+            protocol=proto, workload=workload, configs=configs, kernel_plane=plane, device="cpu", **kw
         )
     ).rows
     return j, t
 
 
+def _cell_id(proto, workload):
+    return proto if workload == "smallbank" else f"{proto}-{workload}"
+
+
 @pytest.mark.parametrize("plane", ["torch", "kernel"])
-@pytest.mark.parametrize("proto", ["nowait", "waitdie"])
-def test_slice_rows_match_reference(proto, plane):
-    j_rows, t_rows = _rows_both(proto, plane)
+@pytest.mark.parametrize("proto,workload,knobs,over", CELLS, ids=[_cell_id(*c[:2]) for c in CELLS])
+def test_slice_rows_match_reference(proto, workload, knobs, over, plane):
+    j_rows, t_rows = _rows_both(proto, plane, workload, knobs, **over)
     assert len(j_rows) == len(t_rows) == len(CODES)
     assert sum(r["commits"] for r in j_rows) > 0 and sum(r["aborts"] for r in j_rows) > 0
     for a, b in zip(j_rows, t_rows):
         for k in EXACT:
-            assert a[k] == b[k], (proto, plane, a["hybrid"], k, a[k], b[k])
+            assert a[k] == b[k], (proto, workload, plane, a["hybrid"], k, a[k], b[k])
         for k in LATENCY:
             np.testing.assert_allclose(b[k], a[k], rtol=RTOL, err_msg=k)
         for k in ("hybrid", "protocol", "workload", "grid_size", "coroutines", "records_per_node", "ticks"):
@@ -80,28 +109,55 @@ def test_slice_merge_stages_matches_reference(plane):
             np.testing.assert_allclose(b[k], a[k], rtol=RTOL, err_msg=k)
 
 
-@pytest.mark.parametrize("plane", ["torch", "kernel"])
-@pytest.mark.parametrize("proto,code", [("nowait", 21), ("waitdie", 42)])
-def test_final_store_matches_reference(proto, code, plane):
-    """engine.run on both sides: final store and state counters bitwise."""
-    n_rec = KW["n_nodes"] * KW["records_per_node"]
-    hybrid = tuple((code >> i) & 1 for i in range(6))
-    common = dict(
+STORE_CELLS = [
+    ("nowait", 21, "smallbank", {}),
+    ("waitdie", 42, "smallbank", {}),
+    ("waitdie", 63, "ycsb", dict(hot_prob=0.6)),
+    ("occ", 42, "ycsb", dict(hot_prob=0.6)),
+    ("mvcc", 63, "ycsb", dict(hot_prob=0.6)),
+    ("mvcc", 21, "smallbank", {}),
+    ("sundial", 21, "ycsb", dict(hot_prob=0.6)),
+    ("sundial", 63, "tpcc", {}),
+]
+_JRUNS = {}
+
+
+def _jax_engine_run(proto, code, workload, wkw):
+    key = (proto, code, workload, repr(sorted(wkw.items())))
+    if key not in _JRUNS:
+        n_rec = KW["n_nodes"] * KW["records_per_node"]
+        wl = jmake_workload(workload, n_rec, **wkw)
+        ec = jeng.EngineConfig(**_engine_common(proto, code, wl))
+        _JRUNS[key] = jeng.run(jget_protocol(proto).tick, ec, JCostModel(), wl, KW["ticks"], warmup=KW["warmup"])
+    return _JRUNS[key]
+
+
+def _engine_common(proto, code, wl):
+    return dict(
         protocol=proto, n_nodes=KW["n_nodes"], coroutines=KW["coroutines"],
-        records_per_node=KW["records_per_node"], rw=2, max_ops=2, hybrid=hybrid, seed=5,
+        records_per_node=KW["records_per_node"], rw=wl.rw, max_ops=wl.max_ops,
+        hybrid=tuple((code >> i) & 1 for i in range(6)), seed=5,
     )
-    jst, jstore, jm = jeng.run(
-        jget_protocol(proto).tick, jeng.EngineConfig(**common), JCostModel(),
-        jmake_workload("smallbank", n_rec), KW["ticks"], warmup=KW["warmup"],
-    )
+
+
+@pytest.mark.parametrize("plane", ["torch", "kernel"])
+@pytest.mark.parametrize(
+    "proto,code,workload,wkw", STORE_CELLS,
+    ids=[f"{p}-{c}" if w == "smallbank" else f"{p}-{c}-{w}" for p, c, w, _ in STORE_CELLS],
+)
+def test_final_store_matches_reference(proto, code, workload, wkw, plane):
+    """engine.run on both sides: final store and state counters bitwise."""
+    jst, jstore, jm = _jax_engine_run(proto, code, workload, wkw)
+    twl = tmake_workload(workload, KW["n_nodes"] * KW["records_per_node"], **wkw)
     tst, tstore, tm = teng.run(
-        tget_protocol(proto).tick, teng.EngineConfig(**common, kernel_plane=plane, device="cpu"),
-        TCostModel(), tmake_workload("smallbank", n_rec), KW["ticks"], warmup=KW["warmup"],
+        tget_protocol(proto).tick,
+        teng.EngineConfig(**_engine_common(proto, code, twl), kernel_plane=plane, device="cpu"),
+        TCostModel(), twl, KW["ticks"], warmup=KW["warmup"],
     )
     assert set(jstore) == set(tstore)
     for k in jstore:
         np.testing.assert_array_equal(tstore[k].numpy(), np.asarray(jstore[k]), err_msg=k)
-    for k in ("n_commit", "n_abort", "txn_no", "keys", "stage", "rounds"):
+    for k in ("n_commit", "n_abort", "txn_no", "keys", "stage", "rounds", "clock", "ts_hi"):
         np.testing.assert_array_equal(tst[k].numpy(), np.asarray(jst[k]), err_msg=k)
     assert int(tm["commits"]) == int(jm["commits"]) > 0
 
@@ -130,10 +186,10 @@ def test_plan_names_plane_and_device_and_rejects_unported_layouts():
         with pytest.raises(NotImplementedError, match="ROADMAP A.9"):
             tapi.plan(tapi.ExperimentSpec(protocol="nowait", workload="smallbank", device="cpu",
                                           **dict(KW, **bad)))
-    with pytest.raises(KeyError, match="unknown protocol 'occ'"):
-        tapi.plan(tapi.ExperimentSpec(protocol="occ", workload="smallbank", device="cpu", **KW))
-    with pytest.raises(NotImplementedError, match="ROADMAP A.2"):
-        tapi.run(tapi.ExperimentSpec(protocol="nowait", workload="ycsb", device="cpu", **KW))
+    with pytest.raises(KeyError, match="unknown protocol 'calvin'"):
+        tapi.plan(tapi.ExperimentSpec(protocol="calvin", workload="smallbank", device="cpu", **KW))
+    with pytest.raises(NotImplementedError, match="ROADMAP A.9/A.10"):
+        tapi.run(tapi.ExperimentSpec(protocol="mvcc", workload="ycsb", device="cpu", layout="node", **KW))
 
 
 def golden_rows():
