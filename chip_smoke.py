@@ -7,24 +7,35 @@ Run from a checkout of the repository on a machine with one CUDA card and
 ``nvcc``.  In order, one line (or block) per phase:
 
 1. the card's name and power limit, as ``nvidia-smi`` gives them;
-2. the hand-written CUDA kernels built from ``src/repro_torch/kernels/csrc``;
-3. each kernel held against its plain PyTorch version on the card, exactly,
-   at every main path's shapes and at edge cases, then, at each main path's
-   shapes, its device time per call (calls captured in a CUDA graph,
-   replayed between CUDA events), its time per call as the host issues them
-   eagerly, its bound, the plain version's times and a library call's times;
-   then one tick of each main path (NOWAIT/SmallBank and MVCC/YCSB, hybrid
-   63, kernel plane) timed bare and traced with torch.profiler: wall time,
-   device busy time, device operations and top-level host operations per
-   tick (and, for YCSB, the share of its sequential key de-duplication);
-4. the main paths: ``repro_torch.api.run`` at the full ExperimentSpec
+2. the hand-written CUDA kernels built from ``src/repro_torch/kernels/csrc``
+   (one nvcc process per source, all at once);
+3. each kernel held against its plain PyTorch version on the card (the
+   RCC kernels exactly; ``flash_attention`` within 1e-5 in float32 and
+   3e-2 in bfloat16) at every main path's shapes and at edge cases, then,
+   at each main path's shapes, its device time per call (calls captured in
+   a CUDA graph, replayed between CUDA events), its time per call as the
+   host issues them eagerly, its bound, the plain version's times and a
+   library call's times (``flash_attention``: SDPA); then one tick of each
+   RCC main path (NOWAIT/SmallBank and MVCC/YCSB, hybrid 63, kernel plane)
+   timed bare and traced with torch.profiler: wall time, device busy time,
+   device operations and top-level host operations per tick (and, for
+   YCSB, the share of its sequential key de-duplication);
+4. the RCC main paths: ``repro_torch.api.run`` at the full ExperimentSpec
    defaults (4 nodes x 60 co-routines, 65536 records per node, 400 + 80
    ticks) for hybrid codes {0, 63, 21, 42} on the ``"kernel"`` plane, with
    the kernels' launch counts, for NOWAIT/SmallBank and then MVCC/YCSB
    (16-word records, 10 ops per txn, 4 version slots);
 5. the same specs on the ``"torch"`` plane (MVCC/YCSB for hybrid 63 only),
    whose counters must be equal;
-6. phase 4's counters against the JAX reference's golden files.
+6. phase 4's counters against the JAX reference's golden files;
+7. the LM serving path, stablelm-1.6b at full width in float32 with TF32
+   off: ``init_lm`` from seed 0 on the card (checked against the reference's
+   weights), a 2 x 256-token, 8-step run against the JAX reference's
+   full-width golden file, a profiled prefill and decode step (device busy
+   time and idle share), then the main path ``serve`` (4 prompts of 2048
+   tokens, 32 tokens each) on the ``"kernel"`` plane, whose prefill must
+   launch ``flash_attention`` once per layer, and on the ``"torch"`` plane,
+   whose prefill logits and decided greedy tokens must agree.
 
 It prints a JSON line of kernel measurements (each kernel's times are the
 mean over its main-path launches; ``by_path`` holds them per main path),
@@ -51,8 +62,8 @@ PATHS = (
 )
 # kernel launches per tick on each path's kernel plane
 PER_TICK = {
-    "nowait": {"lock_arbiter": 1, "multi_read": 2, "mvcc_version_select": 0},
-    "mvcc": {"lock_arbiter": 1, "multi_read": 11, "mvcc_version_select": 3},
+    "nowait": {"lock_arbiter": 1, "multi_read": 2, "mvcc_version_select": 0, "flash_attention": 0},
+    "mvcc": {"lock_arbiter": 1, "multi_read": 11, "mvcc_version_select": 3, "flash_attention": 0},
 }
 # H100 SXM peaks: the HBM3 rate (NVIDIA data sheet), and the INT32 issue rate
 # that bounds integer compares and selects: 132 SMs x 64 INT32 lanes per SM x
@@ -61,6 +72,17 @@ PER_TICK = {
 # INT32 lanes)
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
+# float32 FMA outside the tensor cores (NVIDIA data sheet, H100 SXM): the flash_attention bound
+FP32_FLOPS_PER_S = 67e12
+# the LM serving main path: stablelm-1.6b at full width, float32
+SERVE = dict(batch=4, prompt_len=2048, gen_len=32, page_size=16)
+SERVE_PATH = "serve/stablelm-1.6b"
+# logits tolerance of the serving phase (absolute; logits have std 0.88).  The port
+# on the CPU is within 7.9e-6 of the JAX reference at full width (the golden file's
+# port_cpu_max_abs_logit_gap); 1e-4 leaves 12x that for the card's other summation
+# order (cuBLAS float32 products, the kernel's online softmax).  Greedy tokens must
+# agree wherever the top-1/top-2 margin exceeds 10x this.
+LOGIT_TOL = 1e-4
 
 
 def log(*parts):
@@ -109,10 +131,11 @@ def time_graph_ms(fn, *, reps=100):
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(n_bytes, n_ops):
+def bound_ms(n_bytes, n_ops, ops_per_s=INT32_OPS_PER_S):
     """Least time for the work: the larger of bytes over the memory rate
-    and integer operations over the INT32 rate."""
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / INT32_OPS_PER_S
+    and operations over the card's peak rate for their type (integer
+    operations by default)."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / ops_per_s
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -239,6 +262,7 @@ def phase_kernels():
         replaces="src/repro/kernels/multi_read.py:41", max_abs_err=float(worst), by_path=by_path,
     ))
     rows.append(phase_version_select(gen))
+    rows.append(phase_flash(gen))
     return rows
 
 
@@ -318,6 +342,83 @@ def phase_version_select(gen):
         name="mvcc_version_select", route="cuda", source="src/repro_torch/kernels/csrc/mvcc_version_select.cu",
         replaces="src/repro/kernels/mvcc_version_select.py:47", max_abs_err=float(worst),
         by_path={"mvcc/ycsb": dict(t, M=M, S=S)},
+    )
+
+
+def attn_inputs(B, H, Sq, Sk, Dh, dtype, gen, *, bshd=False):
+    """q (B, H, Sq, Dh), k/v (B, H, Sk, Dh) on the card; with ``bshd`` they
+    are (B, S, H, Dh) storage seen through a transpose, as the LM's
+    ``attention_op`` hands them over."""
+    import torch
+
+    def one(S):
+        t = torch.randn((B, S, H, Dh) if bshd else (B, H, S, Dh), generator=gen).to(dtype).cuda()
+        return t.transpose(1, 2) if bshd else t
+
+    return one(Sq), one(Sk), one(Sk)
+
+
+def attn_work(B, H, Sq, Sk, Dh, causal, elem):
+    """(bytes, flops) the attention must move and do: q, k, v read once and o
+    written once; two products of 2*Dh flops per unmasked (row, key) pair."""
+    pairs = sum(min(r + 1, Sk) for r in range(Sq)) if causal else Sq * Sk
+    return elem * B * H * Dh * (2 * Sq + 2 * Sk), 4 * B * H * Dh * pairs
+
+
+def phase_flash(gen):
+    """flash_attention against its plain version on the card, in the
+    working dtype (1e-5 in float32, 3e-2 in bfloat16, the reference's
+    tolerances: |err| <= tol + tol*|want|), then timed at the serving shape
+    with the SDPA call as a yardstick."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ref import flash_attention_ref
+
+    tols = {torch.float32: 1e-5, torch.bfloat16: 3e-2}
+    cases = [(2, 3, S, S, Dh, causal, dt, False) for S in (1, 63, 64, 65, 128, 320) for Dh in (32, 64, 128)
+             for causal in (True, False) for dt in tols]
+    cases += [(1, 2, 2048, 2048, Dh, causal, dt, False) for Dh in (32, 64, 128) for causal in (True, False) for dt in tols]
+    cases += [(2, 2, 50, 130, 64, False, dt, False) for dt in tols] + [(1, 2, 300, 77, 128, False, dt, False) for dt in tols]
+    cases += [(1, 2, 130, 50, 32, True, torch.float32, False), (1, 2, 50, 130, 64, True, torch.float32, False)]
+    cases += [(4, 32, 2048, 2048, 64, True, torch.float32, True), (2, 32, 256, 256, 64, True, torch.float32, True)]
+    worst = {dt: 0.0 for dt in tols}
+    for B, H, Sq, Sk, Dh, causal, dt, bshd in cases:
+        q, k, v = attn_inputs(B, H, Sq, Sk, Dh, dt, gen, bshd=bshd)
+        got = flash_attention(q, k, v, causal=causal)
+        want = flash_attention_ref(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs()
+        worst[dt] = max(worst[dt], float(err.max()))
+        excess = float((err - tols[dt] * (1 + want.float().abs())).max())
+        if excess > 0 or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"flash_attention disagrees with its plain version at B={B} H={H} Sq={Sq} Sk={Sk} "
+                                 f"Dh={Dh} causal={causal} {dt}: max |err| {float(err.max())}")
+    log(f"  flash_attention: {len(cases)} cases within tolerance; max |err| float32 {worst[torch.float32]:.3e}, "
+        f"bfloat16 {worst[torch.bfloat16]:.3e}")
+
+    B, H, S, Dh = 4, 32, 2048, 64  # the serving prefill's call, as attention_op makes it
+    q, k, v = attn_inputs(B, H, S, S, Dh, torch.float32, gen, bshd=True)
+    qc, kc, vc = (t.contiguous() for t in (q, k, v))
+    fn = lambda: flash_attention(q, k, v, causal=True)  # noqa: E731
+    plain = lambda: flash_attention_ref(q, k, v, causal=True)  # noqa: E731
+    sdpa = lambda: F.scaled_dot_product_attention(qc, kc, vc, is_causal=True)  # noqa: E731
+    t = {"ms": time_graph_ms(fn, reps=10), "plain_ms": time_graph_ms(plain, reps=3),
+         "library_ms": time_graph_ms(sdpa, reps=10), "host_ms": time_ms(fn, reps=10, warm=2),
+         "plain_host_ms": time_ms(plain, reps=3, warm=1), "library_host_ms": time_ms(sdpa, reps=10, warm=2)}
+    sdpa_err = float((sdpa().float() - plain().float()).abs().max())
+    n_bytes, n_flops = attn_work(B, H, S, S, Dh, True, 4)
+    t["bound_ms"], t["bound_by"] = bound_ms(n_bytes, n_flops, FP32_FLOPS_PER_S)
+    log(f"flash_attention ({SERVE_PATH}: B={B}, H={H}, S={S}, Dh={Dh}, causal, float32): {t['ms']:.6f} ms/call "
+        f"on the device ({t['host_ms']:.6f} issued eagerly), plain {t['plain_ms']:.6f} ms ({t['plain_host_ms']:.6f}), "
+        f"SDPA {t['library_ms']:.6f} ms ({t['library_host_ms']:.6f}; max |err| vs plain {sdpa_err:.3e}), "
+        f"bound {t['bound_ms']:.6f} ms ({t['bound_by']}: {n_flops / 1e9:.2f} GFLOP, {n_bytes / 1e6:.1f} MB), "
+        f"{n_flops / t['ms'] / 1e9:.2f} TFLOP/s")
+    return dict(
+        name="flash_attention", route="cuda", source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:70", max_abs_err=worst[torch.float32],
+        max_abs_err_bf16=worst[torch.bfloat16], by_path={SERVE_PATH: dict(t, B=B, H=H, S=S, Dh=Dh)},
     )
 
 
@@ -413,6 +514,194 @@ def phase_profile(protocol, workload, n_ticks=20):
     log("profile: " + json.dumps(prof_line))
 
 
+def ulps(a, b):
+    """Largest float32 ulp distance between two same-sign arrays."""
+    import numpy as np
+
+    a = np.asarray(a, np.float32).view(np.int32).astype(np.int64)
+    b = np.asarray(b, np.float32).view(np.int32).astype(np.int64)
+    return int(np.abs(a - b).max())
+
+
+def margins(logits):
+    """Top-1 minus top-2 logit per (step, request): logits (G, B, V)."""
+    top2 = logits.float().topk(2, dim=-1).values
+    return (top2[..., 0] - top2[..., 1]).cpu()
+
+
+def decided_steps(margin_row):
+    """Steps 0.. up to and including the first whose margin is below 10x the
+    tolerance: those tokens must agree; later ones may follow another token."""
+    for s, m in enumerate(margin_row):
+        if m < 10 * LOGIT_TOL:
+            return s + 1
+    return len(margin_row)
+
+
+def check_init(params, golden):
+    """The card's init_lm against the reference's weights: samples within
+    2 ulp, sums of |w| within 1e-6 relative."""
+    for name, ref in golden["leaves"].items():
+        parts = name.split("/")
+        t = params
+        if ref["layer"] is not None:
+            t = t.layers[ref["layer"]]
+            parts = parts[1:]
+        for part in parts:
+            t = getattr(t, part)
+        sample = t[:2, :8] if ref["corner"] == "head" else t[-2:, -8:]
+        d = ulps(sample.cpu().numpy(), ref["sample"])
+        total = float(t.double().abs().sum())
+        rel = abs(total - ref["abs_sum"]) / ref["abs_sum"]
+        log(f"  init {name}: sample within {d} ulp, sum |w| {total:.6f} vs {ref['abs_sum']:.6f} (rel {rel:.2e})")
+        if d > 2 or rel > 1e-6:
+            raise AssertionError(f"init_lm on the card differs from the reference at {name}")
+
+
+def check_golden(res, golden):
+    """A kernel-plane serve at the golden file's size against the JAX
+    reference's full-width outputs."""
+    import torch
+
+    if res.prompts.cpu().tolist() != golden["prompts"]:
+        raise AssertionError("golden: prompts differ from the reference's randint(PRNGKey(1))")
+    worst = 0.0
+    for b in range(golden["batch"]):
+        ref_m = [st["top_logits"][b][0] - st["top_logits"][b][1] for st in golden["steps"]]
+        n = decided_steps(ref_m)
+        for s in range(n):
+            st = golden["steps"][s]
+            lg = res.logits[s, b].double().cpu()
+            ids = torch.tensor(st["top_ids"][b])
+            got = [lg[ids], lg.max(), torch.logsumexp(lg, 0)]
+            want = [torch.tensor(st["top_logits"][b], dtype=torch.float64), torch.tensor(st["max"][b]),
+                    torch.tensor(st["lse"][b])]
+            err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+            worst = max(worst, err)
+            if err > LOGIT_TOL:
+                raise AssertionError(f"golden: request {b} step {s}: logits off by {err} > {LOGIT_TOL}")
+            if ref_m[s] > 10 * LOGIT_TOL and int(lg.argmax()) != st["top_ids"][b][0]:
+                raise AssertionError(f"golden: request {b} step {s}: top-1 {int(lg.argmax())} != {st['top_ids'][b][0]}")
+            if int(res.tokens[b, s]) != golden["tokens"][b][s]:
+                raise AssertionError(f"golden: request {b} step {s}: token {int(res.tokens[b, s])} != "
+                                     f"{golden['tokens'][b][s]}")
+        log(f"  golden request {b}: {n} of {golden['gen_len']} steps decided (margin > {10 * LOGIT_TOL}); "
+            f"tokens equal, logits within {LOGIT_TOL}")
+    return worst
+
+
+def device_busy(fn):
+    """Wall ms of one synchronised call, the device's busy ms in it
+    (torch.profiler: the sum of the device operations' durations), their
+    count, and the largest kernel families: name -> [launches, ms]."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    dev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in dev) / 1e3
+    fams = {}
+    for e in dev:
+        fam = fams.setdefault(e.name.split("(")[0].strip()[:80], [0, 0.0])
+        fam[0] += 1
+        fam[1] += e.time_range.elapsed_us() / 1e3
+    top = dict(sorted(fams.items(), key=lambda kv: -kv[1][1])[:8])
+    return out, wall, busy, len(dev), top
+
+
+def phase_serve(counted):
+    """The LM serving path at full width on the card: init_lm from seed 0,
+    the golden-file run, a profiled prefill and decode step, then the main
+    path: serve() at SERVE on the kernel plane, launches counted from 0, and
+    the same requests on the torch plane.  Returns the kernel plane's
+    launches by kernel."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import prng
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch.serve import serve
+    from repro_torch.models.decode import lm_decode_step, lm_prefill
+    from repro_torch.models.lm import init_lm
+
+    cfg, _ = get_config("stablelm-1.6b")
+    with open(os.path.join(ROOT, "src", "repro_torch", "data", "golden_serve_stablelm.json")) as f:
+        golden = json.load(f)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = init_lm(prng.prng_key(0), cfg, torch.float32, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    log(f"serve: init_lm({cfg.name}, seed 0) on the card: {n_params:,} parameters in "
+        f"{time.perf_counter() - t0:.3f} s, {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    # the config's analytic count takes one d_model vector per norm; a layernorm also has a bias,
+    # and the final norm is not counted
+    if n_params != cfg.param_count() + 2 * cfg.d_model * (cfg.n_layers + 1):
+        raise AssertionError(f"init_lm: {n_params} parameters, config {cfg.param_count()} + norms")
+    check_init(params, golden)
+
+    g = serve(cfg, batch=golden["batch"], prompt_len=golden["prompt_len"], gen_len=golden["gen_len"],
+              page_size=16, seed=golden["seed"], device="cuda", plane="kernel", params=params)
+    err = check_golden(g, golden)
+    log(f"serve golden ({golden['batch']} x {golden['prompt_len']}, {golden['gen_len']} steps, kernel plane): "
+        f"logits within {err:.3e} of the JAX reference (tolerance {LOGIT_TOL}), tokens {g.tokens.tolist()}")
+
+    # where the time goes: one prefill and one decode step at the main path's shape, profiled
+    with torch.inference_mode():
+        prompts = prng.randint(prng.prng_key(1, "cuda"), (SERVE["batch"], SERVE["prompt_len"]), 0, cfg.vocab_size)
+        pad = SERVE["prompt_len"] + SERVE["gen_len"]
+        lm_prefill(params, cfg, {"tokens": prompts[:, :64]}, pad_to=96, plane="kernel")  # warm-up
+        (logits, cache), p_wall, p_busy, p_ops, p_top = device_busy(
+            lambda: lm_prefill(params, cfg, {"tokens": prompts}, pad_to=pad, plane="kernel"))
+        tok = logits.argmax(-1)
+        lm_decode_step(params, cfg, cache, {"token": tok})  # warm-up: writes slot S, which the next call rewrites
+        _, d_wall, d_busy, d_ops, d_top = device_busy(lambda: lm_decode_step(params, cfg, cache, {"token": tok}))
+        del cache, logits
+    prof = {"prefill_wall_ms": p_wall, "prefill_device_busy_ms": p_busy, "prefill_idle_share": 1 - p_busy / p_wall,
+            "prefill_device_ops": p_ops, "decode_step_wall_ms": d_wall, "decode_step_device_busy_ms": d_busy,
+            "decode_step_idle_share": 1 - d_busy / d_wall, "decode_step_device_ops": d_ops,
+            "prefill_top_launches_and_ms": p_top, "decode_step_top_launches_and_ms": d_top}
+    log("serve profile: " + json.dumps(prof))
+
+    # the main path: counts from 0, then read
+    for fn in counted:
+        fn.launches = 0
+    k = serve(cfg, **SERVE, seed=0, device="cuda", plane="kernel", params=params)
+    got = {fn.__name__: fn.launches for fn in counted}
+    log(f"main path {SERVE_PATH} (kernel plane, B={SERVE['batch']}, prompt {SERVE['prompt_len']}, "
+        f"{SERVE['gen_len']} tokens each, float32): prefill {k.prefill_ms:.3f} ms, decode {k.decode_ms_per_step:.3f} "
+        f"ms/step, {k.tokens_per_s:.1f} tok/s, page table {k.pages_used}/{k.pages_total} used, "
+        f"{k.pages_used_after_release} after release, launches {got}")
+    expect = {fn.__name__: 0 for fn in counted}
+    expect["flash_attention"] = cfg.n_layers
+    if got != expect:
+        raise AssertionError(f"{SERVE_PATH}: kernel launches {got} != {expect} (one flash_attention per prefill layer)")
+    if flash_attention.launches != cfg.n_layers:
+        raise AssertionError("flash_attention: launch count")
+
+    t = serve(cfg, **SERVE, seed=0, device="cuda", plane="torch", params=params)
+    log(f"main path {SERVE_PATH} (torch plane): prefill {t.prefill_ms:.3f} ms, decode {t.decode_ms_per_step:.3f} "
+        f"ms/step, {t.tokens_per_s:.1f} tok/s")
+    gap = float((k.logits[0] - t.logits[0]).abs().max())
+    if gap > LOGIT_TOL:
+        raise AssertionError(f"{SERVE_PATH}: prefill logits of the planes differ by {gap} > {LOGIT_TOL}")
+    m = margins(t.logits)
+    for b in range(SERVE["batch"]):
+        n = decided_steps(m[:, b].tolist())
+        if k.tokens[b, :n].tolist() != t.tokens[b, :n].tolist():
+            raise AssertionError(f"{SERVE_PATH}: request {b}: greedy tokens differ within the first {n} steps")
+        log(f"  request {b}: tokens equal over the {n} decided steps of {SERVE['gen_len']} "
+            f"({int((k.tokens[b] == t.tokens[b]).sum())} equal in all)")
+    log(f"{SERVE_PATH}: prefill logits of the planes within {gap:.3e} (tolerance {LOGIT_TOL}); "
+        f"logits std {float(k.logits[0].std()):.3f}")
+    return got
+
+
 def main_path_spec(protocol, workload, plane, codes=CODES):
     from repro_torch.api import ExperimentSpec
 
@@ -443,11 +732,16 @@ def main() -> int:
     sys.path.insert(0, os.path.join(ROOT, "src"))
     from repro_torch import api
     from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.lock_arbiter import lock_arbiter
     from repro_torch.kernels.multi_read import multi_read
     from repro_torch.kernels.mvcc_version_select import mvcc_version_select
 
-    counted = (lock_arbiter, multi_read, mvcc_version_select)
+    counted = (lock_arbiter, multi_read, mvcc_version_select, flash_attention)
+    # float32 products stay float32: a TF32 product would blow the serving phase's tolerance
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    assert not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
@@ -508,6 +802,10 @@ def main() -> int:
         if rows != golden["rows"]:
             raise AssertionError(f"{path}: counters {rows} != JAX golden {golden['rows']}")
         log(f"{path} golden: counters equal the JAX reference's")
+
+    # phase 7: the LM serving path (stablelm-1.6b at full width)
+    for name, n in phase_serve(counted).items():
+        launches[name][SERVE_PATH] = n
 
     for k in kernels:  # launches summed over the main paths' runs; times weighted by them
         k["launches"] = sum(launches[k["name"]].values())

@@ -1,0 +1,54 @@
+"""Architecture config registry (``--arch <id>``), port of ``repro.configs``.
+
+Only the architectures whose families the port runs are listed: the dense
+decoder stablelm-1.6b.  The other configs wait for their families
+(ROADMAP.md A.12).
+"""
+from __future__ import annotations
+
+import dataclasses
+import importlib
+from typing import Dict, Tuple
+
+from repro_torch.configs.base import SHAPES, ArchConfig, ShapeSpec, cell_supported  # noqa: F401
+
+ARCH_MODULES = {
+    "stablelm-1.6b": "stablelm_1_6b",
+}
+
+ARCH_IDS = tuple(ARCH_MODULES)
+
+
+def get_config(arch_id: str) -> Tuple[ArchConfig, Dict]:
+    """Returns (ArchConfig, sharding-rule overrides)."""
+    if arch_id not in ARCH_MODULES:
+        raise KeyError(f"arch {arch_id!r} is not ported yet (ROADMAP.md A.12); ported: {ARCH_IDS}")
+    mod = importlib.import_module(f"repro_torch.configs.{ARCH_MODULES[arch_id]}")
+    return mod.CONFIG, getattr(mod, "SHARDING_OVERRIDES", {})
+
+
+def reduced_config(arch_id: str) -> ArchConfig:
+    """Tiny same-family config for CPU smoke tests (the reference's cuts)."""
+    cfg, _ = get_config(arch_id)
+    kw = dict(
+        n_layers=min(cfg.n_layers, 4),
+        d_model=128,
+        n_heads=4,
+        n_kv_heads=min(cfg.n_kv_heads, 4) if cfg.n_kv_heads < cfg.n_heads else 4,
+        head_dim=32,
+        d_ff=256 if cfg.d_ff else 0,
+        vocab_size=512,
+        microbatch=1,
+        remat="none",
+    )
+    if cfg.is_moe:
+        kw.update(n_experts=4, top_k=min(cfg.top_k, 2), capacity_factor=8.0)
+    if cfg.ssm_state:
+        kw.update(ssm_state=8, ssm_dt_rank=None)
+    if cfg.block_pattern:
+        kw.update(local_window=16, rnn_width=0, n_layers=5)
+    if cfg.encoder_decoder:
+        kw.update(n_enc_layers=2, n_layers=2, enc_seq_len=24)
+    if cfg.mrope_sections:
+        kw.update(mrope_sections=(4, 6, 6))
+    return dataclasses.replace(cfg, **kw)

@@ -9,7 +9,8 @@ follows jax 0.9.0's sources in its default ``jax_threefry_partitionable``
 mode (``jax/_src/prng.py``: ``threefry2x32`` lowering, ``threefry_seed``,
 ``iota_2x32_shape``, ``_threefry_split_foldlike``, ``_threefry_fold_in``,
 ``_threefry_random_bits_partitionable``; ``jax/_src/random.py``:
-``_uniform``, ``_randint``).  The legacy mode (flag ``False``) is not
+``_uniform``, ``_randint``, ``_truncated_normal``; XLA's float32
+``erf_inv``).  The legacy mode (flag ``False``) is not
 implemented.
 
 A key is an int64 tensor ``(..., 2)`` holding two uint32 words; every
@@ -136,3 +137,116 @@ def randint(keys, shape: Sequence[int], minval: int, maxval: int) -> torch.Tenso
     from two 32-bit draws per value under ``split(key)``."""
     sub = split(keys, 2)
     return randint_from_bits(random_bits(sub[..., 0, :], shape), random_bits(sub[..., 1, :], shape), minval, maxval)
+
+
+# XLA's CPU float32 math, step for step, for ``erf_inv``: every ``c + a*b`` that
+# XLA's CPU backend contracts into one fused multiply-add is ``_fma`` here
+# (the float64 product of two float32 values is exact; the float64 sum rounds
+# where a true FMA would not only in rare double-rounding cases)
+_LOG1P_NUM = (4.5270000862445199635215e-5, 4.9854102823193375972212e-1, 6.5787325942061044846969e0,
+              2.9911919328553073277375e1, 6.0949667980987787057556e1, 5.7112963590585538103336e1,
+              2.0039553499201281259648e1)
+_LOG1P_DEN = (1.0, 1.5062909083469192043167e1, 8.3047565967967209469434e1, 2.2176239823732856465394e2,
+              3.0909872225312059774938e2, 2.1642788614495947685003e2, 6.0118660497603843919306e1)
+_LOG_P = (7.0376836292e-2, -1.1514610310e-1, 1.1676998740e-1, -1.2420140846e-1, 1.4249322787e-1,
+          -1.6668057665e-1, 2.0000714765e-1, -2.4999993993e-1, 3.3333331174e-1)
+_LOG_Q1, _LOG_Q2 = -2.12194440e-4, 0.693359375
+# Giles' single-precision erf_inv ("Approximating the erfinv function"): the
+# coefficients of its two branches (w < 5 and w >= 5), highest order first
+_ERFINV_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06, -4.39150654e-06, 0.00021858087,
+               -0.00125372503, -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322, -0.00367342844, 0.00573950773,
+               -0.0076224613, 0.00943887047, 1.00167406, 2.83297682)
+
+
+def _f32(c) -> float:
+    return float(np.float32(c))
+
+
+def _fma(a, b, c) -> torch.Tensor:
+    """float32 ``a*b + c`` rounded once; tensors or Python floats."""
+    a, b, c = (t.double() if torch.is_tensor(t) else _f32(t) for t in (a, b, c))
+    return (a * b + c).float()
+
+
+def _xla_log(z: torch.Tensor) -> torch.Tensor:
+    """XLA's CPU float32 ``log`` for positive normal ``z``: Cephes' logf."""
+    bits = z.view(torch.int32)
+    e = ((bits >> 23) - 0x7F).float() + 1.0
+    m = ((bits & ~0x7F800000) | 0x3F000000).view(torch.float32)  # mantissa in [0.5, 1)
+    small = m < _f32(0.707106781186547524)
+    x = (m - 1.0) + torch.where(small, m, 0.0)
+    e = e - small.float()
+    x2 = x * x
+    x3 = x2 * x
+    y = _fma(_fma(x, _LOG_P[0], _LOG_P[1]), x, _LOG_P[2])
+    y1 = _fma(_fma(x, _LOG_P[3], _LOG_P[4]), x, _LOG_P[5])
+    y2 = _fma(_fma(x, _LOG_P[6], _LOG_P[7]), x, _LOG_P[8])
+    y = _fma(_fma(_fma(y, x3, y1), x3, y2), x3, e * _f32(_LOG_Q1))
+    x = _fma(-0.5, x2, x) + y
+    return _fma(e, _LOG_Q2, x)
+
+
+def _xla_log1p(x: torch.Tensor) -> torch.Tensor:
+    """XLA's CPU float32 ``log1p``: a Cephes rational for |x| < sqrt(2) - 1,
+    ``log(1 + x)`` above."""
+    num = torch.zeros_like(x)
+    den = torch.zeros_like(x)
+    for cn, cd in zip(_LOG1P_NUM, _LOG1P_DEN):
+        num, den = _fma(num, x, cn), _fma(den, x, cd)
+    x2 = x * x
+    small = _fma(-0.5, x2, (x * x2) * (num / den)) + x
+    return torch.where(x.abs() < _f32(0.41421356237309504880), small, _xla_log(x + 1.0))
+
+
+def erf_inv(x: torch.Tensor) -> torch.Tensor:
+    """``lax.erf_inv`` in float32 as XLA's CPU backend computes it: Giles'
+    polynomial in ``w = -log1p(-x*x)``.
+
+    ``torch.erfinv`` is another approximation (up to 64 ulp from XLA's), and
+    ``torch.log1p`` differs from XLA's on 9 % of float32 inputs, so both
+    are written out here in XLA's order of operations.
+    """
+    w = -_xla_log1p(-(x * x))
+    lt = w < 5.0
+    w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0)
+
+    def coef(i):
+        return torch.where(lt, _f32(_ERFINV_LT5[i]), _f32(_ERFINV_GE5[i]))
+
+    p = coef(0)
+    for i in range(1, len(_ERFINV_LT5)):
+        p = _fma(p, w, coef(i))
+    return torch.where(x.abs() == 1, x * math.inf, p * x)
+
+
+def _erf32(x) -> np.float32:
+    """float32 ``erf`` of one float32 value, on the CPU (equals XLA's at the
+    truncation points that ``dense_init`` uses)."""
+    return np.float32(torch.erf(torch.tensor(x, dtype=torch.float32)).item())
+
+
+def truncated_normal(key, lower: float, upper: float, shape: Sequence[int], *, chunk: int = 1 << 24) -> torch.Tensor:
+    """``jax.random.truncated_normal(key, lower, upper, shape, float32)`` for
+    one key (2,): the uniform on ``[erf(lower/sqrt2), erf(upper/sqrt2))``
+    from the key's 32-bit draws, ``sqrt2 * erf_inv(u)``, then the clip to
+    the open interval (``nextafter`` of each bound).  Bitwise JAX's on almost every
+    element (``erf_inv``'s float64 multiply-adds round twice in rare cases).  The draws run ``chunk`` elements at a time, so a
+    (100352, 2048) table needs no more than a few chunk-sized temporaries.
+    """
+    shape = tuple(int(d) for d in shape)
+    n = math.prod(shape)
+    if n >= 2**32:
+        raise ValueError(f"truncated_normal: {n} elements need 64-bit counts, which are not implemented")
+    sqrt2 = np.float32(np.sqrt(2))
+    lo, hi = np.float32(lower), np.float32(upper)
+    a, b = _erf32(lo / sqrt2), _erf32(hi / sqrt2)
+    clip_lo = float(np.nextafter(lo, np.float32(np.inf)))
+    clip_hi = float(np.nextafter(hi, np.float32(-np.inf)))
+    out = torch.empty(n, dtype=torch.float32, device=key.device)
+    for start in range(0, n, chunk):
+        counts = torch.arange(start, min(n, start + chunk), dtype=torch.int64, device=key.device)
+        y0, y1 = _hash_counts(key, counts)
+        u = uniform_from_bits(y0 ^ y1, a, b)
+        out[start : start + counts.numel()] = torch.clamp(erf_inv(u) * float(sqrt2), clip_lo, clip_hi)
+    return out.reshape(shape)

@@ -36,6 +36,11 @@ SIGNATURES: Dict[str, Tuple[str, list]] = {
     "mvcc_version_select": (
         "rt_mvcc_version_select", [_P] * 9 + [ctypes.c_longlong, ctypes.c_int, _P],
     ),
+    # q, k, v, o, B, H, Sq, Sk, Dh, strides (12 int64: b, h, s of q, k, v, o), scale, causal, bf16, stream
+    "flash_attention": (
+        "rt_flash_attention",
+        [_P] * 4 + [ctypes.c_int] * 5 + [_P, ctypes.c_float, ctypes.c_int, ctypes.c_int, _P],
+    ),
 }
 
 _FNS: Dict[str, ctypes._CFuncPtr] = {}

@@ -6,23 +6,28 @@ A *kernel plane* is one of
   * ``"torch"``  — scatter-min arbitration and indexed gathers in plain
     PyTorch (the counterpart of the reference's ``"jnp"`` plane);
   * ``"kernel"`` — the hand-written CUDA kernels (``lock_arbiter``,
-    ``multi_read``, ``mvcc_version_select``; the counterpart of
-    ``"pallas"``).  On CPU tensors the same dispatch runs the kernels'
-    plain versions, the CPU tests' counterpart of ``"pallas_interpret"``.
+    ``multi_read``, ``mvcc_version_select``, ``flash_attention``; the
+    counterpart of ``"pallas"``).  On CPU tensors the same dispatch runs
+    the kernels' plain versions, the CPU tests' counterpart of
+    ``"pallas_interpret"``.
 
 ``"auto"`` resolves to ``"kernel"`` on a CUDA device and ``"torch"`` on the
 CPU.  Both planes give bitwise-equal integer counters: the kernels
 implement exactly the reference semantics (lexicographic-min arbitration
 with no index tiebreak, exact int32 gathers, first-index version picks).
+The LM's attention agrees across planes within float tolerance: the torch
+plane is ``layers.attention.naive_attention``.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core.arbiter import scatter_min_winner
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.lock_arbiter import lock_arbiter
 from repro_torch.kernels.multi_read import multi_read
 from repro_torch.kernels.mvcc_version_select import mvcc_version_select
+from repro_torch.layers.attention import naive_attention
 
 TORCH = "torch"
 KERNEL = "kernel"
@@ -46,7 +51,7 @@ def resolve_plane(plane, device) -> str:
 
 def describe_plane(plane: str) -> str:
     return {
-        TORCH: "plain PyTorch (scatter-min arbitration, indexed gathers, inline version picks)",
+        TORCH: "plain PyTorch (scatter-min arbitration, indexed gathers, inline version picks, O(S^2) attention)",
         KERNEL: "hand-written CUDA kernels (plain versions on CPU tensors)",
     }[plane]
 
@@ -116,6 +121,15 @@ def gather_many(arrs, keys, *, plane: str = TORCH):
     return unpack_rows(out, arrs, widths, keys.shape)
 
 
-def attention_op(q, k, v, *, causal=True, block_q=128, block_k=128):
-    """Flash attention for the LM stack: not ported yet."""
-    raise NotImplementedError("attention_op (flash_attention) is not ported yet: ROADMAP B.4")
+def attention_op(q, k, v, *, causal=True, plane: str = AUTO):
+    """LM attention in the reference's (B, S, H, Dh) layout (H already
+    GQA-expanded) -> (B, Sq, H, Dh).
+
+    The ``"kernel"`` plane runs ``flash_attention`` on the transposed views
+    (no copies: the kernel takes strides, and its output comes back in the
+    (B, S, H, Dh) layout); the ``"torch"`` plane runs ``naive_attention``."""
+    plane = resolve_plane(plane, q.device)
+    if plane != KERNEL:
+        return naive_attention(q, k, v, causal=causal)
+    out = flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal=causal)
+    return out.transpose(1, 2)

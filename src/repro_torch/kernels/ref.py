@@ -6,9 +6,26 @@ against its plain version on the card.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 _I32_MIN = -(2**31)
+
+
+def flash_attention_ref(q, k, v, *, causal=True):
+    """q (B, H, Sq, Dh), k/v (B, H, Sk, Dh) -> (B, H, Sq, Dh): O(S^2)
+    attention with float32 scores, -1e30 at masked entries (causal is
+    top-left aligned: key c is seen by query r iff c <= r), and the softmax
+    cast to v's dtype before the PV product."""
+    Dh = q.shape[-1]
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) / math.sqrt(Dh)
+    if causal:
+        Sq, Sk = q.shape[2], k.shape[2]
+        mask = torch.arange(Sk, device=q.device)[None, :] <= torch.arange(Sq, device=q.device)[:, None]
+        s = torch.where(mask, s, -1e30)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype), v)
 
 
 def lock_arbiter_ref(keys, prio_hi, prio_lo, active):

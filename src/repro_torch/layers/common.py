@@ -1,0 +1,104 @@
+"""Norms, activations and rotary embeddings (incl. partial rotary), port of
+``repro.layers.common``.
+
+A norm's parameters live in a :class:`Norm` module whose parameter names
+are the reference's keys (``scale``, ``bias``).  ``apply_mrope`` and
+``sinusoidal_positions`` wait for qwen2-vl and whisper (ROADMAP.md A.12).
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.sharding import ones_init, zeros_init
+
+NORMS = ("rmsnorm", "layernorm", "layernorm_nobias")
+EPS = 1e-5
+
+
+class ParamSet(nn.Module):
+    """A layer's parameters, named as the reference's parameter dict: every
+    name in ``NAMES`` is a frozen parameter, or None where absent."""
+
+    NAMES: tuple = ()
+
+    def __init__(self, tensors):
+        super().__init__()
+        unknown = set(tensors) - set(self.NAMES)
+        if unknown:
+            raise ValueError(f"{type(self).__name__}: unknown parameters {sorted(unknown)}")
+        for name in self.NAMES:
+            t = tensors.get(name)
+            setattr(self, name, None if t is None else nn.Parameter(t, requires_grad=False))
+
+
+class Norm(nn.Module):
+    """``scale`` (d,) and, for "layernorm", ``bias`` (d,)."""
+
+    def __init__(self, kind: str, tensors):
+        super().__init__()
+        if kind not in NORMS:
+            raise ValueError(kind)
+        if ("bias" in tensors) != (kind == "layernorm"):
+            raise ValueError(f"{kind} norm: parameters {sorted(tensors)}")
+        self.kind = kind
+        self.scale = nn.Parameter(tensors["scale"], requires_grad=False)
+        self.bias = nn.Parameter(tensors["bias"], requires_grad=False) if "bias" in tensors else None
+
+
+def init_norm(kind: str, d: int, dtype=torch.float32, device=None) -> Norm:
+    p = {"scale": ones_init("scale", (d,), dtype, device)}
+    if kind == "layernorm":
+        p["bias"] = zeros_init("bias", (d,), dtype, device)
+    return Norm(kind, p)
+
+
+def apply_norm(kind: str, params: Norm, x: torch.Tensor) -> torch.Tensor:
+    """Statistics in float32, the result in ``x``'s dtype."""
+    dt = x.dtype
+    x = x.float()
+    if kind == "rmsnorm":
+        x = x * torch.rsqrt((x * x).mean(-1, keepdim=True) + EPS)
+        return (x * params.scale.float()).to(dt)
+    mu = x.mean(-1, keepdim=True)
+    var = (x - mu).square().mean(-1, keepdim=True)
+    x = (x - mu) * torch.rsqrt(var + EPS)
+    x = x * params.scale.float()
+    if params.bias is not None:
+        x = x + params.bias.float()
+    return x.to(dt)
+
+
+def activation(name: str, x: torch.Tensor) -> torch.Tensor:
+    if name == "silu":
+        return F.silu(x)
+    if name == "gelu":
+        return F.gelu(x, approximate="tanh")
+    if name == "sq_relu":  # nemotron-4 squared ReLU
+        r = F.relu(x)
+        return r * r
+    if name == "relu":
+        return F.relu(x)
+    raise ValueError(name)
+
+
+def rope_freqs(head_dim: int, rope_pct: float, theta: float, device=None) -> torch.Tensor:
+    """Inverse frequencies for the rotated slice of the head dim (float32)."""
+    rot = int(head_dim * rope_pct)
+    rot -= rot % 2
+    return 1.0 / (theta ** (torch.arange(0, rot, 2, dtype=torch.float32, device=device) / rot))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, rope_pct: float, theta: float) -> torch.Tensor:
+    """x (..., S, H, Dh), positions (..., S) int: rotate the first
+    ``rope_pct`` of each head (halves rotated against each other), keep the
+    rest."""
+    Dh = x.shape[-1]
+    inv = rope_freqs(Dh, rope_pct, theta, device=x.device)  # (rot/2,)
+    rot = inv.shape[0] * 2
+    ang = positions[..., None].float() * inv  # (..., S, rot/2)
+    cos, sin = ang.cos()[..., None, :], ang.sin()[..., None, :]  # (..., S, 1, rot/2)
+    x1, x2, xp = x[..., : rot // 2], x[..., rot // 2 : rot], x[..., rot:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return torch.cat([out.to(x.dtype), xp], dim=-1)

@@ -1,0 +1,218 @@
+"""The dense decoder LM (port of ``repro.models.lm``, dense attention stacks).
+
+Parameters are ``nn.Module``s whose names follow the reference's parameter
+tree, one module per layer where the reference stacks layers on a leading
+axis: ``layers.{l}.attn.wq`` is the reference's ``layers/attn/wq[l]``, so
+``convert`` is a name map.  The functions mirror the reference's
+(``lm_apply(params, cfg, batch)``, without the sharding rules) and take a
+``plane`` for attention (``kernels.ops.attention_op``).
+
+Families the port does not run yet raise ``NotImplementedError`` naming
+their ROADMAP.md item; training (``lm_loss``, ``xent_loss``) is ROADMAP.md
+A.12.2.
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.core import prng
+from repro_torch.kernels import ops
+from repro_torch.layers import attention as attn_lib
+from repro_torch.layers.attention import Attention
+from repro_torch.layers.common import Norm, apply_norm, apply_rope, init_norm
+from repro_torch.layers.mlp import MLP, apply_mlp, init_mlp
+from repro_torch.sharding import dense_init, name_key
+
+
+def resolve_device(device) -> torch.device:
+    """``"cuda"`` (the default of every entry point) or ``"cpu"``; refuses
+    CUDA on a machine without it instead of falling back to the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device={device!r} but CUDA is not available; pass device='cpu' to run on the CPU")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"device={device!r}: pass a 'cuda' or 'cpu' device")
+    return dev
+
+
+def check_ported(cfg: ArchConfig) -> None:
+    """Raise for the families whose blocks are not ported yet."""
+    if cfg.is_moe:
+        raise NotImplementedError(f"{cfg.name}: MoE blocks are not ported yet (ROADMAP.md A.12.3)")
+    if cfg.is_ssm:
+        raise NotImplementedError(f"{cfg.name}: SSM blocks are not ported yet (ROADMAP.md A.12.4)")
+    if cfg.is_hybrid:
+        raise NotImplementedError(f"{cfg.name}: hybrid (RG-LRU, local attention) is not ported yet (ROADMAP.md A.12.5)")
+    if cfg.encoder_decoder:
+        raise NotImplementedError(f"{cfg.name}: encoder-decoder is not ported yet (ROADMAP.md A.12.6)")
+    if cfg.mrope_sections is not None or cfg.vision_stub:
+        raise NotImplementedError(f"{cfg.name}: M-RoPE / vision is not ported yet (ROADMAP.md A.12.7)")
+
+
+class Block(nn.Module):
+    """One decoder layer: ``norm1``, ``attn``, ``norm2``, ``mlp`` (a parallel
+    block has one ``norm``)."""
+
+    def __init__(self, parts: Dict[str, nn.Module]):
+        super().__init__()
+        for name, mod in parts.items():
+            setattr(self, name, mod)
+
+
+class LM(nn.Module):
+    """``embed`` (V, D), ``final_norm``, ``lm_head`` (D, V) unless tied, and
+    ``layers``, one :class:`Block` each."""
+
+    def __init__(self, cfg: ArchConfig, embed, final_norm: Norm, lm_head: Optional[torch.Tensor], layers: List[Block]):
+        super().__init__()
+        self.cfg = cfg
+        self.embed = nn.Parameter(embed, requires_grad=False)
+        self.final_norm = final_norm
+        self.lm_head = None if lm_head is None else nn.Parameter(lm_head, requires_grad=False)
+        self.layers = nn.ModuleList(layers)
+
+
+# ---------------------------------------------------------------------------
+# Init
+# ---------------------------------------------------------------------------
+
+
+def _block(cfg: ArchConfig, norms: List[Norm], attn: Attention, mlp: MLP) -> Block:
+    if cfg.parallel_block:
+        return Block({"norm": norms[0], "attn": attn, "mlp": mlp})
+    return Block({"norm1": norms[0], "attn": attn, "norm2": norms[1], "mlp": mlp})
+
+
+def _init_layer(key, cfg: ArchConfig, dtype) -> Block:
+    norms = [init_norm(cfg.norm, cfg.d_model, dtype, key.device) for _ in range(1 if cfg.parallel_block else 2)]
+    return _block(cfg, norms, attn_lib.init_attn(key, cfg, dtype), init_mlp(key, cfg, dtype))
+
+
+def init_lm(key, cfg: ArchConfig, dtype=torch.float32, *, device="cuda") -> LM:
+    """The reference's ``init_lm`` from a ``prng.prng_key``: every tensor is
+    drawn on ``device`` from the same per-name keys (layer l's key is
+    ``split(name_key(key, "layers"), L)[l]``, as ``_stack_init`` vmaps
+    them), so a seed gives the reference's weights (``prng.truncated_normal``)."""
+    check_ported(cfg)
+    dev = resolve_device(device)
+    key = key.to(dev)
+    V, D = cfg.vocab_size, cfg.d_model
+    embed = dense_init(key, "embed", (V, D), dtype, scale=0.02)
+    final_norm = init_norm(cfg.norm, D, dtype, dev)
+    lm_head = None if cfg.tie_embeddings else dense_init(key, "lm_head", (D, V), dtype)
+    keys = prng.split(name_key(key, "layers"), cfg.n_layers)
+    layers = [_init_layer(keys[i], cfg, dtype) for i in range(cfg.n_layers)]
+    return LM(cfg, embed, final_norm, lm_head, layers)
+
+
+def lm_from_state(cfg: ArchConfig, state: Dict[str, torch.Tensor]) -> LM:
+    """An :class:`LM` from a flat name -> tensor map with the names of
+    ``LM.state_dict()`` (``embed``, ``layers.0.attn.wq``, ...)."""
+    check_ported(cfg)
+
+    def sub(prefix):
+        return {k[len(prefix):]: v for k, v in state.items() if k.startswith(prefix)}
+
+    def norm(prefix):
+        return Norm(cfg.norm, sub(prefix))
+
+    layers = []
+    for i in range(cfg.n_layers):
+        p = f"layers.{i}."
+        names = ("norm",) if cfg.parallel_block else ("norm1", "norm2")
+        layers.append(_block(cfg, [norm(p + n + ".") for n in names], Attention(sub(p + "attn.")), MLP(sub(p + "mlp."))))
+    return LM(cfg, state["embed"], norm("final_norm."), state.get("lm_head"), layers)
+
+
+# ---------------------------------------------------------------------------
+# Block bodies (full sequence)
+# ---------------------------------------------------------------------------
+
+
+def _rope(cfg: ArchConfig, x, positions):
+    return apply_rope(x, positions, cfg.rope_pct, cfg.rope_theta)
+
+
+def _attn_in(lp: Block, cfg: ArchConfig, x):
+    """The attention's input: the block's first norm of x."""
+    return apply_norm(cfg.norm, lp.norm if cfg.parallel_block else lp.norm1, x)
+
+
+def _block_out(lp: Block, cfg: ArchConfig, x, h, attn_out):
+    """The block's output from its input x, the normed h and the attention's
+    output: a parallel block adds the MLP of h, a sequential one the MLP of
+    its second norm after the attention's residual."""
+    if cfg.parallel_block:
+        return x + attn_out + apply_mlp(lp.mlp, cfg, h)
+    x = x + attn_out
+    return x + apply_mlp(lp.mlp, cfg, apply_norm(cfg.norm, lp.norm2, x))
+
+
+def _attn_full(lp: Attention, cfg: ArchConfig, x, positions, *, plane=ops.AUTO, kv_out=None):
+    """Causal self-attention over x (B,S,D).  With ``kv_out`` (this layer's
+    (B, S_max, KV, Dh) cache views, zeroed) the rotated k and v are written
+    into its first S slots: that is prefill's cache entry (the reference
+    pads each layer's entry and stacks them; ``_pad_entry``)."""
+    q, k, v = attn_lib._project_qkv(lp, cfg, x)
+    q = _rope(cfg, q, positions)
+    k = _rope(cfg, k, positions)
+    if kv_out is not None:
+        kv_out["k"][:, : x.shape[1]] = k
+        kv_out["v"][:, : x.shape[1]] = v
+    k = attn_lib.repeat_kv(k, cfg.n_rep)
+    v = attn_lib.repeat_kv(v, cfg.n_rep)
+    out = ops.attention_op(q, k, v, causal=True, plane=plane)
+    return attn_lib._out_proj(lp, out, x.dtype)
+
+
+def _block_full(lp: Block, cfg: ArchConfig, x, positions, *, plane=ops.AUTO, kv_out=None):
+    """One decoder block over a full sequence. x (B,S,D)."""
+    h = _attn_in(lp, cfg, x)
+    return _block_out(lp, cfg, x, h, _attn_full(lp.attn, cfg, h, positions, plane=plane, kv_out=kv_out))
+
+
+def _run_stack(params: LM, cfg: ArchConfig, x, positions, *, plane=ops.AUTO):
+    """The decoder stack over x (B,S,D), layer by layer."""
+    for lp in params.layers:
+        x = _block_full(lp, cfg, x, positions, plane=plane)
+    return x
+
+
+# ---------------------------------------------------------------------------
+# Embedding / logits
+# ---------------------------------------------------------------------------
+
+
+def embed_tokens(params: LM, cfg: ArchConfig, tokens):
+    """Unsharded table lookup: tokens (B,S) -> (B,S,D)."""
+    return F.embedding(tokens, params.embed)
+
+
+def logits_fn(params: LM, cfg: ArchConfig, x):
+    x = apply_norm(cfg.norm, params.final_norm, x)
+    w = params.embed.t() if cfg.tie_embeddings else params.lm_head
+    return x @ w.to(x.dtype)
+
+
+def default_positions(tokens):
+    B, S = tokens.shape
+    return torch.arange(S, dtype=torch.int32, device=tokens.device)[None].expand(B, S)
+
+
+def lm_hidden(params: LM, cfg: ArchConfig, batch, *, plane=ops.AUTO):
+    """Backbone forward -> final hidden states (B,S,D)."""
+    tokens = batch["tokens"]
+    positions = batch.get("positions")
+    if positions is None:
+        positions = default_positions(tokens)
+    return _run_stack(params, cfg, embed_tokens(params, cfg, tokens), positions, plane=plane)
+
+
+def lm_apply(params: LM, cfg: ArchConfig, batch, *, plane=ops.AUTO):
+    """Full forward -> logits (B,S,V). batch: tokens (+positions)."""
+    return logits_fn(params, cfg, lm_hidden(params, cfg, batch, plane=plane))

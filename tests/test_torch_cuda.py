@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import ref
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.lock_arbiter import lock_arbiter
 from repro_torch.kernels.multi_read import multi_read
 from repro_torch.kernels.mvcc_version_select import mvcc_version_select
@@ -118,3 +119,40 @@ def test_kernel_plane_matches_torch_plane_on_the_card(card, protocol, workload):
     for k, t, c in zip(k_rows, t_rows, c_rows):
         for key in ("commits", "aborts", "abort_rate", "throughput_mtps", "avg_round_trips"):
             assert k[key] == t[key] == c[key], key
+
+
+@pytest.mark.parametrize(
+    "B,H,Sq,Sk,Dh,causal",
+    [(2, 3, 128, 128, 64, True), (1, 2, 65, 65, 32, False), (1, 1, 1, 1, 128, True), (2, 2, 50, 130, 64, False),
+     (1, 4, 320, 320, 128, True), (1, 2, 70, 40, 32, True)],
+)
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 3e-2)])
+def test_flash_attention_cuda_matches_plain(card, B, H, Sq, Sk, Dh, causal, dtype, tol):
+    gen = torch.Generator().manual_seed(Sq * 131 + Sk + Dh)
+    q = torch.randn((B, Sq, H, Dh), generator=gen).to(dtype).to(card).transpose(1, 2)  # attention_op's views
+    k, v = (torch.randn((B, H, Sk, Dh), generator=gen).to(dtype).to(card) for _ in range(2))
+    n = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal)
+    assert flash_attention.launches == n + 1
+    want = ref.flash_attention_ref(q, k, v, causal=causal)
+    assert got.dtype == dtype and got.shape == want.shape
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+def test_reduced_serve_on_the_card_matches_the_cpu(card):
+    """The serving path at the reduced config: the kernel plane on the card
+    against the torch plane on the CPU, same seed (1e-4 on logits, the
+    card's serving tolerance in chip_smoke.py; tokens equal)."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.launch.serve import serve
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = reduced_config("stablelm-1.6b")
+    kw = dict(batch=3, prompt_len=40, gen_len=8, page_size=16, seed=0)
+    n = flash_attention.launches
+    on_card = serve(cfg, device="cuda", plane="kernel", **kw)
+    assert flash_attention.launches == n + cfg.n_layers
+    on_cpu = serve(cfg, device="cpu", plane="torch", **kw)
+    assert torch.equal(on_card.prompts.cpu(), on_cpu.prompts)
+    torch.testing.assert_close(on_card.logits.cpu(), on_cpu.logits, atol=1e-4, rtol=0)
+    assert torch.equal(on_card.tokens.cpu(), on_cpu.tokens)

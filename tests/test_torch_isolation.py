@@ -41,6 +41,11 @@ def test_port_loads_and_runs_with_jax_and_reference_blocked():
         "for m in ('jax', 'jaxlib', 'repro'): sys.modules[m] = None\n"
         "from repro_torch import api, convert\n"
         "import repro_torch.core.protocols, repro_torch.kernels.ops, repro_torch.kernels._build\n"
+        "import repro_torch.models.decode\n"
+        "from repro_torch.configs import reduced_config\n"
+        "from repro_torch.launch.serve import serve\n"
+        "res = serve(reduced_config('stablelm-1.6b'), batch=2, prompt_len=8, gen_len=3, device='cpu')\n"
+        "assert tuple(res.tokens.shape) == (2, 3)\n"
         "r = api.run(api.ExperimentSpec(protocol='nowait', workload='smallbank', configs=[{'hybrid': 63}],\n"
         "    n_nodes=2, coroutines=4, records_per_node=32, ticks=8, warmup=2, device='cpu'))\n"
         "assert r.row['commits'] > 0\n"

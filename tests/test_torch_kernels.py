@@ -13,11 +13,14 @@ import torch
 
 from repro.core.arbiter import scatter_min_winner as j_scatter_min_winner
 from repro.kernels import ref as jref
+from repro.kernels.flash_attention import flash_attention as j_flash_attention
 from repro.kernels.lock_arbiter import lock_arbiter as j_lock_arbiter
 from repro.kernels.multi_read import multi_read as j_multi_read
 from repro.kernels.mvcc_version_select import mvcc_version_select as j_mvcc_version_select
+from repro.kernels.ops import attention_op as j_attention_op
 from repro_torch.core.arbiter import scatter_min_winner
 from repro_torch.kernels import ops
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.lock_arbiter import lock_arbiter
 from repro_torch.kernels.multi_read import multi_read
 from repro_torch.kernels.mvcc_version_select import mvcc_version_select
@@ -151,9 +154,73 @@ def test_wrappers_check_inputs_and_count_only_cuda_launches():
         multi_read(torch.zeros((4, 2)), k[0])
 
 
-def test_unported_kernels_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP B.4"):
-        ops.attention_op(None, None, None)
+def _attn_inputs(B, H, Sq, Sk, Dh, seed):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((B, H, Sq, Dh)).astype(np.float32),
+            rng.standard_normal((B, H, Sk, Dh)).astype(np.float32),
+            rng.standard_normal((B, H, Sk, Dh)).astype(np.float32))
+
+
+FLASH_CASES = [  # (B, H, Sq, Sk, Dh, causal): the reference test's grid, ragged S, Sq != Sk, S = 1
+    (B, H, S, S, Dh, causal) for B, H, S, Dh in ((1, 2, 128, 64), (2, 1, 192, 32), (1, 1, 320, 128))
+    for causal in (True, False)
+] + [
+    (1, 2, 65, 65, 64, True), (2, 1, 100, 100, 32, False), (1, 1, 1, 1, 64, True), (1, 2, 1, 1, 128, False),
+    (1, 2, 50, 130, 64, False), (2, 1, 130, 50, 32, False), (1, 1, 40, 70, 64, True), (1, 1, 70, 40, 32, True),
+]
+
+
+@pytest.mark.parametrize("B,H,Sq,Sk,Dh,causal", FLASH_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_plain_matches_pallas_and_ref(B, H, Sq, Sk, Dh, causal, dtype):
+    """The plain version (the wrapper on CPU tensors) against the Pallas
+    kernel in interpret mode (64-blocks) and the reference's ``ref``, at the
+    reference test's tolerances: 1e-5 in float32, 3e-2 in bfloat16."""
+    args = _attn_inputs(B, H, Sq, Sk, Dh, B * 1000 + Sq * 7 + Sk + Dh + causal)
+    tdt, jdt = (torch.float32, jnp.float32) if dtype == "float32" else (torch.bfloat16, jnp.bfloat16)
+    tol = 1e-5 if dtype == "float32" else 3e-2
+    n = flash_attention.launches
+    got = flash_attention(*(torch.tensor(a).to(tdt) for a in args), causal=causal)
+    assert flash_attention.launches == n  # a CPU tensor runs the plain version
+    assert got.dtype == tdt and tuple(got.shape) == (B, H, Sq, Dh)
+    jargs = [jnp.asarray(a, jdt) for a in args]
+    pallas = j_flash_attention(*jargs, causal=causal, block_q=64, block_k=64, interpret=True)
+    want = jref.flash_attention_ref(*jargs, causal=causal)
+    for other in (pallas, want):
+        np.testing.assert_allclose(got.float().numpy(), np.asarray(other, np.float32), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("plane", [ops.TORCH, ops.KERNEL, ops.AUTO])
+def test_attention_op_planes_match_reference(causal, plane):
+    """ops.attention_op in the (B, S, H, Dh) layout, both planes, against the
+    reference's ``ops.attention_op`` (Pallas in interpret mode on the CPU)."""
+    rng = np.random.default_rng(5 + causal)
+    q, k, v = (rng.standard_normal((2, 96, 3, 32)).astype(np.float32) for _ in range(3))
+    got = ops.attention_op(*map(torch.tensor, (q, k, v)), causal=causal, plane=plane)
+    want = j_attention_op(*map(jnp.asarray, (q, k, v)), causal=causal, block_q=64, block_k=64)
+    assert tuple(got.shape) == (2, 96, 3, 32)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=1e-5)
+
+
+def test_flash_attention_takes_strided_views_and_checks_inputs():
+    q, k, v = (torch.tensor(a) for a in _attn_inputs(2, 3, 20, 20, 32, 9))
+    # (B, S, H, Dh) storage seen as (B, H, S, Dh): no copy needed
+    qs, ks, vs = (t.transpose(1, 2).contiguous().transpose(1, 2) for t in (q, k, v))
+    assert not qs.is_contiguous()
+    torch.testing.assert_close(flash_attention(qs, ks, vs), flash_attention(q, k, v), rtol=0, atol=0)
+    with pytest.raises(ValueError, match="contiguous along Dh"):
+        flash_attention(q.transpose(2, 3), k, v)
+    with pytest.raises(TypeError, match="share"):
+        flash_attention(q, k.double(), v)
+    with pytest.raises(TypeError, match="share"):
+        flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_attention(q[..., :16], k[..., :16], v[..., :16])
+    with pytest.raises(ValueError, match="disagree"):
+        flash_attention(q, k[:, :2], v[:, :2])
+    with pytest.raises(ValueError, match=r"\(B, H, S, Dh\)"):
+        flash_attention(q[0], k[0], v[0])
 
 
 def _version_case(M, S, seed, kind):
