@@ -139,7 +139,14 @@ def bound_ms(n_bytes, n_ops, ops_per_s=INT32_OPS_PER_S):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def arbiter_case(G, M, n_keys, gen, *, ties=False, pad=False):
+I32_WORDS = (-2**31, -2**31 + 1, -1, 0, 1, 2**31 - 2, 2**31 - 1)
+
+
+def arbiter_case(G, M, n_keys, gen, *, ties=False, pad=False, extremes=False):
+    """A random arbitration batch (narrow hi, so lo often decides; 70 %
+    active); ``ties`` makes pairs share (hi, lo), ``pad`` adds a tail of
+    inactive -1 keys, ``extremes`` draws keys, hi and lo from the int32
+    extremes; n_keys = 1 puts every request on one key."""
     import torch
 
     keys = torch.randint(0, max(n_keys, 1), (G, M), generator=gen, dtype=torch.int32)
@@ -148,6 +155,9 @@ def arbiter_case(G, M, n_keys, gen, *, ties=False, pad=False):
         torch.zeros((G, 0), dtype=torch.int32)
     if ties:
         lo = lo // 2  # pairs share (hi, lo): several winners per key
+    if extremes:
+        words = torch.tensor(I32_WORDS, dtype=torch.int32)
+        keys, hi, lo = (words[torch.randint(0, len(I32_WORDS), (G, M), generator=gen)] for _ in range(3))
     act = torch.rand((G, M), generator=gen) < 0.7
     if pad and M:
         keys[:, -max(1, M // 4):] = -1
@@ -202,10 +212,18 @@ def phase_kernels():
         dict(G=1, M=2400, n_keys=262144, pad=True), dict(G=1, M=2400, n_keys=600, ties=True),
         dict(G=3, M=37, n_keys=9, pad=True), dict(G=3, M=1, n_keys=1), dict(G=1, M=0, n_keys=1),
         dict(G=1, M=2048, n_keys=300, ties=True), dict(G=2, M=2048, n_keys=40, pad=True),
+        # one hot key, with and without exact ties; int32 extremes; the global-memory table (M > 4096)
+        dict(G=1, M=2400, n_keys=1), dict(G=1, M=2400, n_keys=1, ties=True),
+        dict(G=1, M=2400, n_keys=0, extremes=True), dict(G=2, M=480, n_keys=0, extremes=True, pad=True),
+        dict(G=2, M=12000, n_keys=262144), dict(G=2, M=12000, n_keys=50, ties=True, pad=True),
     ]
     for c in cases:
-        args = arbiter_case(c["G"], c["M"], c["n_keys"], gen, ties=c.get("ties", False), pad=c.get("pad", False))
-        got, want = lock_arbiter(*args), lock_arbiter_ref(*args)
+        args = arbiter_case(c["G"], c["M"], c["n_keys"], gen, ties=c.get("ties", False), pad=c.get("pad", False),
+                            extremes=c.get("extremes", False))
+        got = lock_arbiter(*args)
+        # the reference's (G, M, M) pair tensor at M = 12000 is 288 MB a group: take it a group at a time
+        want = torch.cat([lock_arbiter_ref(*(a[g:g + 1] for a in args)) for g in range(c["G"])]) if c["M"] > 4096 \
+            else lock_arbiter_ref(*args)
         torch.cuda.synchronize()
         bad = int((got != want).sum())
         worst = max(worst, bad)
@@ -216,7 +234,8 @@ def phase_kernels():
     for path, M in (("nowait/smallbank", 480), ("mvcc/ycsb", 2400)):
         args = arbiter_case(1, M, 262144, gen)
         t = timed(lambda: lock_arbiter(*args), lambda: lock_arbiter_ref(*args))
-        t["bound_ms"], t["bound_by"] = bound_ms(M * 13 + M, 4 * M * M)  # 3 int32 + 1 bool in, 1 bool out; 4 ops a pair
+        # the function's least work: one pass over 3 int32 + 1 bool in and 1 bool out per request
+        t["bound_ms"], t["bound_by"] = bound_ms(M * 14, 0)
         log(f"lock_arbiter ({path}: G=1, M={M}): {t['ms']:.6f} ms/call on the device ({t['host_ms']:.6f} issued "
             f"eagerly), plain {t['plain_ms']:.6f} ms ({t['plain_host_ms']:.6f}), "
             f"bound {t['bound_ms']:.9f} ms ({t['bound_by']})")
@@ -348,10 +367,15 @@ def phase_version_select(gen):
 def attn_inputs(B, H, Sq, Sk, Dh, dtype, gen, *, bshd=False):
     """q (B, H, Sq, Dh), k/v (B, H, Sk, Dh) on the card; with ``bshd`` they
     are (B, S, H, Dh) storage seen through a transpose, as the LM's
-    ``attention_op`` hands them over."""
+    ``attention_op`` hands them over; with ``bshd="unaligned"`` that storage
+    is the last Dh of (B, S, H, Dh + 1) rows, so neither the base nor a row
+    is 16-byte aligned (the kernel's plain-load path)."""
     import torch
 
     def one(S):
+        if bshd == "unaligned":
+            t = torch.randn((B, S, H, Dh + 1), generator=gen).to(dtype).cuda()
+            return t[..., 1:].transpose(1, 2)
         t = torch.randn((B, S, H, Dh) if bshd else (B, H, S, Dh), generator=gen).to(dtype).cuda()
         return t.transpose(1, 2) if bshd else t
 
@@ -383,6 +407,12 @@ def phase_flash(gen):
     cases += [(2, 2, 50, 130, 64, False, dt, False) for dt in tols] + [(1, 2, 300, 77, 128, False, dt, False) for dt in tols]
     cases += [(1, 2, 130, 50, 32, True, torch.float32, False), (1, 2, 50, 130, 64, True, torch.float32, False)]
     cases += [(4, 32, 2048, 2048, 64, True, torch.float32, True), (2, 32, 256, 256, 64, True, torch.float32, True)]
+    # the serving shape in bfloat16; Dh = 128 with Sq != Sk, causal; views whose rows are not 16-byte aligned
+    cases += [(4, 32, 2048, 2048, 64, True, torch.bfloat16, True)]
+    cases += [(2, 3, Sq, Sk, 128, True, dt, True) for Sq, Sk in ((200, 333), (333, 200)) for dt in tols]
+    cases += [(2, 3, S, S, Dh, causal, dt, "unaligned") for S, Dh, causal in ((130, 64, True), (77, 32, False),
+                                                                              (200, 128, True)) for dt in tols]
+    cases += [(1, 2, 70, 0, 64, causal, dt, False) for causal in (True, False) for dt in tols]  # Sk = 0: zeros
     worst = {dt: 0.0 for dt in tols}
     for B, H, Sq, Sk, Dh, causal, dt, bshd in cases:
         q, k, v = attn_inputs(B, H, Sq, Sk, Dh, dt, gen, bshd=bshd)
@@ -754,7 +784,7 @@ def main() -> int:
     log(f"build: {len(build_logs)} kernels in {time.perf_counter() - t0:.2f} s")
     for name, text in build_logs.items():
         for line in text.splitlines():
-            if "registers" in line or "error" in line.lower():
+            if "registers" in line or "spill" in line or "Compiling entry" in line or "error" in line.lower():
                 log(f"  {name}: {line.strip()}")
 
     kernels = phase_kernels()

@@ -28,8 +28,8 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 # kernel -> (C entry point, argtypes); every entry point returns cudaGetLastError()
 SIGNATURES: Dict[str, Tuple[str, list]] = {
-    # keys, prio_hi, prio_lo, active, won, G, M, stream
-    "lock_arbiter": ("rt_lock_arbiter", [_P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int, _P]),
+    # keys, prio_hi, prio_lo, active, won, scratch (NULL unless HELPERS asks for some), G, M, stream
+    "lock_arbiter": ("rt_lock_arbiter", [_P] * 6 + [ctypes.c_int, ctypes.c_int, _P]),
     # table, keys, out, R, A, M, stream
     "multi_read": ("rt_multi_read", [_P, _P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _P]),
     # wts_hi, wts_lo, ctts_hi, ctts_lo, lock_hi, lock_lo, found, slot, ok, M, S, stream
@@ -41,6 +41,12 @@ SIGNATURES: Dict[str, Tuple[str, list]] = {
         "rt_flash_attention",
         [_P] * 4 + [ctypes.c_int] * 5 + [_P, ctypes.c_float, ctypes.c_int, ctypes.c_int, _P],
     ),
+}
+
+# helper functions of a kernel's library: C name -> (kernel, argtypes, restype)
+HELPERS: Dict[str, Tuple[str, list, type]] = {
+    # M -> int64 words of global scratch per group (0: shared-memory table, one launch; else two)
+    "rt_lock_arbiter_scratch_words": ("lock_arbiter", [ctypes.c_int], ctypes.c_longlong),
 }
 
 _FNS: Dict[str, ctypes._CFuncPtr] = {}
@@ -103,16 +109,26 @@ def build(names: Iterable[str] = tuple(SIGNATURES)) -> Dict[str, str]:
     return logs
 
 
-def kernel_fn(name: str):
-    """The C entry point of kernel ``name``, built and loaded on first use."""
-    fn = _FNS.get(name)
+def _load(name: str, sym: str, argtypes: list, restype: type):
+    fn = _FNS.get(sym)
     if fn is None:
         path = lib_path(name)
         if not path.exists():
             build([name])
-        sym, argtypes = SIGNATURES[name]
         fn = getattr(ctypes.CDLL(str(path)), sym)
         fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-        _FNS[name] = fn
+        fn.restype = restype
+        _FNS[sym] = fn
     return fn
+
+
+def kernel_fn(name: str):
+    """The C entry point of kernel ``name``, built and loaded on first use."""
+    sym, argtypes = SIGNATURES[name]
+    return _load(name, sym, argtypes, ctypes.c_int)
+
+
+def helper_fn(sym: str):
+    """The helper function ``sym`` of a kernel's library (:data:`HELPERS`)."""
+    name, argtypes, restype = HELPERS[sym]
+    return _load(name, sym, argtypes, restype)

@@ -17,32 +17,54 @@
 // 4*B*H*S^2*Dh/2 = 68.7 GFLOP, 1.03 ms at the 67 TFLOP/s of float32 FMA,
 // against 134 MB of q, k, v and o (0.04 ms at 3.35 TB/s).  float32 cannot use
 // the tensor cores (TF32 keeps 10 mantissa bits), so the products run as FMAs
-// on the CUDA cores.
+// on the CUDA cores, and what stands between a SIMT kernel and that rate is
+// its instruction mix: an SM issues 4 warp-instructions a clock and can run 4
+// warp-FMAs a clock, so every shared-memory load, shuffle, exp and address
+// computation takes a slot from an FMA, and shared memory serves one 128-byte
+// wavefront a clock, so a warp-FMA may cost at most a quarter of one.
 //
-// Design: one block of 256 threads per (64-row q tile, head, batch row).  The
-// q tile sits in shared memory; a loop streams 64-row K/V tiles through shared
-// memory (K transposed, so a thread reads its four key columns as one float4)
-// and stops at the causal diagonal, so tiles above it are never loaded.  Each
-// thread owns a 4x4 block of the 64x64 score tile and the same four rows of
-// the output: the 16 threads of a half-warp share their rows, so a row's max
-// and sum are four xor-shuffles, and P goes through shared memory only within
-// that half-warp.  Blocks start with the last q tile, whose causal work is the
-// largest.  Inputs may be strided views (the LM's (B, S, H, Dh) projections
-// transposed to (B, H, S, Dh)) as long as Dh is contiguous.  No wgmma, TMA or
-// cp.async pipelining yet: the loads of a tile wait for the tile before.
+// Design: one block of 256 threads per (128-row q tile, head, batch row), a
+// loop over 64-key K/V tiles that stops at the causal diagonal.  Thread
+// (ty, tx) = (tid / 16, tid % 16) owns q rows ty + 16i (i < 8), keys
+// tx + 16j (j < 4) of the 128 x 64 score tile, and the same 8 rows of the
+// output at Dh/16 dims.  Per 4 steps of d the score loop loads 4 K quads and
+// 8 q quads (float4, or 4 bf16 converted at use) for 128 FMAs; the PV loop
+// loads 4 V quads and 8 P quads per 4 keys for 128 FMAs.  Within a warp the
+// q and P loads are broadcasts to each half-warp and the K and V loads touch
+// 16 distinct rows, so each load costs one or two wavefronts: about 8 FMAs a
+// wavefront, twice what the FMA rate needs.  A row's 64 keys belong to the 16
+// lanes of one half-warp, so its max is four xor-shuffles; its sum stays a
+// per-thread partial until the end; P goes through shared memory only within
+// that half-warp.  Rows are padded by 16 bytes (K, V, q: consecutive rows on
+// other banks) and P rows by 16 floats (the two half-warps' rows apart).
+// Scores are kept in the log2 domain (scale * log2 e folded into one
+// multiply), so each p is one MUFU.EX2.
+//
+// Pipeline: q, K and V tiles arrive by cp.async 16-byte copies (raw bytes;
+// bf16 converts at use), K and V in one buffer each, refilled out of phase:
+// V[t] is copied while tile t's scores and softmax run, K[t+1] while its PV
+// runs, so a tile takes two block barriers.  That keeps the shared memory at
+// 108 KB for Dh = 64 in float32, so 2 blocks (16 warps) share an SM.  Masking runs only on tiles that cross
+// the diagonal or Sk.  Blocks are issued heaviest q tile first across all
+// heads (the q tile is the grid's slowest axis).  Views whose base or strides
+// are not 16-byte aligned take the same loop with plain loads.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 namespace {
 
-constexpr int kBQ = 64;  // q rows per block
-constexpr int kBK = 64;  // keys per streamed tile
+constexpr int kBQ = 128;  // q rows per block
+constexpr int kBK = 64;   // keys per streamed tile
 constexpr int kThreads = 256;
-constexpr int kPad = 4;  // row padding (floats): spreads the banks, keeps float4 alignment
+constexpr int kRows = kBQ / 16;  // q rows per thread
+constexpr int kCols = kBK / 16;  // keys per thread
+constexpr int kPS = kBK + 16;    // P row stride (floats)
 constexpr float kNegInf = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
 
 struct Strides {
   long long b, h, s;  // elements; the Dh axis has stride 1
@@ -58,187 +80,280 @@ __device__ __forceinline__ float from_f<float>(float x) { return x; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) { return __float2bfloat16_rn(x); }
 
-template <int DH>
-constexpr int smem_floats() {
-  return kBQ * (DH + kPad) + DH * (kBK + kPad) + kBK * (DH + kPad) + kBQ * (kBK + kPad);
+// shared-memory row stride of a q, K or V tile, in elements: Dh plus 16 bytes
+template <typename T, int DH>
+__host__ __device__ constexpr int row_stride() { return DH + 16 / static_cast<int>(sizeof(T)); }
+
+template <typename T, int DH>
+constexpr size_t smem_bytes() {
+  return static_cast<size_t>(kBQ + 2 * kBK) * row_stride<T, DH>() * sizeof(T) +
+         static_cast<size_t>(kBQ) * kPS * sizeof(float);
 }
 
-__device__ __forceinline__ float comp(const float4& v, int i) {
-  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+// W consecutive elements of shared memory as floats (W = 2 or 4)
+template <int W>
+__device__ __forceinline__ void lds(const float* p, float* x) {
+  if constexpr (W == 4) {
+    const float4 t = *reinterpret_cast<const float4*>(p);
+    x[0] = t.x, x[1] = t.y, x[2] = t.z, x[3] = t.w;
+  } else {
+    const float2 t = *reinterpret_cast<const float2*>(p);
+    x[0] = t.x, x[1] = t.y;
+  }
+}
+
+template <int W>
+__device__ __forceinline__ void lds(const __nv_bfloat16* p, float* x) {
+  if constexpr (W == 4) {
+    const uint2 t = *reinterpret_cast<const uint2*>(p);
+    const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&t.x));
+    const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&t.y));
+    x[0] = a.x, x[1] = a.y, x[2] = b.x, x[3] = b.y;
+  } else {
+    const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+    x[0] = a.x, x[1] = a.y;
+  }
+}
+
+// 2^x in one MUFU.EX2 (relative error about 2^-22; results below 2^-126 flush to 0)
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+// every cp.async group of this thread but the newest `N` has landed
+template <int N>
+__device__ __forceinline__ void cp_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
+
+// Rows row0 .. row0 + ROWS - 1 of a (rows, Dh) view into a padded shared tile:
+// 16-byte cp.async copies when the view is aligned, plain loads otherwise; rows
+// at or past n are zero (so masked keys meet finite values).
+template <typename T, int DH, int ROWS>
+__device__ __forceinline__ void load_tile(T* dst, const T* src, long long rs, int row0, int n, bool aligned) {
+  constexpr int CH = 16 / sizeof(T);  // elements per 16-byte chunk
+  constexpr int CPR = DH / CH;        // chunks per row
+  constexpr int RS = row_stride<T, DH>();
+  constexpr int N = ROWS * CPR;
+#pragma unroll
+  for (int it = 0; it < (N + kThreads - 1) / kThreads; ++it) {
+    const int i = it * kThreads + threadIdx.x;
+    if (N % kThreads != 0 && i >= N) break;
+    const int r = i / CPR, c = (i % CPR) * CH, row = row0 + r;
+    T* d = dst + r * RS + c;
+    if (row >= n) {
+      *reinterpret_cast<uint4*>(d) = make_uint4(0u, 0u, 0u, 0u);
+      continue;
+    }
+    const T* s = src + row * rs + c;
+    if (aligned) {
+      const unsigned sa = static_cast<unsigned>(__cvta_generic_to_shared(d));
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(sa), "l"(s));
+    } else {
+#pragma unroll
+      for (int e = 0; e < CH; ++e) d[e] = s[e];
+    }
+  }
+}
+
+template <typename T, int W>
+__device__ __forceinline__ void store_out(T* p, const float* x, bool vec) {
+  if constexpr (std::is_same<T, float>::value && W == 4) {
+    if (vec) {
+      *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
+      return;
+    }
+  }
+#pragma unroll
+  for (int w = 0; w < W; ++w) p[w] = from_f<T>(x[w]);
 }
 
 template <typename T, int DH>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, DH <= 64 && sizeof(T) == 4 ? 2 : 1)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                        T* __restrict__ o, int Sq, int Sk, Strides sq, Strides sk, Strides sv, Strides so,
-                       float scale, int causal) {
-  constexpr int QS = DH + kPad;   // Qs row stride
-  constexpr int KS = kBK + kPad;  // Kt row stride (Kt is [DH][KS])
-  constexpr int VS = DH + kPad;   // Vs row stride
-  constexpr int PS = kBK + kPad;  // Ps row stride
-  constexpr int NV = DH / 16;     // output columns per thread
-  constexpr int VW = NV < 4 ? NV : 4;
-  constexpr int NG = NV / VW;     // column groups of VW adjacent columns
+                       float scale_log2, int causal, int aligned_in, int aligned_out) {
+  constexpr int RS = row_stride<T, DH>();
+  constexpr int NE = DH / 16;  // output dims per thread
+  constexpr int W = NE < 4 ? NE : 4;
+  constexpr int NG = NE / W;   // groups of W adjacent dims, 16 * W apart
   extern __shared__ float4 smem4[];
-  float* Qs = reinterpret_cast<float*>(smem4);
-  float* Kt = Qs + kBQ * QS;
-  float* Vs = Kt + DH * KS;
-  float* Ps = Vs + kBK * VS;
+  T* Qs = reinterpret_cast<T*>(smem4);
+  T* Ks = Qs + kBQ * RS;
+  T* Vs = Ks + kBK * RS;
+  float* Ps = reinterpret_cast<float*>(Vs + kBK * RS);
 
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * kBQ;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
   const T* qb = q + b * sq.b + h * sq.h;
   const T* kb = k + b * sk.b + h * sk.h;
   const T* vb = v + b * sv.b + h * sv.h;
+  const bool al = aligned_in != 0;
 
-  for (int i = tid; i < kBQ * DH; i += kThreads) {
-    const int r = i / DH, d = i % DH, row = q0 + r;
-    Qs[r * QS + d] = row < Sq ? to_f(qb[row * sq.s + d]) : 0.f;
+  const int k_end = causal ? min(Sk, q0 + kBQ) : Sk;
+  const int n_tiles = (k_end + kBK - 1) / kBK;
+  if (n_tiles > 0) {  // Sk = 0: no tile, q is never read and the output is zeros
+    load_tile<T, DH, kBQ>(Qs, qb, sq.s, q0, Sq, al);
+    load_tile<T, DH, kBK>(Ks, kb, sk.s, 0, Sk, al);
+    cp_commit();
   }
 
-  float acc[4][NV];
-  float m[4], l[4];
+  float acc[kRows][NE];
+  float m[kRows], l[kRows];  // l: this thread's partial row sums until the end
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < kRows; ++i) {
     m[i] = kNegInf;
     l[i] = 0.f;
 #pragma unroll
-    for (int n = 0; n < NV; ++n) acc[i][n] = 0.f;
+    for (int n = 0; n < NE; ++n) acc[i][n] = 0.f;
   }
 
-  const int k_end = causal ? min(Sk, q0 + kBQ) : Sk;
-  for (int k0 = 0; k0 < k_end; k0 += kBK) {
-    __syncthreads();  // the previous tile's readers are done (and Qs is loaded)
-    for (int i = tid; i < kBK * DH; i += kThreads) {
-      const int c = i / DH, d = i % DH, col = k0 + c;
-      const bool in = col < Sk;
-      Kt[d * KS + c] = in ? to_f(kb[col * sk.s + d]) : 0.f;
-      Vs[c * VS + d] = in ? to_f(vb[col * sv.s + d]) : 0.f;
-    }
-    __syncthreads();
+  for (int t = 0; t < n_tiles; ++t) {
+    const int k0 = t * kBK;
+    cp_wait<0>();     // this thread's copies of K[t] (and q) have landed
+    __syncthreads();  // everyone's have; every warp is done with V[t-1]
+    load_tile<T, DH, kBK>(Vs, vb, sv.s, k0, Sk, al);  // lands while the scores run
+    cp_commit();
 
-    float s[4][4];
+    float s[kRows][kCols];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < kRows; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 4
+      for (int j = 0; j < kCols; ++j) s[i][j] = 0.f;
+#pragma unroll
     for (int d = 0; d < DH; d += 4) {
-      float4 qv[4];
+      float kk[kCols][4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = *reinterpret_cast<const float4*>(&Qs[(ty * 4 + i) * QS + d]);
+      for (int j = 0; j < kCols; ++j) lds<4>(Ks + (tx + 16 * j) * RS + d, kk[j]);
 #pragma unroll
-      for (int dd = 0; dd < 4; ++dd) {
-        const float4 kv = *reinterpret_cast<const float4*>(&Kt[(d + dd) * KS + tx * 4]);
+      for (int i = 0; i < kRows; ++i) {
+        float qq[4];
+        lds<4>(Qs + (ty + 16 * i) * RS + d, qq);
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float qd = comp(qv[i], dd);
-          s[i][0] = fmaf(qd, kv.x, s[i][0]);
-          s[i][1] = fmaf(qd, kv.y, s[i][1]);
-          s[i][2] = fmaf(qd, kv.z, s[i][2]);
-          s[i][3] = fmaf(qd, kv.w, s[i][3]);
-        }
+        for (int j = 0; j < kCols; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[i][j] = fmaf(qq[e], kk[j][e], s[i][j]);
       }
     }
 
+    const bool edge = (causal && k0 + kBK - 1 > q0) || k0 + kBK > Sk;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + ty * 4 + i;
+    for (int i = 0; i < kRows; ++i) {
+      const int row = q0 + ty + 16 * i;
       float mt = kNegInf;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = k0 + tx * 4 + j;
-        const bool ok = col < Sk && (!causal || col <= row);
-        s[i][j] = ok ? s[i][j] * scale : kNegInf;
-        mt = fmaxf(mt, s[i][j]);
+      for (int j = 0; j < kCols; ++j) {
+        float x = s[i][j] * scale_log2;
+        if (edge) {
+          const int col = k0 + tx + 16 * j;
+          if (col >= Sk || (causal && col > row)) x = kNegInf;
+        }
+        s[i][j] = x;
+        mt = fmaxf(mt, x);
       }
 #pragma unroll
       for (int off = 8; off > 0; off >>= 1) mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, off));
       const float mn = fmaxf(m[i], mt);
-      const float corr = expf(m[i] - mn);
+      const float corr = fast_exp2(m[i] - mn);
       float ps = 0.f;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = expf(s[i][j] - mn);
+      for (int j = 0; j < kCols; ++j) {
+        const float p = fast_exp2(s[i][j] - mn);
         ps += p;
-        s[i][j] = to_f(from_f<T>(p));  // p in v's dtype for the PV product
+        Ps[(ty + 16 * i) * kPS + tx + 16 * j] = to_f(from_f<T>(p));  // p in v's dtype for the PV product
       }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1) ps += __shfl_xor_sync(0xffffffffu, ps, off);
       l[i] = l[i] * corr + ps;
       m[i] = mn;
 #pragma unroll
-      for (int n = 0; n < NV; ++n) acc[i][n] *= corr;
-      *reinterpret_cast<float4*>(&Ps[(ty * 4 + i) * PS + tx * 4]) = make_float4(s[i][0], s[i][1], s[i][2], s[i][3]);
+      for (int n = 0; n < NE; ++n) acc[i][n] *= corr;
     }
-    __syncwarp();  // a half-warp reads only the P rows it wrote
 
-#pragma unroll 4
-    for (int c = 0; c < kBK; ++c) {
-      float p[4];
+    cp_wait<0>();     // V[t] has landed
+    __syncthreads();  // for every thread; and every warp is done with K[t]
+    if (t + 1 < n_tiles) {  // lands while PV runs
+      load_tile<T, DH, kBK>(Ks, kb, sk.s, k0 + kBK, Sk, al);
+      cp_commit();
+    }
 #pragma unroll
-      for (int i = 0; i < 4; ++i) p[i] = Ps[(ty * 4 + i) * PS + c];
+    for (int c = 0; c < kBK; c += 4) {
+      float vv[4][NE];
 #pragma unroll
-      for (int g = 0; g < NG; ++g) {
-        const float* vr = &Vs[c * VS + g * 16 * VW + tx * VW];
-        float vv[VW];
-        if constexpr (VW == 4) {
-          const float4 t = *reinterpret_cast<const float4*>(vr);
-          vv[0] = t.x, vv[1] = t.y, vv[2] = t.z, vv[3] = t.w;
-        } else {
-          const float2 t = *reinterpret_cast<const float2*>(vr);
-          vv[0] = t.x, vv[1] = t.y;
-        }
+      for (int u = 0; u < 4; ++u)
 #pragma unroll
-        for (int e = 0; e < VW; ++e)
+        for (int g = 0; g < NG; ++g) lds<W>(Vs + (c + u) * RS + g * 16 * W + tx * W, &vv[u][g * W]);
 #pragma unroll
-          for (int i = 0; i < 4; ++i) acc[i][g * VW + e] = fmaf(p[i], vv[e], acc[i][g * VW + e]);
+      for (int i = 0; i < kRows; ++i) {
+        float pp[4];
+        lds<4>(Ps + (ty + 16 * i) * kPS + c, pp);
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+#pragma unroll
+          for (int n = 0; n < NE; ++n) acc[i][n] = fmaf(pp[u], vv[u][n], acc[i][n]);
       }
     }
   }
 
   T* ob = o + b * so.b + h * so.h;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty * 4 + i;
+  for (int i = 0; i < kRows; ++i) {
+    float li = l[i];
+#pragma unroll
+    for (int off = 8; off > 0; off >>= 1) li += __shfl_xor_sync(0xffffffffu, li, off);
+    const int row = q0 + ty + 16 * i;
     if (row >= Sq) continue;
-    const float den = fmaxf(l[i], 1e-30f);
+    const float den = fmaxf(li, 1e-30f);
 #pragma unroll
-    for (int g = 0; g < NG; ++g)
+    for (int g = 0; g < NG; ++g) {
+      float x[W];
 #pragma unroll
-      for (int e = 0; e < VW; ++e)
-        ob[row * so.s + g * 16 * VW + tx * VW + e] = from_f<T>(acc[i][g * VW + e] / den);
+      for (int w = 0; w < W; ++w) x[w] = acc[i][g * W + w] / den;
+      store_out<T, W>(ob + row * so.s + g * 16 * W + tx * W, x, aligned_out != 0);
+    }
   }
 }
 
 template <typename T, int DH>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int H, int Sq, int Sk, Strides sq,
-           Strides sk, Strides sv, Strides so, float scale, int causal, cudaStream_t stream) {
-  constexpr size_t smem = smem_floats<DH>() * sizeof(float);
+           Strides sk, Strides sv, Strides so, float scale, int causal, int aligned_in, int aligned_out,
+           cudaStream_t stream) {
+  constexpr size_t smem = smem_bytes<T, DH>();
   static bool configured = false;
   if (!configured) {
-    const cudaError_t e = cudaFuncSetAttribute(flash_attention_kernel<T, DH>,
-                                               cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    cudaError_t e = cudaFuncSetAttribute(flash_attention_kernel<T, DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+    if (e == cudaSuccess)  // all of the SM's unified memory that can be shared, so two blocks fit
+      e = cudaFuncSetAttribute(flash_attention_kernel<T, DH>, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
     if (e != cudaSuccess) return static_cast<int>(e);
     configured = true;
   }
-  const dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
+  const int nq = (Sq + kBQ - 1) / kBQ;
+  if (B > 65535 || nq > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(H, B, nq);  // the q tile is the slowest axis: heaviest tiles of every head first
   flash_attention_kernel<T, DH><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), static_cast<T*>(o), Sq, Sk,
-      sq, sk, sv, so, scale, causal);
+      sq, sk, sv, so, scale * kLog2e, causal, aligned_in, aligned_out);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int dispatch_dh(int Dh, const void* q, const void* k, const void* v, void* o, int B, int H, int Sq, int Sk,
-                Strides sq, Strides sk, Strides sv, Strides so, float scale, int causal, cudaStream_t stream) {
+                Strides sq, Strides sk, Strides sv, Strides so, float scale, int causal, int al_in, int al_out,
+                cudaStream_t stream) {
   switch (Dh) {
-    case 32: return launch<T, 32>(q, k, v, o, B, H, Sq, Sk, sq, sk, sv, so, scale, causal, stream);
-    case 64: return launch<T, 64>(q, k, v, o, B, H, Sq, Sk, sq, sk, sv, so, scale, causal, stream);
-    case 128: return launch<T, 128>(q, k, v, o, B, H, Sq, Sk, sq, sk, sv, so, scale, causal, stream);
+    case 32: return launch<T, 32>(q, k, v, o, B, H, Sq, Sk, sq, sk, sv, so, scale, causal, al_in, al_out, stream);
+    case 64: return launch<T, 64>(q, k, v, o, B, H, Sq, Sk, sq, sk, sv, so, scale, causal, al_in, al_out, stream);
+    case 128: return launch<T, 128>(q, k, v, o, B, H, Sq, Sk, sq, sk, sv, so, scale, causal, al_in, al_out, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// a tensor's base and its b, h, s strides are all multiples of 16 bytes
+bool aligned16(const void* p, const Strides& s, int esize) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && (s.b * esize) % 16 == 0 && (s.h * esize) % 16 == 0 &&
+         (s.s * esize) % 16 == 0;
 }
 
 }  // namespace
@@ -251,6 +366,10 @@ extern "C" int rt_flash_attention(const void* q, const void* k, const void* v, v
   const Strides sq{strides[0], strides[1], strides[2]}, sk{strides[3], strides[4], strides[5]},
       sv{strides[6], strides[7], strides[8]}, so{strides[9], strides[10], strides[11]};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bf16) return dispatch_dh<__nv_bfloat16>(Dh, q, k, v, o, B, H, Sq, Sk, sq, sk, sv, so, scale, causal, st);
-  return dispatch_dh<float>(Dh, q, k, v, o, B, H, Sq, Sk, sq, sk, sv, so, scale, causal, st);
+  const int es = bf16 ? 2 : 4;
+  const int al_in = aligned16(q, sq, es) && aligned16(k, sk, es) && aligned16(v, sv, es);
+  const int al_out = aligned16(o, so, es);
+  if (bf16)
+    return dispatch_dh<__nv_bfloat16>(Dh, q, k, v, o, B, H, Sq, Sk, sq, sk, sv, so, scale, causal, al_in, al_out, st);
+  return dispatch_dh<float>(Dh, q, k, v, o, B, H, Sq, Sk, sq, sk, sv, so, scale, causal, al_in, al_out, st);
 }

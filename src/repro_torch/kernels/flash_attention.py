@@ -42,7 +42,9 @@ def flash_attention(q, k, v, *, causal: bool = True):
 
     Launches ``csrc/flash_attention.cu`` on CUDA tensors (or raises); runs
     the plain version on CPU tensors.  Inputs may be strided views as long
-    as Dh is contiguous; the output has q's memory layout (``empty_like``),
+    as Dh is contiguous (views whose base or strides are not 16-byte
+    aligned take the kernel's plain-load path instead of its cp.async
+    copies); the output has q's memory layout (``empty_like``),
     so (B, S, H, Dh) projections transposed in give a (B, S, H, Dh) result
     back with a free transpose.
     """

@@ -25,15 +25,21 @@ def card():
     return torch.device("cuda")
 
 
-def _arbiter_case(G, M, n_keys, seed, *, ties=False, pad=False):
+I32_WORDS = np.array([-(2**31), -(2**31) + 1, -1, 0, 1, 2**31 - 2, 2**31 - 1], np.int32)
+
+
+def _arbiter_case(G, M, n_keys, seed, *, ties=False, pad=False, extremes=False):
     """Random batch: inactive rows, narrow priorities; ``ties`` makes pairs
-    share a priority, ``pad`` adds a tail of inactive -1 keys."""
+    share a priority, ``pad`` adds a tail of inactive -1 keys, ``extremes``
+    draws keys and priorities from the int32 extremes."""
     rng = np.random.default_rng(seed)
     keys = rng.integers(0, n_keys, (G, M)).astype(np.int32)
     hi = rng.integers(-3, 4, (G, M)).astype(np.int32)
     lo = np.stack([rng.permutation(M) for _ in range(G)]).astype(np.int32).reshape(G, M)
     if ties:
         lo //= 2
+    if extremes:
+        keys, hi, lo = (I32_WORDS[rng.integers(0, len(I32_WORDS), (G, M))] for _ in range(3))
     act = rng.random((G, M)) < 0.7
     if pad and M:
         keys[:, -max(1, M // 4):] = -1
@@ -44,14 +50,27 @@ def _arbiter_case(G, M, n_keys, seed, *, ties=False, pad=False):
 @pytest.mark.parametrize(
     "G,M,n_keys,ties,pad",
     [(1, 480, 262144, False, False), (1, 480, 64, True, False), (3, 37, 9, False, True), (3, 1, 1, False, False),
-     (1, 0, 1, False, False), (1, 2048, 300, True, False), (2, 2048, 40, False, True)],
+     (1, 0, 1, False, False), (1, 2048, 300, True, False), (2, 2048, 40, False, True),
+     # one hot key (with and without exact ties), and the global-memory table (M > 4096)
+     (1, 2400, 1, False, False), (1, 2400, 1, True, False), (2, 12000, 262144, False, False),
+     (2, 12000, 50, True, True)],
 )
 def test_lock_arbiter_cuda_matches_plain(card, G, M, n_keys, ties, pad):
     args = [torch.tensor(a) for a in _arbiter_case(G, M, n_keys, M + n_keys, ties=ties, pad=pad)]
     n = lock_arbiter.launches
     got = lock_arbiter(*[a.to(card) for a in args])
-    assert lock_arbiter.launches == n + (1 if G * M else 0)
-    assert torch.equal(got.cpu(), ref.lock_arbiter_ref(*args))
+    assert lock_arbiter.launches == n + (0 if G * M == 0 else 1 if M <= 4096 else 2)
+    # the plain version's (G, M, M) pair tensor, a group at a time
+    want = torch.cat([ref.lock_arbiter_ref(*(a[g:g + 1] for a in args)) for g in range(G)]) if G else got.cpu()
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("G,M", [(1, 2400), (2, 480), (1, 5000)])
+def test_lock_arbiter_cuda_int32_extremes(card, G, M):
+    args = [torch.tensor(a) for a in _arbiter_case(G, M, 1, G * M, extremes=True)]
+    got = lock_arbiter(*[a.to(card) for a in args])
+    want = torch.cat([ref.lock_arbiter_ref(*(a[g:g + 1] for a in args)) for g in range(G)])
+    assert torch.equal(got.cpu(), want)
 
 
 @pytest.mark.parametrize("R,M,A", [(262144, 480, 2), (262144, 480, 3), (1000, 37, 1), (1000, 0, 2)])
@@ -124,13 +143,42 @@ def test_kernel_plane_matches_torch_plane_on_the_card(card, protocol, workload):
 @pytest.mark.parametrize(
     "B,H,Sq,Sk,Dh,causal",
     [(2, 3, 128, 128, 64, True), (1, 2, 65, 65, 32, False), (1, 1, 1, 1, 128, True), (2, 2, 50, 130, 64, False),
-     (1, 4, 320, 320, 128, True), (1, 2, 70, 40, 32, True)],
+     (1, 4, 320, 320, 128, True), (1, 2, 70, 40, 32, True), (1, 2, 70, 0, 64, True)],
 )
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 3e-2)])
 def test_flash_attention_cuda_matches_plain(card, B, H, Sq, Sk, Dh, causal, dtype, tol):
     gen = torch.Generator().manual_seed(Sq * 131 + Sk + Dh)
     q = torch.randn((B, Sq, H, Dh), generator=gen).to(dtype).to(card).transpose(1, 2)  # attention_op's views
     k, v = (torch.randn((B, H, Sk, Dh), generator=gen).to(dtype).to(card) for _ in range(2))
+    n = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal)
+    assert flash_attention.launches == n + 1
+    want = ref.flash_attention_ref(q, k, v, causal=causal)
+    assert got.dtype == dtype and got.shape == want.shape
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize(
+    "kind,B,H,Sq,Sk,Dh,causal,dtype,tol",
+    [("serving shape, (B, S, H, Dh) views", 4, 32, 2048, 2048, 64, True, torch.float32, 1e-5),
+     ("Dh 128, Sq < Sk", 2, 3, 200, 333, 128, True, torch.float32, 1e-5),
+     ("Dh 128, Sq > Sk", 2, 3, 333, 200, 128, True, torch.bfloat16, 3e-2),
+     ("rows not 16-byte aligned", 2, 3, 130, 130, 64, True, torch.float32, 1e-5),
+     ("rows not 16-byte aligned", 2, 3, 77, 90, 32, False, torch.bfloat16, 3e-2)],
+)
+def test_flash_attention_cuda_layouts(card, kind, B, H, Sq, Sk, Dh, causal, dtype, tol):
+    """(B, S, H, Dh) storage seen through a transpose, as attention_op hands
+    it over; "not aligned" takes the last Dh of (B, S, H, Dh + 1) rows, so
+    the kernel's plain-load path runs."""
+    gen = torch.Generator().manual_seed(B * Sq + Sk + Dh)
+    extra = 1 if "aligned" in kind else 0
+
+    def view(S):
+        t = torch.randn((B, S, H, Dh + extra), generator=gen).to(dtype).to(card)
+        return t[..., extra:].transpose(1, 2)
+
+    q, k, v = view(Sq), view(Sk), view(Sk)
+    assert (q.data_ptr() % 16 != 0) == bool(extra)
     n = flash_attention.launches
     got = flash_attention(q, k, v, causal=causal)
     assert flash_attention.launches == n + 1

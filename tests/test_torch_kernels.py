@@ -10,6 +10,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings, strategies as st
 
 from repro.core.arbiter import scatter_min_winner as j_scatter_min_winner
 from repro.kernels import ref as jref
@@ -21,7 +22,8 @@ from repro.kernels.ops import attention_op as j_attention_op
 from repro_torch.core.arbiter import scatter_min_winner
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.kernels.lock_arbiter import lock_arbiter
+from repro_torch.kernels.lock_arbiter import lock_arbiter, pack_prio
+from repro_torch.kernels.ref import lock_arbiter_ref
 from repro_torch.kernels.multi_read import multi_read
 from repro_torch.kernels.mvcc_version_select import mvcc_version_select
 from repro_torch.kernels.ref import mvcc_version_select_ref
@@ -74,6 +76,73 @@ def test_lock_arbiter_exact_tie_leaves_several_winners():
     got = lock_arbiter(*map(torch.tensor, (keys, hi, lo, act))).numpy()
     np.testing.assert_array_equal(got, [[True, True, False, True, False]])
     np.testing.assert_array_equal(got, np.asarray(j_lock_arbiter(*map(jnp.asarray, (keys, hi, lo, act)), interpret=True)))
+
+
+EXTREMES = [I32_MIN, I32_MIN + 1, -1, 0, 1, I32_MAX - 1, I32_MAX]
+int32s = st.one_of(st.sampled_from(EXTREMES), st.integers(I32_MIN, I32_MAX))
+
+
+@settings(max_examples=300, deadline=None)
+@given(a=st.tuples(int32s, int32s), b=st.tuples(int32s, int32s))
+def test_pack_prio_orders_as_signed_lexicographic(a, b):
+    """The kernel's 64-bit packing: unsigned order == signed (hi, lo) order."""
+    pa, pb = (int(pack_prio(np.array([h], np.int32), np.array([l], np.int32))[0]) for h, l in (a, b))
+    assert (pa < pb) == (a < b) and (pa == pb) == (a == b)
+
+
+def _hash_table_arbiter(keys, hi, lo, act):
+    """The CUDA kernel's algorithm in numpy: per group and key, the minimum
+    packed priority over the active requests; a request wins iff it is
+    active and its packed priority equals its key's minimum."""
+    won = np.zeros(keys.shape, bool)
+    packed = pack_prio(hi, lo)
+    for g in range(keys.shape[0]):
+        best = {}
+        for key, p, a in zip(keys[g].tolist(), packed[g].tolist(), act[g].tolist()):
+            if a:
+                best[key] = min(best.get(key, p), p)
+        won[g] = [bool(a) and best[key] == p for key, p, a in zip(keys[g].tolist(), packed[g].tolist(), act[g].tolist())]
+    return won
+
+
+def _extreme_case(G, M, seed, n_words=len(EXTREMES)):
+    rng = np.random.default_rng(seed)
+    words = np.array(EXTREMES[:n_words], np.int32)
+    keys, hi, lo = (words[rng.integers(0, n_words, (G, M))] for _ in range(3))
+    return keys, hi, lo, rng.random((G, M)) < 0.7
+
+
+@pytest.mark.parametrize(
+    "case",
+    [("random", 1, 480, 7, False, False), ("ties+pad", 3, 37, 11, True, True), ("one key", 1, 64, 1, False, False),
+     ("one key, ties", 2, 64, 1, True, False), ("extremes", 2, 96, None, None, None), ("M=1", 3, 1, 1, False, False)],
+    ids=lambda c: c[0],
+)
+def test_lock_arbiter_hash_table_algorithm_matches_ref_and_pallas(case):
+    """Per-key min of the packed word, then equality, is the arbiter: equal
+    to the plain version, the JAX reference and the Pallas kernel (interpret
+    mode), ties (several winners) and inactive padding included."""
+    name, G, M, n_keys, ties, pad = case
+    if name == "extremes":
+        keys, hi, lo, act = _extreme_case(G, M, 7)
+    else:
+        keys, hi, lo, act = _arbiter_case(G, M, n_keys, G * 31 + M, ties=ties, pad=pad)
+    mirror = _hash_table_arbiter(keys, hi, lo, act)
+    np.testing.assert_array_equal(mirror, lock_arbiter_ref(*map(torch.tensor, (keys, hi, lo, act))).numpy())
+    np.testing.assert_array_equal(mirror, np.asarray(jref.lock_arbiter_ref(*map(jnp.asarray, (keys, hi, lo, act)))))
+    np.testing.assert_array_equal(
+        mirror, np.asarray(j_lock_arbiter(*map(jnp.asarray, (keys, hi, lo, act)), interpret=True)))
+
+
+@settings(max_examples=60, deadline=None)
+@given(seed=st.integers(0, 2**32 - 1), n_words=st.integers(1, len(EXTREMES)))
+def test_lock_arbiter_hash_table_algorithm_on_extreme_words(seed, n_words):
+    """Keys, hi and lo drawn from few int32 extremes (many same-key requests
+    and exact ties): the mirror equals the plain version and the JAX one."""
+    keys, hi, lo, act = _extreme_case(2, 24, seed, n_words)
+    mirror = _hash_table_arbiter(keys, hi, lo, act)
+    np.testing.assert_array_equal(mirror, lock_arbiter_ref(*map(torch.tensor, (keys, hi, lo, act))).numpy())
+    np.testing.assert_array_equal(mirror, np.asarray(jref.lock_arbiter_ref(*map(jnp.asarray, (keys, hi, lo, act)))))
 
 
 def test_lock_arbiter_empty_batch():
