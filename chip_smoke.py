@@ -15,11 +15,17 @@ Run from a checkout of the repository on a machine with one CUDA card and
    at each main path's shapes, its device time per call (calls captured in
    a CUDA graph, replayed between CUDA events), its time per call as the
    host issues them eagerly, its bound, the plain version's times and a
-   library call's times (``flash_attention``: SDPA); then one tick of each
-   RCC main path (NOWAIT/SmallBank and MVCC/YCSB, hybrid 63, kernel plane)
-   timed bare and traced with torch.profiler: wall time, device busy time,
-   device operations and top-level host operations per tick (and, for
-   YCSB, the share of its sequential key de-duplication);
+   library call's times (``flash_attention``: SDPA; ``multi_read``: the
+   per-array ``a[keys]`` of the torch plane).  ``multi_read`` and
+   ``mvcc_version_select`` are timed as the whole ops-level call
+   (``ops.gather_many``, ``ops.version_read``), which the profiler must see
+   as one launch, beside the parent tree's sequence for the same call
+   rebuilt op for op with this tree's kernels (a packed-table gather; the
+   gathers, copies and per-op pick); then one tick of each RCC main path
+   (NOWAIT/SmallBank and MVCC/YCSB, hybrid 63, kernel plane) timed bare
+   and traced with torch.profiler: wall time, device busy time, device
+   operations, ``torch.cat`` launches and top-level host operations per
+   tick (and, for YCSB, the share of its sequential key de-duplication);
 4. the RCC main paths: ``repro_torch.api.run`` at the full ExperimentSpec
    defaults (4 nodes x 60 co-routines, 65536 records per node, 400 + 80
    ticks) for hybrid codes {0, 63, 21, 42} on the ``"kernel"`` plane, with
@@ -60,11 +66,24 @@ PATHS = (
     ("nowait", "smallbank", "golden_nowait_smallbank.json", CODES),
     ("mvcc", "ycsb", "golden_mvcc_ycsb.json", (63,)),
 )
-# kernel launches per tick on each path's kernel plane
+# kernel launches per tick on each path's kernel plane: one multi_read per gather_many (GATHERS) and
+# one mvcc_version_select per fused version read (PICKS)
 PER_TICK = {
     "nowait": {"lock_arbiter": 1, "multi_read": 2, "mvcc_version_select": 0, "flash_attention": 0},
-    "mvcc": {"lock_arbiter": 1, "multi_read": 11, "mvcc_version_select": 3, "flash_attention": 0},
+    "mvcc": {"lock_arbiter": 1, "multi_read": 5, "mvcc_version_select": 3, "flash_attention": 0},
 }
+R_RECORDS = 4 * 65536  # the RCC main paths' store rows
+# each main path's gather_many calls per tick on the kernel plane: (N, K, {what: (the arrays' shapes
+# after R, calls per tick)}).  MVCC: the read effect's rts_hi; the rts pair of the read and lock
+# effects' Cond W1 checks and try_lock's lock pair; the commit's wts_hi|wts_lo|ver
+GATHERS = {
+    "nowait/smallbank": (240, 2, {"lock_hi|lock_lo": (((), ()), 1), "data|ver (rw 2)": (((2,), ()), 1)}),
+    "mvcc/ycsb": (240, 10, {"rts_hi": (((),), 1), "rts or lock pair": (((), ()), 3),
+                            "wts_hi|wts_lo|ver": (((4,), (4,), ()), 1)}),
+}
+# the MVCC main path's fused version reads per tick: ((N, K, S), {with the lock: reads per tick}):
+# the read and rts effects check the lock, the lock effect does not
+PICKS = {"mvcc/ycsb": ((240, 10, 4), {True: 2, False: 1})}
 # H100 SXM peaks: the HBM3 rate (NVIDIA data sheet), and the INT32 issue rate
 # that bounds integer compares and selects: 132 SMs x 64 INT32 lanes per SM x
 # 1.98 GHz boost clock = 16.7e12 ops/s (the data sheet's 67 TFLOP/s float32
@@ -198,8 +217,7 @@ def phase_kernels():
     import torch
 
     from repro_torch.kernels.lock_arbiter import lock_arbiter
-    from repro_torch.kernels.multi_read import multi_read
-    from repro_torch.kernels.ref import lock_arbiter_ref, multi_read_ref
+    from repro_torch.kernels.ref import lock_arbiter_ref
 
     gen = torch.Generator().manual_seed(0)
     rows = []
@@ -245,41 +263,7 @@ def phase_kernels():
         replaces="src/repro/kernels/lock_arbiter.py:41", max_abs_err=float(worst), by_path=by_path,
     ))
 
-    # multi_read: R = 4*65536; each main path's packed widths A with their launches per tick
-    # (NOWAIT: lock pair, data|ver; MVCC: wts pair x5, lock or rts pair x4, lock|rts_hi, wts|ver)
-    R = 262144
-    widths = {"nowait/smallbank": (480, {2: 1, 3: 1}), "mvcc/ycsb": (2400, {8: 5, 2: 4, 3: 1, 9: 1})}
-    worst = 0
-    for M in (480, 2400):
-        for A in (1, 2, 3, 8, 9):
-            for R_ in (R, 1000):
-                table = torch.randint(-2**31, 2**31 - 1, (R_, A), generator=gen, dtype=torch.int32).cuda()
-                keys = torch.randint(-3, R_ + 3, (M,), generator=gen, dtype=torch.int32).cuda()
-                got, want = multi_read(table, keys), multi_read_ref(table, keys)
-                torch.cuda.synchronize()
-                err = int((got.long() - want.long()).abs().max())
-                worst = max(worst, err)
-                log(f"  multi_read R={R_} M={M} A={A} (keys in [-3, R+3)): max |err| {err}")
-                if err:
-                    raise AssertionError(f"multi_read disagrees with its plain version at R={R_} M={M} A={A}")
-    by_path = {}
-    for path, (M, per_tick) in widths.items():
-        parts = []
-        for A, n in per_tick.items():
-            table = torch.randint(0, 1000, (R, A), generator=gen, dtype=torch.int32).cuda()
-            keys = torch.randint(0, R, (M,), generator=gen, dtype=torch.int32).cuda()
-            t = timed(lambda: multi_read(table, keys), lambda: multi_read_ref(table, keys), lambda: table[keys])
-            t["bound_ms"], t["bound_by"] = bound_ms(M * 4 + 2 * M * A * 4, 0)  # keys + rows read + rows written
-            log(f"multi_read ({path}: R={R}, M={M}, A={A}, {n} per tick): {t['ms']:.6f} ms/call on the device "
-                f"({t['host_ms']:.6f} issued eagerly), plain {t['plain_ms']:.6f} ms ({t['plain_host_ms']:.6f}), "
-                f"table[keys] {t['library_ms']:.6f} ms ({t['library_host_ms']:.6f}), "
-                f"bound {t['bound_ms']:.9f} ms ({t['bound_by']})")
-            parts.append((n, t))
-        by_path[path] = dict(mix(parts), M=M, widths_per_tick=per_tick)
-    rows.append(dict(
-        name="multi_read", route="cuda", source="src/repro_torch/kernels/csrc/multi_read.cu",
-        replaces="src/repro/kernels/multi_read.py:41", max_abs_err=float(worst), by_path=by_path,
-    ))
+    rows.append(phase_multi_read(gen))
     rows.append(phase_version_select(gen))
     rows.append(phase_flash(gen))
     return rows
@@ -323,44 +307,281 @@ def version_case(M, S, gen, kind="random"):
     return [t.cuda() for t in (wh, wl, ch, cl, lh, ll)]
 
 
-def phase_version_select(gen):
-    """mvcc_version_select against its plain version, exactly, then timed at
-    the main path's shape: M = N*K = 240*10 ops, S = 4 slots."""
+def read_case(R, N, K, S, gen, kind="narrow"):
+    """A fused version read's inputs on the card: the store's wts (R, S) and
+    lock (R,) words, keys (N, K) in [-3, R+3) and one ctts pair per row of
+    keys.  ``narrow`` words (empty slots, ties, ctts == wts, lock == ctts
+    all occur), ``engine`` the main path's (hi, lo) = (clock, slot id + 1)
+    words, ``extremes`` int32 extremes, ``ties`` slots 1 .. S//2 tied on
+    the winning pair, ``empty`` every slot (0, 0); ``unaligned`` narrow
+    words in views 4 bytes past a 16-byte boundary (the scalar path)."""
+    import torch
+
+    def ints(*shape, lo=-1, hi=3):
+        return torch.randint(lo, hi, shape, generator=gen, dtype=torch.int32)
+
+    wh, wl, lh, ll, ch, cl = ints(R, S), ints(R, S), ints(R), ints(R), ints(N), ints(N)
+    if kind == "engine":
+        wh, wl = ints(R, S, lo=0, hi=400), ints(R, S, lo=1, hi=241)
+        wh[:, 0], wl[:, 0] = 0, 1
+        ch, cl = ints(N, lo=0, hi=400), ints(N, lo=1, hi=241)
+        free = torch.rand((R,), generator=gen) < 0.8
+        lh, ll = torch.where(free, 0, ints(R, lo=0, hi=400)), torch.where(free, 0, ints(R, lo=1, hi=241))
+    elif kind == "extremes":
+        words = torch.tensor(I32_WORDS, dtype=torch.int32)
+        wh, wl = (words[torch.randint(0, 7, (R, S), generator=gen)] for _ in range(2))
+        lh, ll = (words[torch.randint(0, 7, (R,), generator=gen)] for _ in range(2))
+        ch, cl = (words[torch.randint(0, 7, (N,), generator=gen)] for _ in range(2))
+    elif kind == "ties":
+        wh[:, : S // 2 + 1], wl[:, : S // 2 + 1] = 1, 1
+        wh[:, 0] = 0
+        ch.fill_(1)
+        cl.fill_(2)
+    elif kind == "empty":
+        wh.zero_()
+        wl.zero_()
+    keys = torch.randint(-3, R + 3, (N, K), generator=gen, dtype=torch.int32).cuda()
+    wh, wl, lh, ll, ch, cl = (t.cuda() for t in (wh, wl, lh, ll, ch, cl))
+    if kind == "unaligned":
+        wh, wl, lh, ll = (unaligned(t) for t in (wh, wl, lh, ll))
+    return wh, wl, lh, ll, keys, ch, cl
+
+
+def unaligned(t):
+    """``t``'s values in storage that starts 4 bytes past a 16-byte
+    boundary: a contiguous view that the 16-byte paths must refuse."""
+    import torch
+
+    flat = torch.empty((t.numel() + 1,), dtype=t.dtype, device=t.device)
+    view = flat[1:].view(t.shape)
+    view.copy_(t)
+    assert view.data_ptr() % 16
+    return view
+
+
+def packed_gather(arrs, keys):
+    """The parent tree's ``ops.gather_many`` on the kernel plane, op for op,
+    with this tree's kernel: the whole store arrays concatenated into one
+    packed (R, A) table, one one-array gather, column views shaped like
+    the keys."""
+    import torch
+
+    from repro_torch.kernels.multi_read import multi_read
+
+    R = arrs[0].shape[0]
+    cols = [a.reshape(R, -1) for a in arrs]
+    table = cols[0].contiguous() if len(cols) == 1 else torch.cat(cols, dim=1)
+    out = multi_read(table, keys.reshape(-1).contiguous())
+    outs, pos = [], 0
+    for a, c in zip(arrs, cols):
+        outs.append(out[:, pos:pos + c.shape[1]].reshape(tuple(keys.shape) + tuple(a.shape[1:])))
+        pos += c.shape[1]
+    return tuple(outs)
+
+
+def parent_pick(wh, wl, keys, ch, cl, lh=None, ll=None):
+    """The parent tree's kernel-plane version pick, op for op, with this
+    tree's kernels: the wts pair and the lock pair gathered through packed
+    tables (``packed_gather``), a zero lock filled in when there is none,
+    ctts expanded to one pair per op, every input copied contiguous, then
+    the pick over per-op rows."""
     import torch
 
     from repro_torch.kernels.mvcc_version_select import mvcc_version_select
-    from repro_torch.kernels.ref import mvcc_version_select_ref
 
+    shp, S = tuple(keys.shape), wh.shape[1]
+    vh, vl = packed_gather((wh, wl), keys)
+    z = torch.zeros(shp, dtype=torch.int32, device=keys.device)
+    gh, gl = packed_gather((lh, ll), keys) if lh is not None else (z, z)
+
+    def flat(a):
+        return a.expand(shp).reshape(-1)
+
+    args = (vh.reshape(-1, S), vl.reshape(-1, S), flat(ch[:, None]), flat(cl[:, None]), flat(gh), flat(gl))
+    return mvcc_version_select(*(a.contiguous() for a in args))
+
+
+def one_device_op(fn, kernel):
+    """Profile one call of ``fn``: it must issue exactly one device
+    operation, a launch of ``kernel`` (no copy, no fill, no cat)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    dev = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if len(dev) != 1 or kernel + "_kernel" not in dev[0]:
+        raise AssertionError(f"one call must be one {kernel} launch, the device ran {dev}")
+
+
+def phase_multi_read(gen):
+    """multi_read against its plain version on the card, exactly: 1 to 4
+    arrays of widths 1 to 16 read in place, keys in [-3, R+3), M = 0, 480,
+    2400 and 12000, views that are not 16-byte aligned, and the one-array
+    packed-table call.  Then, at each main path's gather_many calls, the
+    whole ops-level call on the kernel plane (one launch, checked with the
+    profiler) against the torch plane's per-array ``a[keys]`` (the library
+    call), the plain version and the parent's packed sequence."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.multi_read import multi_read, multi_read_many
+    from repro_torch.kernels.ref import gather_many_ref, multi_read_ref
+
+    def rand(*shape):
+        return torch.randint(-2**31, 2**31 - 1, shape, generator=gen, dtype=torch.int32).cuda()
+
+    worst = 0
+
+    def check(got, want, label):
+        nonlocal worst
+        torch.cuda.synchronize()
+        if [tuple(g.shape) for g in got] != [tuple(w.shape) for w in want]:
+            raise AssertionError(f"multi_read {label}: shapes {[g.shape for g in got]} != {[w.shape for w in want]}")
+        err = max((int((g.long() - w.long()).abs().max()) for g, w in zip(got, want) if w.numel()), default=0)
+        worst = max(worst, err)
+        if err or not all(g.is_contiguous() for g in got):
+            raise AssertionError(f"multi_read disagrees with its plain version at {label}: max |err| {err}")
+
+    width_sets = [(1,), (2,), (3,), (4,), (8,), (9,), (16,), (4, 4), (2, 1), (16, 1), (1, 1, 1), (4, 4, 1),
+                  (3, 9, 8, 1), (16, 4, 2, 1)]
+    for M in (0, 480, 2400, 12000):
+        R = R_RECORDS if M in (480, 2400) else 1000
+        for ws in width_sets:
+            arrs = [rand(R, w) if w > 1 else rand(R) for w in ws]
+            keys = torch.randint(-3, R + 3, (M,), generator=gen, dtype=torch.int32).cuda()
+            check(multi_read_many(arrs, keys), gather_many_ref(arrs, keys), f"R={R} M={M} widths {ws}")
+            if ws in ((4,), (16, 1), (3, 9, 8, 1)) and M:
+                views = [unaligned(a) for a in arrs]
+                check(multi_read_many(views, keys), gather_many_ref(arrs, keys), f"unaligned R={R} M={M} widths {ws}")
+        for A in (1, 2, 3, 8, 9):
+            table, keys = rand(R, A), torch.randint(-3, R + 3, (M,), generator=gen, dtype=torch.int32).cuda()
+            check((multi_read(table, keys),), (multi_read_ref(table, keys),), f"one table R={R} M={M} A={A}")
+        log(f"  multi_read M={M} (R={R}, keys in [-3, R+3)): {len(width_sets)} array sets, 5 one-table widths, "
+            f"the unaligned views: max |err| 0")
+
+    by_path = {}
+    for path, (N, K, sets) in GATHERS.items():
+        M, parts = N * K, []
+        keys = torch.randint(0, R_RECORDS, (N, K), generator=gen, dtype=torch.int32).cuda()
+        kf = keys.reshape(-1)
+        for name, (shapes, n) in sets.items():
+            arrs = [torch.randint(0, 1000, (R_RECORDS,) + s, generator=gen, dtype=torch.int32).cuda() for s in shapes]
+            fn = lambda: ops.gather_many(arrs, keys, plane=ops.KERNEL)  # noqa: E731
+            one_device_op(fn, "multi_read")
+            for g, w in zip(fn(), packed_gather(arrs, keys)):
+                if not torch.equal(g, w):
+                    raise AssertionError(f"multi_read ({path}, {name}): the parent's packed sequence disagrees")
+            t = timed(fn, lambda: gather_many_ref(arrs, kf), lambda: ops.gather_many(arrs, keys, plane=ops.TORCH))
+            packed = lambda: packed_gather(arrs, keys)  # noqa: E731
+            t["packed_ms"], t["packed_host_ms"] = time_graph_ms(packed), time_ms(packed)
+            words = sum(math.prod(s) for s in shapes)
+            t["bound_ms"], t["bound_by"] = bound_ms(M * 4 + 2 * M * words * 4, 0)  # keys + rows read + rows written
+            log(f"multi_read ({path}: {name}, R={R_RECORDS}, M={M}, {n} per tick): ops.gather_many "
+                f"{t['ms']:.6f} ms/call on the device ({t['host_ms']:.6f} issued eagerly), the parent's packed "
+                f"sequence {t['packed_ms']:.6f} ({t['packed_host_ms']:.6f}), per-array a[keys] "
+                f"{t['library_ms']:.6f} ({t['library_host_ms']:.6f}), plain {t['plain_ms']:.6f} "
+                f"({t['plain_host_ms']:.6f}), bound {t['bound_ms']:.9f} ms ({t['bound_by']})")
+            parts.append((n, t))
+        by_path[path] = dict(mix(parts), M=M, calls_per_tick={name: n for name, (_, n) in sets.items()})
+    return dict(
+        name="multi_read", route="cuda", source="src/repro_torch/kernels/csrc/multi_read.cu",
+        replaces="src/repro/kernels/multi_read.py:41", max_abs_err=float(worst), by_path=by_path,
+    )
+
+
+def phase_version_select(gen):
+    """mvcc_version_select against its plain versions, exactly: the fused
+    read (store rows at keys in [-3, R+3), with and without the lock, S =
+    1, 2, 4, 16, M = 0 to 12000, ties, empty slots, int32 extremes,
+    unaligned views), picks over row views with one ctts pair per
+    transaction, and per-op picks at edge cases.  Then, at the main path's
+    picks, the fused read (one launch, checked with the profiler) against
+    the plain version and the parent's sequence for the same pick."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.mvcc_version_select import mvcc_version_read, mvcc_version_select
+    from repro_torch.kernels.ref import mvcc_version_select_ref, version_read_ref
+
+    worst = 0
+
+    def check(got, want, label):
+        nonlocal worst
+        torch.cuda.synchronize()
+        bad = 0
+        for g, w in zip(got, want):
+            if (g is None) != (w is None) or (w is not None and (g.dtype != w.dtype or g.shape != w.shape)):
+                raise AssertionError(f"mvcc_version_select {label}: outputs differ in kind, dtype or shape")
+            if w is not None and w.numel():
+                bad += int((g != w).sum())
+                worst = max(worst, int((g.long() - w.long()).abs().max()))
+        if bad:
+            raise AssertionError(f"mvcc_version_select disagrees with its plain version at {label}: {bad} mismatches")
+
+    reads = [(R_RECORDS, 240, 10, 4, kind) for kind in ("engine", "narrow", "ties", "empty", "extremes", "unaligned")]
+    reads += [(1000, N, K, S, "narrow") for N, K in ((0, 10), (48, 10), (240, 10), (1200, 10)) for S in (1, 2, 4, 16)]
+    reads += [(50, 37, 3, S, kind) for S in (1, 4, 16) for kind in ("ties", "empty", "extremes", "unaligned")]
+    for R, N, K, S, kind in reads:
+        wh, wl, lh, ll, keys, ch, cl = read_case(R, N, K, S, gen, kind)
+        for lock in ((lh, ll), (None, None)):
+            got = mvcc_version_read(wh, wl, keys, ch, cl, *lock)
+            check(got, version_read_ref(wh, wl, keys, ch, cl, *lock), f"read R={R} N={N} K={K} S={S} {kind}")
+            inside = (keys >= 0) & (keys < R)  # a key outside reads empty slots: slot 0
+            if kind == "ties" and S > 1 and not bool((got[1][inside] == 1).all()):
+                raise AssertionError("mvcc_version_select: the first of tied winning slots must win")
+    log(f"  mvcc_version_select: {2 * len(reads)} fused reads (keys in [-3, R+3), with and without the lock) "
+        f"equal their plain version")
+    for S in (1, 4, 16):  # row views: column slices of one (M, 2S) table, one ctts pair per 10 ops
+        table = torch.randint(-1, 3, (2400, 2 * S), generator=gen, dtype=torch.int32).cuda()
+        ch, cl = (torch.randint(-1, 3, (240,), generator=gen, dtype=torch.int32).cuda() for _ in range(2))
+        lh, ll = (torch.randint(-1, 2, (2400,), generator=gen, dtype=torch.int32).cuda() for _ in range(2))
+        got = mvcc_version_select(table[:, :S], table[:, S:], ch, cl, lh, ll)
+        want = mvcc_version_select_ref(table[:, :S], table[:, S:], ch.repeat_interleave(10), cl.repeat_interleave(10),
+                                       lh, ll)
+        check(got, want, f"row views S={S}")
     cases = [(2400, 4, "engine"), (2400, 4, "random")]
     cases += [(2400, S, "random") for S in (1, 2, 3, 8, 16)]
     cases += [(M, 4, "random") for M in (0, 1, 37)]
     cases += [(37, S, kind) for S in (1, 4, 16) for kind in ("empty", "ctts_eq", "ties", "lock_eq", "extremes")]
-    worst = 0
     for M, S, kind in cases:
         args = version_case(M, S, gen, kind)
-        got, want = mvcc_version_select(*args), mvcc_version_select_ref(*args)
-        torch.cuda.synchronize()
-        bad = sum(int((g != w).sum()) for g, w in zip(got, want))
-        worst = max(worst, max((int((g.long() - w.long()).abs().max()) for g, w in zip(got, want) if M), default=0))
-        log(f"  mvcc_version_select M={M} S={S} {kind}: {bad} mismatches, {int(want[0].sum())} found")
-        if bad:
-            raise AssertionError(f"mvcc_version_select disagrees with its plain version at M={M} S={S} {kind}")
-        if kind == "ties" and S > 1 and not bool((got[1] == 1).all()):
-            raise AssertionError("mvcc_version_select: the first of tied winning slots must win")
-    M, S = 2400, 4
-    args = version_case(M, S, gen, "engine")
-    t = timed(lambda: mvcc_version_select(*args), lambda: mvcc_version_select_ref(*args))
-    # bytes: each row's 2S + 4 int32 words in, 2 bools and an int32 out; operations: about 12 integer
-    # operations per slot (two lexicographic compares, the empty-slot test, the best-so-far selects)
-    # and 6 for Cond R2
-    t["bound_ms"], t["bound_by"] = bound_ms(M * (2 * S + 4) * 4 + M * 6, M * (12 * S + 6))
-    log(f"mvcc_version_select (mvcc/ycsb: M={M}, S={S}): {t['ms']:.6f} ms/call on the device ({t['host_ms']:.6f} "
-        f"issued eagerly), plain {t['plain_ms']:.6f} ms ({t['plain_host_ms']:.6f}), no library call, "
-        f"bound {t['bound_ms']:.9f} ms ({t['bound_by']})")
+        check(mvcc_version_select(*args), mvcc_version_select_ref(*args), f"per-op M={M} S={S} {kind}")
+    log(f"  mvcc_version_select: row views at S = 1, 4, 16 and {len(cases)} per-op cases equal their plain version")
+
+    by_path = {}
+    for path, ((N, K, S), picks) in PICKS.items():
+        M, parts = N * K, []
+        wh, wl, lh, ll, keys, ch, cl = read_case(R_RECORDS, N, K, S, gen, "engine")
+        keys = torch.randint(0, R_RECORDS, (N, K), generator=gen, dtype=torch.int32).cuda()
+        for with_lock, n in picks.items():
+            lock = (lh, ll) if with_lock else (None, None)
+            fn = lambda: ops.version_read(wh, wl, keys, ch, cl, *lock)  # noqa: E731
+            one_device_op(fn, "mvcc_version_select")
+            parent = lambda: parent_pick(wh, wl, keys, ch, cl, *lock)  # noqa: E731
+            got, old = fn(), parent()
+            if not all(torch.equal(a.reshape(-1), b) for a, b in zip(got[:3 if with_lock else 2], old)):
+                raise AssertionError(f"mvcc_version_select ({path}): the parent's sequence disagrees")
+            t = timed(fn, lambda: version_read_ref(wh, wl, keys, ch, cl, *lock))
+            t["parent_seq_ms"], t["parent_seq_host_ms"] = time_graph_ms(parent), time_ms(parent)
+            # bytes: keys, the ctts pairs, each op's 2S wts words (and lock pair) read; found, slot (and ok) and the
+            # 2S gathered words written.  Operations: about 12 integer operations per slot and 6 for Cond R2
+            n_in = M * 4 + N * 8 + M * 2 * S * 4 + (M * 8 if with_lock else 0)
+            n_out = M * (1 + 4 + (1 if with_lock else 0)) + M * 2 * S * 4
+            t["bound_ms"], t["bound_by"] = bound_ms(n_in + n_out, M * (12 * S + 6))
+            log(f"mvcc_version_select ({path}: fused read, R={R_RECORDS}, N={N}, K={K}, S={S}, "
+                f"{'with' if with_lock else 'without'} the lock, {n} per tick): {t['ms']:.6f} ms/call on the device "
+                f"({t['host_ms']:.6f} issued eagerly), the parent's sequence {t['parent_seq_ms']:.6f} "
+                f"({t['parent_seq_host_ms']:.6f}), plain {t['plain_ms']:.6f} ({t['plain_host_ms']:.6f}), "
+                f"no library call, bound {t['bound_ms']:.9f} ms ({t['bound_by']})")
+            parts.append((n, t))
+        by_path[path] = dict(mix(parts), M=M, S=S, picks_per_tick={"with lock": picks[True], "without": picks[False]})
     return dict(
         name="mvcc_version_select", route="cuda", source="src/repro_torch/kernels/csrc/mvcc_version_select.cu",
-        replaces="src/repro/kernels/mvcc_version_select.py:47", max_abs_err=float(worst),
-        by_path={"mvcc/ycsb": dict(t, M=M, S=S)},
+        replaces="src/repro/kernels/mvcc_version_select.py:47", max_abs_err=float(worst), by_path=by_path,
     )
 
 
@@ -505,17 +726,20 @@ def phase_profile(protocol, workload, n_ticks=20):
     busy_ms = sum(e.time_range.elapsed_us() for e in dev) / 1e3 / n_ticks
     by_family = {}  # kernel name up to its template/argument list -> [launches, us] per tick
     for e in dev:
-        fam = by_family.setdefault(e.name.split("<")[0].split("(")[0].strip(), [0.0, 0.0])
+        name = e.name.replace("(anonymous namespace)::", "").removeprefix("void ")
+        fam = by_family.setdefault(name.split("<")[0].split("(")[0].strip(), [0.0, 0.0])
         fam[0] += 1 / n_ticks
         fam[1] += e.time_range.elapsed_us() / n_ticks
     top = sorted(by_family.items(), key=lambda kv: -kv[1][1])[:8]
     names = ("lock_arbiter", "multi_read", "mvcc_version_select")
+    cats = [e for e in dev if "CatArrayBatchedCopy" in e.name]
     prof_line = {
         "path": f"{protocol}/{workload}",
         "tick_wall_ms": wall_ms, "device_busy_ms_per_tick": busy_ms,
         "device_idle_share": (1 - busy_ms / wall_ms) if dev else None,
         "device_ops_per_tick": len(dev) / n_ticks, "host_top_level_ops_per_tick": host_ops,
         "top_device_launches_and_us_per_tick": dict(top),
+        "cat_launches_and_us_per_tick": [len(cats) / n_ticks, sum(e.time_range.elapsed_us() for e in cats) / n_ticks],
         "kernel_launches_per_tick": {n: sum(1 for e in dev if n + "_kernel" in e.name) / n_ticks for n in names},
         "kernel_device_us": {
             n: sum(e.time_range.elapsed_us() for e in dev if n + "_kernel" in e.name)

@@ -383,7 +383,8 @@ def read_rows(ec: EngineConfig, arr, keys):
 
 def read_rows_many(ec: EngineConfig, arrs: Sequence, keys) -> Tuple:
     """Gather several store arrays at the same keys: independent gathers
-    (torch plane) or ONE packed multi-read dispatch (kernel plane)."""
+    (torch plane) or ONE multi-read launch that reads every array in place
+    (kernel plane)."""
     if ec.kernel_plane == kops.KERNEL:
         return kops.gather_many(arrs, keys, plane=ec.kernel_plane)
     return tuple(gather_rows(a, keys) for a in arrs)

@@ -62,32 +62,52 @@ def _best_version(wts: TS, ctts: TS):
 
 
 def _version_pick(ec, wts: TS, ctts: TS, lock: TS = None):
-    """Cond R1 version pick (+ Cond R2 when ``lock`` is given), routed
-    through the kernel plane.
+    """Cond R1 version pick (+ Cond R2 when ``lock`` is given) over version
+    rows already read, routed through the kernel plane.
 
     wts is (..., S); ctts/lock broadcast against the (...) op batch.
     Returns (found, slot, r2_ok) with r2_ok None when ``lock`` is None,
     bitwise-equal across planes (the torch plane is the inline
-    ``_best_version`` + R2 check).
+    ``_best_version`` + R2 check).  The kernel reads wts rows in place
+    (views with a row stride included) and takes a ctts of one pair per
+    transaction without expanding it.
     """
     if ec.kernel_plane == kops.KERNEL:
         shp = wts.hi.shape[:-1]
         S = wts.hi.shape[-1]
-
-        def flat(a):
-            return a.expand(shp).reshape(-1)
-
-        z = torch.zeros(shp, dtype=torch.int32, device=wts.hi.device)
-        lh, ll = (lock.hi, lock.lo) if lock is not None else (z, z)
+        if ctts.hi.shape[-1:] == (1,) and ctts.hi.shape[:-1] == shp[:-1]:  # one pair per transaction
+            ch, cl = ctts.hi.reshape(-1), ctts.lo.reshape(-1)
+        else:
+            ch, cl = ctts.hi.expand(shp).reshape(-1), ctts.lo.expand(shp).reshape(-1)
+        lh = ll = None
+        if lock is not None:
+            lh, ll = (t.expand(shp).reshape(-1).contiguous() for t in lock)
         found, slot, ok = kops.version_select(
-            wts.hi.reshape(-1, S), wts.lo.reshape(-1, S),
-            flat(ctts.hi), flat(ctts.lo), flat(lh), flat(ll),
+            wts.hi.reshape(-1, S), wts.lo.reshape(-1, S), ch.contiguous(), cl.contiguous(), lh, ll
         )
-        r2 = ok.reshape(shp) if lock is not None else None
-        return found.reshape(shp), slot.reshape(shp), r2
+        return found.reshape(shp), slot.reshape(shp), None if ok is None else ok.reshape(shp)
     found, slot = _best_version(wts, ctts)
     r2 = None if lock is None else ts_is_zero(lock) | ts_lt(ctts, lock)
     return found, slot, r2
+
+
+def _version_read(ec, store, keys, ctts: TS, with_lock: bool):
+    """The version rows at keys (N, K) and their Cond R1 pick against ctts
+    (N, 1), with Cond R2 against the lock at keys when ``with_lock``.
+    Returns (wts TS (N, K, S), found, slot, r2_ok or None).
+
+    The kernel plane does it in ONE launch that reads the store in place
+    (``kops.version_read``); the torch plane gathers, then picks inline.
+    """
+    if ec.kernel_plane == kops.KERNEL:
+        lock = (store["lock_hi"], store["lock_lo"]) if with_lock else (None, None)
+        found, slot, r2, wh, wl = kops.version_read(
+            store["wts_hi"], store["wts_lo"], keys, ctts.hi.reshape(-1), ctts.lo.reshape(-1), *lock
+        )
+        return TS(wh, wl), found, slot, r2
+    wts = _vts(ec, store, keys)
+    lock = TS(*eng.read_rows_many(ec, (store["lock_hi"], store["lock_lo"]), keys)) if with_lock else None
+    return (wts,) + _version_pick(ec, wts, ctts, lock)
 
 
 def _max_wts(wts: TS) -> TS:
@@ -108,9 +128,10 @@ def _at_slot(a, slot):
     return torch.gather(a, -1, slot.long()[..., None])[..., 0]
 
 
-def _check_w1(ec, store, st, ops):
-    """Cond W1 per op: ctts > max(wts) and ctts > rts."""
-    wts = _vts(ec, store, st["keys"])
+def _check_w1(ec, store, st, ops, wts: TS):
+    """Cond W1 per op: ctts > max(wts) and ctts > rts; ``wts`` are the
+    version rows at st["keys"] that the stage has already read from this
+    store."""
     mx = _max_wts(wts)
     rh, rl = eng.read_rows_many(ec, (store["rts_hi"], store["rts_lo"]), st["keys"])
     me_h, me_l = st["ts_hi"][:, None], st["ts_lo"][:, None]
@@ -153,13 +174,14 @@ def _lock_effect(ec, cm, wl, st, store, in_l, served, salt):
         st["ts_hi"][:, None].expand(served.shape), st["ts_lo"][:, None].expand(served.shape),
     )
     st["locked"] = st["locked"] | won
-    wts = _vts(ec, store, st["keys"])
-    found, slot, _ = _version_pick(ec, wts, TS(st["ts_hi"][:, None], st["ts_lo"][:, None]))
+    wts, found, slot, _ = _version_read(
+        ec, store, st["keys"], TS(st["ts_hi"][:, None], st["ts_lo"][:, None]), with_lock=False
+    )
     got = eng.read_rows2(ec, store["vdata"], st["keys"], slot)
     st["rvals"] = torch.where(won[:, :, None], got, st["rvals"])
     vver = eng.read_rows2(ec, store["vver"], st["keys"], slot)
     st["ver_seen"] = torch.where(won, vver, st["ver_seen"])
-    w1_ok = _check_w1(ec, store, st, won)
+    w1_ok = _check_w1(ec, store, st, won, wts)
     lost = served & ~won
     fail = in_l & (lost.any(dim=1) | (won & ~w1_ok).any(dim=1) | (won & ~found).any(dim=1))
     ws = st["valid"] & st["is_w"]
@@ -178,10 +200,8 @@ def _rts_effect(ec, cm, wl, st, store, in_t, served, salt):
     otherwise a writer serialized between our read and our rts update and
     we abort."""
     st = dict(st)
-    wts_now = _vts(ec, store, st["keys"])
     ctts_now = TS(st["ts_hi"][:, None], st["ts_lo"][:, None])
-    lh, ll = eng.read_rows_many(ec, (store["lock_hi"], store["lock_lo"]), st["keys"])
-    found_now, slot_now, r2_now = _version_pick(ec, wts_now, ctts_now, TS(lh, ll))
+    wts_now, found_now, slot_now, r2_now = _version_read(ec, store, st["keys"], ctts_now, with_lock=True)
     best_now = TS(_at_slot(wts_now.hi, slot_now), _at_slot(wts_now.lo, slot_now))
     still_ok = found_now & ts_eq(best_now, TS(st["wts_seen_hi"], st["wts_seen_lo"])) & r2_now
     fail = in_t & (served & ~still_ok).any(dim=1)
@@ -200,12 +220,9 @@ def _rts_effect(ec, cm, wl, st, store, in_t, served, salt):
 def _read_effect(ec, cm, wl, st, store, in_f, served, salt):
     """Atomic double-read + version selection + W1 precheck."""
     st = dict(st)
-    wts = _vts(ec, store, st["keys"])
     ctts = TS(st["ts_hi"][:, None], st["ts_lo"][:, None])
-    lh, ll, rts_obs = eng.read_rows_many(
-        ec, (store["lock_hi"], store["lock_lo"], store["rts_hi"]), st["keys"]
-    )
-    found, slot, r2 = _version_pick(ec, wts, ctts, TS(lh, ll))
+    wts, found, slot, r2 = _version_read(ec, store, st["keys"], ctts, with_lock=True)
+    (rts_obs,) = eng.read_rows_many(ec, (store["rts_hi"],), st["keys"])
     rs = st["valid"] & ~st["is_w"]
     got = eng.read_rows2(ec, store["vdata"], st["keys"], slot)
     rs_served = served & rs
@@ -222,7 +239,7 @@ def _read_effect(ec, cm, wl, st, store, in_f, served, salt):
     )
     st["clock"] = torch.maximum(st["clock"], obs)
     # failures: RS needs (R1 & R2); WS precheck W1
-    w1 = _check_w1(ec, store, st, served & st["is_w"])
+    w1 = _check_w1(ec, store, st, served & st["is_w"], wts)
     bad_rs = rs_served & ~(found & r2)
     bad_ws = served & st["is_w"] & ~w1
     return StageOut(st, store, fail=in_f & (bad_rs.any(dim=1) | bad_ws.any(dim=1)))

@@ -30,11 +30,14 @@ _P = ctypes.c_void_p
 SIGNATURES: Dict[str, Tuple[str, list]] = {
     # keys, prio_hi, prio_lo, active, won, scratch (NULL unless HELPERS asks for some), G, M, stream
     "lock_arbiter": ("rt_lock_arbiter", [_P] * 6 + [ctypes.c_int, ctypes.c_int, _P]),
-    # table, keys, out, R, A, M, stream
-    "multi_read": ("rt_multi_read", [_P, _P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _P]),
-    # wts_hi, wts_lo, ctts_hi, ctts_lo, lock_hi, lock_lo, found, slot, ok, M, S, stream
+    # srcs, dsts (host arrays of n device pointers), widths (host int32[n]), n, keys, R, M, stream
+    "multi_read": ("rt_multi_read_many", [_P, _P, _P, ctypes.c_int, _P, ctypes.c_longlong, ctypes.c_int, _P]),
+    # wts_hi, wts_lo, row stride, keys, R, ctts_hi, ctts_lo, K, lock_hi, lock_lo, found, slot, ok,
+    # rows_hi, rows_lo, M, S, stream (keys, the lock pair with ok, and the rows pair may be NULL)
     "mvcc_version_select": (
-        "rt_mvcc_version_select", [_P] * 9 + [ctypes.c_longlong, ctypes.c_int, _P],
+        "rt_mvcc_version_read",
+        [_P, _P, ctypes.c_longlong, _P, ctypes.c_longlong, _P, _P, ctypes.c_int] + [_P] * 7
+        + [ctypes.c_longlong, ctypes.c_int, _P],
     ),
     # q, k, v, o, B, H, Sq, Sk, Dh, strides (12 int64: b, h, s of q, k, v, o), scale, causal, bf16, stream
     "flash_attention": (

@@ -25,8 +25,8 @@ import torch
 from repro_torch.core.arbiter import scatter_min_winner
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.lock_arbiter import lock_arbiter
-from repro_torch.kernels.multi_read import multi_read
-from repro_torch.kernels.mvcc_version_select import mvcc_version_select
+from repro_torch.kernels.multi_read import multi_read_many
+from repro_torch.kernels.mvcc_version_select import mvcc_version_read, mvcc_version_select
 from repro_torch.layers.attention import naive_attention
 
 TORCH = "torch"
@@ -75,50 +75,35 @@ def cas_arbitrate(keys, prio_hi, prio_lo, active, n_records: int, *, plane: str 
     return won[0]
 
 
-def version_select(wts_hi, wts_lo, ctts_hi, ctts_lo, lock_hi, lock_lo):
-    """MVCC Cond R1 slot pick + Cond R2 lock check over a flat op batch, on
-    the kernel plane (the torch plane picks inline: ``mvcc._best_version``).
+def version_select(wts_hi, wts_lo, ctts_hi, ctts_lo, lock_hi=None, lock_lo=None):
+    """MVCC Cond R1 slot pick (+ Cond R2 with a lock) over op rows the
+    caller holds, on the kernel plane (the torch plane picks inline:
+    ``mvcc._best_version``).
 
-    wts_* (M, S), the rest (M,) int32 -> (found, slot, r2_ok).  Inputs may be
-    views (``unpack_rows`` hands out column slices): the kernel gets
-    contiguous copies."""
-    args = (wts_hi, wts_lo, ctts_hi, ctts_lo, lock_hi, lock_lo)
-    return mvcc_version_select(*(a.contiguous() for a in args))
-
-
-def gather_rows_batch(table, keys, *, plane: str = TORCH):
-    """Packed-row gather: table (R, A) int32 at keys (M,) -> (M, A)."""
-    if plane != KERNEL:
-        return table[keys]
-    return multi_read(table, keys)
+    wts_* (M, S), contiguous along S (row views are read in place), ctts_*
+    (M,) per op or (N,) per transaction, lock_* (M,) or None -> (found,
+    slot, r2_ok or None)."""
+    return mvcc_version_select(wts_hi, wts_lo, ctts_hi, ctts_lo, lock_hi, lock_lo)
 
 
-def pack_rows(arrs):
-    """Flatten several (R, ...) int32 arrays into one (R, A) packed table
-    (the doorbell payload) + the per-array flat widths."""
-    R = arrs[0].shape[0]
-    cols = [a.reshape(R, -1) for a in arrs]
-    table = cols[0].contiguous() if len(cols) == 1 else torch.cat(cols, dim=1)
-    return table, [c.shape[1] for c in cols]
-
-
-def unpack_rows(out, arrs, widths, keys_shape):
-    """Split a gathered (M, A) packed payload back into per-array results
-    shaped ``keys_shape + arr.shape[1:]``."""
-    outs, pos = [], 0
-    for a, w in zip(arrs, widths):
-        outs.append(out[:, pos : pos + w].reshape(tuple(keys_shape) + tuple(a.shape[1:])))
-        pos += w
-    return tuple(outs)
+def version_read(wts_hi, wts_lo, keys, ctts_hi, ctts_lo, lock_hi=None, lock_lo=None):
+    """The fused MVCC version read on the kernel plane: the store's wts_*
+    (R, S) (and lock_* (R,)) at keys (N, K) and the pick against ctts_*
+    (N,), in one launch that reads the store in place -> (found, slot,
+    r2_ok or None) (N, K) and the gathered wts rows (N, K, S) x 2."""
+    return mvcc_version_read(wts_hi, wts_lo, keys, ctts_hi, ctts_lo, lock_hi, lock_lo)
 
 
 def gather_many(arrs, keys, *, plane: str = TORCH):
-    """Doorbell-batched multi-array gather: ONE packed dispatch for several
-    store arrays at the same keys (engine.read_rows_many's kernel path)."""
-    kf = keys.reshape(-1).contiguous()
-    table, widths = pack_rows(arrs)
-    out = gather_rows_batch(table, kf, plane=plane)
-    return unpack_rows(out, arrs, widths, keys.shape)
+    """Doorbell-batched multi-array gather: several (R, ...) store arrays
+    at the same keys -> per-array results shaped ``keys.shape +
+    arr.shape[1:]`` (engine.read_rows_many's kernel path).  The kernel
+    plane is ONE ``multi_read`` launch that reads every array in place; the
+    torch plane indexes each array."""
+    if plane == KERNEL:
+        return multi_read_many(arrs, keys.contiguous())
+    kf = keys.reshape(-1)
+    return tuple(a[kf].reshape(tuple(keys.shape) + tuple(a.shape[1:])) for a in arrs)
 
 
 def attention_op(q, k, v, *, causal=True, plane: str = AUTO):

@@ -47,6 +47,39 @@ def multi_read_ref(table, keys):
     return torch.where(inside[:, None], out, 0)
 
 
+def gather_many_ref(arrs, keys):
+    """Several (R, ...) arrays sharing R at keys (M,) -> a tuple of (M, ...):
+    one masked gather per array, zero rows for keys outside [0, R)."""
+    R = arrs[0].shape[0]
+    inside = (keys >= 0) & (keys < R)
+    idx = torch.where(inside, keys, 0).long()
+    outs = []
+    for a in arrs:
+        if R == 0:
+            outs.append(a.new_zeros((keys.shape[0],) + tuple(a.shape[1:])))
+            continue
+        mask = inside.reshape((-1,) + (1,) * (a.dim() - 1))
+        outs.append(torch.where(mask, a[idx], 0))
+    return tuple(outs)
+
+
+def version_read_ref(wts_hi, wts_lo, keys, ctts_hi, ctts_lo, lock_hi=None, lock_lo=None):
+    """The fused version read: the store's wts_* (R, S) (and lock_* (R,))
+    at keys (N, K), zero words for keys outside [0, R), then the version
+    pick with one ctts pair (N,) per row of keys.  Returns (found, slot,
+    r2_ok or None) shaped (N, K) and the gathered wts rows (N, K, S) x 2."""
+    N, K = keys.shape
+    arrs = (wts_hi, wts_lo) if lock_hi is None else (wts_hi, wts_lo, lock_hi, lock_lo)
+    got = gather_many_ref(arrs, keys.reshape(-1))
+    wh, wl = got[0], got[1]
+    lh, ll = (got[2], got[3]) if lock_hi is not None else (torch.zeros_like(wh[:, 0]),) * 2
+    ch, cl = ctts_hi.repeat_interleave(K), ctts_lo.repeat_interleave(K)
+    found, slot, ok = mvcc_version_select_ref(wh, wl, ch, cl, lh, ll)
+    S = wts_hi.shape[1]
+    return (found.reshape(N, K), slot.reshape(N, K), None if lock_hi is None else ok.reshape(N, K),
+            wh.reshape(N, K, S), wl.reshape(N, K, S))
+
+
 def mvcc_version_select_ref(wts_hi, wts_lo, ctts_hi, ctts_lo, lock_hi, lock_lo):
     """wts_* (M, S), the rest (M,) int32 -> (found (M,) bool, slot (M,)
     int32, r2_ok (M,) bool).

@@ -12,8 +12,8 @@ import torch
 from repro_torch.kernels import ref
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.lock_arbiter import lock_arbiter
-from repro_torch.kernels.multi_read import multi_read
-from repro_torch.kernels.mvcc_version_select import mvcc_version_select
+from repro_torch.kernels.multi_read import multi_read, multi_read_many
+from repro_torch.kernels.mvcc_version_select import mvcc_version_read, mvcc_version_select
 
 pytestmark = pytest.mark.cuda
 
@@ -84,6 +84,106 @@ def test_multi_read_cuda_matches_plain(card, R, M, A):
     assert torch.equal(got.cpu(), ref.multi_read_ref(table, keys))
 
 
+def _unaligned(t):
+    """The same values in storage that starts 4 bytes past a 16-byte
+    boundary: a contiguous view the kernels' 16-byte paths must refuse."""
+    flat = torch.empty((t.numel() + 1,), dtype=t.dtype, device=t.device)
+    view = flat[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+@pytest.mark.parametrize(
+    "M,shapes,R,unaligned",
+    [(480, ((2,), ()), 262144, False), (480, ((), ()), 262144, False), (2400, ((4,), (4,)), 262144, False),
+     (2400, ((16,), ()), 262144, False), (2400, ((4,), (4,), ()), 262144, False), (2400, ((), (), ()), 1000, False),
+     (12000, ((3,), (9,), (8,), (1,)), 1000, False), (37, ((4,), (16,)), 1000, True), (0, ((4,), ()), 1000, False),
+     (480, ((2, 2), (3, 3)), 50, True), (1, ((4,),), 1, False)],
+)
+def test_multi_read_many_cuda_matches_plain(card, M, shapes, R, unaligned):
+    """1 to 4 arrays of widths 1 to 16 read in place in one launch, keys in
+    [-3, R+3); ``unaligned`` makes every array a view 4 bytes past a 16-byte
+    boundary, so the scalar path runs."""
+    gen = torch.Generator().manual_seed(M + R + len(shapes))
+    arrs = [torch.randint(-(2**31), 2**31 - 1, (R,) + s, generator=gen, dtype=torch.int32) for s in shapes]
+    keys = torch.randint(-3, R + 3, (M,), generator=gen, dtype=torch.int32)
+    on_card = [a.to(card) for a in arrs]
+    if unaligned:
+        on_card = [_unaligned(a) for a in on_card]
+        assert all(a.data_ptr() % 16 for a in on_card)
+    n = multi_read.launches
+    got = multi_read_many(on_card, keys.to(card))
+    assert multi_read.launches == n + (1 if M else 0)
+    for g, w in zip(got, ref.gather_many_ref(arrs, keys)):
+        assert g.is_contiguous() and torch.equal(g.cpu(), w)
+
+
+def _store_case(R, N, K, S, gen, *, extremes=False):
+    """An MVCC store's wts and lock words, keys (N, K) in [-3, R+3) and one
+    ctts pair per row of keys: narrow words (empty slots, ties, ctts == wts,
+    lock == ctts) or the int32 extremes."""
+    def words(*shape):
+        if extremes:
+            return I32_WORDS_T[torch.randint(0, len(I32_WORDS), shape, generator=gen)]
+        return torch.randint(-1, 3, shape, generator=gen, dtype=torch.int32)
+
+    wh, wl, lh, ll, ch, cl = words(R, S), words(R, S), words(R), words(R), words(N), words(N)
+    keys = torch.randint(-3, R + 3, (N, K), generator=gen, dtype=torch.int32)
+    return wh, wl, lh, ll, keys, ch, cl
+
+
+I32_WORDS_T = torch.tensor(I32_WORDS)
+
+
+@pytest.mark.parametrize(
+    "R,N,K,S,with_lock,kind",
+    [(262144, 240, 10, 4, True, "narrow"), (262144, 240, 10, 4, False, "narrow"), (1000, 240, 10, 1, True, "narrow"),
+     (1000, 240, 10, 2, False, "narrow"), (1000, 37, 3, 16, True, "narrow"), (1000, 1200, 10, 4, True, "narrow"),
+     (50, 40, 10, 4, True, "extremes"), (50, 40, 10, 16, False, "extremes"), (1000, 0, 10, 4, True, "narrow"),
+     (1000, 37, 10, 4, True, "unaligned"), (1000, 37, 10, 8, False, "unaligned")],
+)
+def test_mvcc_version_read_cuda_matches_plain(card, R, N, K, S, with_lock, kind):
+    """The fused read in one launch: gathered rows, found, slot and r2_ok
+    exactly as the plain version's masked gather + pick."""
+    gen = torch.Generator().manual_seed(R + N * K + S + with_lock)
+    wh, wl, lh, ll, keys, ch, cl = _store_case(R, N, K, S, gen, extremes=kind == "extremes")
+    lock = (lh, ll) if with_lock else (None, None)
+    on_card = [None if t is None else t.to(card) for t in (wh, wl, keys, ch, cl) + lock]
+    if kind == "unaligned":
+        on_card[0], on_card[1] = _unaligned(on_card[0]), _unaligned(on_card[1])
+    n = mvcc_version_select.launches
+    got = mvcc_version_read(*on_card)
+    assert mvcc_version_select.launches == n + (1 if N * K else 0)
+    want = ref.version_read_ref(wh, wl, keys, ch, cl, *lock)
+    for name, g, w in zip(("found", "slot", "r2_ok", "rows_hi", "rows_lo"), got, want):
+        if w is None:
+            assert g is None, name
+            continue
+        assert g.dtype == w.dtype and torch.equal(g.cpu(), w), name
+
+
+@pytest.mark.parametrize("S", [1, 4, 16])
+def test_mvcc_version_select_cuda_reads_row_views(card, S):
+    """Op rows seen through a row stride (column slices of one (M, 2S)
+    table) and one ctts pair per transaction of K = 10 ops, with and
+    without the lock: read in place, one launch."""
+    gen = torch.Generator().manual_seed(S)
+    M, N = 2400, 240
+    table = torch.randint(-1, 3, (M, 2 * S), generator=gen, dtype=torch.int32)
+    ch, cl, lh, ll = (torch.randint(-1, 3, (n,), generator=gen, dtype=torch.int32) for n in (N, N, M, M))
+    t = table.to(card)
+    for lock in ((lh, ll), (None, None)):
+        n = mvcc_version_select.launches
+        got = mvcc_version_select(t[:, :S], t[:, S:], ch.to(card), cl.to(card),
+                                  *(None if x is None else x.to(card) for x in lock))
+        assert mvcc_version_select.launches == n + 1
+        z = torch.zeros(M, dtype=torch.int32)
+        want = ref.mvcc_version_select_ref(table[:, :S], table[:, S:], ch.repeat_interleave(10),
+                                           cl.repeat_interleave(10), *(z if x is None else x for x in lock))
+        assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
+        assert (got[2] is None) if lock[0] is None else torch.equal(got[2].cpu(), want[2])
+
+
 def _version_case(M, S, seed, kind):
     """Narrow words (ties, empty slots, ctts == wts all occur) or one edge
     case: all slots empty, ctts equal to a wts, tied winners, lock == ctts,
@@ -132,7 +232,13 @@ def test_kernel_plane_matches_torch_plane_on_the_card(card, protocol, workload):
 
     kw = dict(protocol=protocol, workload=workload, configs=[{"hybrid": c} for c in (0, 63, 21, 42)],
               n_nodes=2, coroutines=6, records_per_node=64, ticks=32, warmup=4)
+    before = (multi_read.launches, mvcc_version_select.launches)
     k_rows = run(ExperimentSpec(kernel_plane="kernel", **kw)).rows
+    # per tick: one multi_read launch per gather_many, one mvcc_version_select launch per fused version read
+    per_tick = {"nowait": (2, 0), "mvcc": (5, 3)}[protocol]
+    n_ticks = 4 * (32 + 4)
+    assert (multi_read.launches - before[0], mvcc_version_select.launches - before[1]) == \
+        (per_tick[0] * n_ticks, per_tick[1] * n_ticks)
     t_rows = run(ExperimentSpec(kernel_plane="torch", **kw)).rows
     c_rows = run(ExperimentSpec(kernel_plane="torch", device="cpu", **kw)).rows
     for k, t, c in zip(k_rows, t_rows, c_rows):

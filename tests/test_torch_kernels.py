@@ -19,13 +19,15 @@ from repro.kernels.lock_arbiter import lock_arbiter as j_lock_arbiter
 from repro.kernels.multi_read import multi_read as j_multi_read
 from repro.kernels.mvcc_version_select import mvcc_version_select as j_mvcc_version_select
 from repro.kernels.ops import attention_op as j_attention_op
+from repro.kernels.ops import gather_many as j_gather_many
+from repro.kernels.ops import version_select as j_version_select
 from repro_torch.core.arbiter import scatter_min_winner
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.lock_arbiter import lock_arbiter, pack_prio
 from repro_torch.kernels.ref import lock_arbiter_ref
-from repro_torch.kernels.multi_read import multi_read
-from repro_torch.kernels.mvcc_version_select import mvcc_version_select
+from repro_torch.kernels.multi_read import multi_read, multi_read_many
+from repro_torch.kernels.mvcc_version_select import mvcc_version_read, mvcc_version_select
 from repro_torch.kernels.ref import mvcc_version_select_ref
 
 I32_MIN, I32_MAX = -(2**31), 2**31 - 1
@@ -186,6 +188,89 @@ def test_scatter_min_winner_matches_jax(M, n_records, ties):
     np.testing.assert_array_equal(kern, want)
 
 
+# the main paths' gather_many array sets: name -> the arrays' shapes after R
+GATHER_SETS = {
+    "wts_hi|wts_lo, S=4": ((4,), (4,)),
+    "lock_hi|lock_lo": ((), ()),
+    "data|ver, rw=2": ((2,), ()),
+    "data|ver, rw=16": ((16,), ()),
+    "wts_hi|wts_lo|ver": ((4,), (4,), ()),
+    "lock_hi|lock_lo|rts_hi": ((), (), ()),
+}
+
+
+def _gather_case(shapes, R, N, K, seed, *, outside):
+    rng = np.random.default_rng(seed)
+    arrs = [rng.integers(I32_MIN, I32_MAX, (R,) + s, dtype=np.int64).astype(np.int32) for s in shapes]
+    lo, hi = (-3, R + 3) if outside else (0, R)
+    return arrs, rng.integers(lo, hi, (N, K)).astype(np.int32)
+
+
+@pytest.mark.parametrize("outside", [False, True], ids=["keys in [0, R)", "keys in [-3, R+3)"])
+@pytest.mark.parametrize("name", list(GATHER_SETS))
+def test_gather_many_matches_pallas_and_jnp(name, outside):
+    """The kernel plane's multi-array gather (its plain version on CPU
+    tensors) bitwise against the reference's ``ops.gather_many`` on its
+    pallas_interpret plane (the packed-table Pallas kernel, zero rows for
+    keys outside [0, R)) and, for keys in range, its jnp plane; the port's
+    torch plane too where it is defined (keys in range)."""
+    arrs, keys = _gather_case(GATHER_SETS[name], 97, 12, 10, len(name) * 7 + outside, outside=outside)
+    got = ops.gather_many([torch.tensor(a) for a in arrs], torch.tensor(keys), plane=ops.KERNEL)
+    jarrs, jkeys = [jnp.asarray(a) for a in arrs], jnp.asarray(keys)
+    planes = ("pallas_interpret", "jnp") if not outside else ("pallas_interpret",)
+    wants = [j_gather_many(jarrs, jkeys, plane=p) for p in planes]
+    if not outside:
+        wants.append(ops.gather_many([torch.tensor(a) for a in arrs], torch.tensor(keys), plane=ops.TORCH))
+    assert len(got) == len(arrs)
+    for i, (g, a) in enumerate(zip(got, arrs)):
+        assert tuple(g.shape) == keys.shape + a.shape[1:] and g.is_contiguous()
+        for want in wants:
+            np.testing.assert_array_equal(g.numpy(), np.asarray(want[i]), err_msg=f"{name} array {i}")
+    if outside:
+        bad = (keys < 0) | (keys >= 97)
+        assert all((g.numpy()[bad] == 0).all() for g in got)
+
+
+def _read_case(R, N, K, S, seed, *, outside):
+    """A store's wts and lock words (narrow: empty slots, ties, ctts == wts
+    and lock == ctts all occur), keys (N, K) and one ctts pair per row."""
+    rng = np.random.default_rng(seed)
+    wh, wl = (rng.integers(-1, 3, (R, S)).astype(np.int32) for _ in range(2))
+    lh, ll = (rng.integers(-1, 2, R).astype(np.int32) for _ in range(2))
+    lo, hi = (-3, R + 3) if outside else (0, R)
+    keys = rng.integers(lo, hi, (N, K)).astype(np.int32)
+    ch, cl = (rng.integers(-1, 3, N).astype(np.int32) for _ in range(2))
+    return wh, wl, lh, ll, keys, ch, cl
+
+
+@pytest.mark.parametrize("outside", [False, True], ids=["keys in [0, R)", "keys in [-3, R+3)"])
+@pytest.mark.parametrize("with_lock", [True, False])
+@pytest.mark.parametrize("S", [1, 2, 4, 16])
+def test_version_read_matches_pallas_gather_and_select(S, with_lock, outside):
+    """The fused version read (its plain version on CPU tensors) bitwise
+    against the reference's ``ops.gather_many`` + ``ops.version_select`` on
+    the pallas_interpret plane: the wts rows (and lock pair) gathered at
+    keys, ctts expanded to one pair per op, then the Pallas pick."""
+    wh, wl, lh, ll, keys, ch, cl = _read_case(61, 8, 10, S, S * 13 + with_lock * 2 + outside, outside=outside)
+    lock = (torch.tensor(lh), torch.tensor(ll)) if with_lock else (None, None)
+    got = ops.version_read(torch.tensor(wh), torch.tensor(wl), torch.tensor(keys), torch.tensor(ch),
+                           torch.tensor(cl), *lock)
+    jkeys = jnp.asarray(keys)
+    jwh, jwl, jlh, jll = j_gather_many([jnp.asarray(a) for a in (wh, wl, lh, ll)], jkeys, plane="pallas_interpret")
+    M = keys.size
+    jch, jcl = (jnp.repeat(jnp.asarray(c), keys.shape[1]) for c in (ch, cl))
+    found, slot, ok = j_version_select(jwh.reshape(M, S), jwl.reshape(M, S), jch, jcl, jlh.reshape(M), jll.reshape(M),
+                                       plane="pallas_interpret")
+    want = [found, slot, ok if with_lock else None, jwh, jwl]
+    for name, g, w in zip(("found", "slot", "r2_ok", "rows_hi", "rows_lo"), got, want):
+        if w is None:
+            assert g is None
+            continue
+        w = np.asarray(w).reshape(g.shape)
+        assert g.numpy().dtype == w.dtype, name
+        np.testing.assert_array_equal(g.numpy(), w, err_msg=name)
+
+
 def test_gather_many_planes_agree_and_unpack():
     rng = np.random.default_rng(3)
     data = torch.tensor(rng.integers(0, 99, (50, 2)), dtype=torch.int32)
@@ -221,6 +306,28 @@ def test_wrappers_check_inputs_and_count_only_cuda_launches():
         multi_read(torch.zeros((2, 4), dtype=torch.int32).t(), k[0])
     with pytest.raises(TypeError, match="int32"):
         multi_read(torch.zeros((4, 2)), k[0])
+    # the multi-array gather and the fused version read
+    t4 = torch.zeros((4, 2), dtype=torch.int32)
+    with pytest.raises(ValueError, match="1 to 8 arrays"):
+        multi_read_many([t4] * 9, k[0])
+    with pytest.raises(ValueError, match="R = 4"):
+        multi_read_many([t4, torch.zeros((5,), dtype=torch.int32)], k[0])
+    with pytest.raises(ValueError, match="contiguous"):
+        multi_read_many([t4, torch.zeros((2, 4), dtype=torch.int32).t()], k[0])
+    with pytest.raises(ValueError, match=r"keys \(M,\)"):
+        multi_read(t4, k)
+    assert tuple(multi_read_many([t4], k)[0].shape) == (1, 4, 2)  # keys of any shape
+    with pytest.raises(ValueError, match="both lock words"):
+        mvcc_version_read(t4, t4, k, k[0, :1], k[0, :1], k[0])
+    with pytest.raises(ValueError, match="shape"):
+        mvcc_version_read(t4, t4, k, k[0], k[0], k[0], k[0])
+    with pytest.raises(ValueError, match="contiguous"):
+        mvcc_version_read(t4, t4, t4.t(), k[0, :2], k[0, :2])
+    with pytest.raises(ValueError, match="row stride"):
+        mvcc_version_select(t4, torch.zeros((4, 4), dtype=torch.int32)[:, :2], k[0], k[0])
+    got = mvcc_version_read(t4, t4, k, k[0, :1], k[0, :1])
+    assert got[2] is None and tuple(got[3].shape) == (1, 4, 2)
+    assert (lock_arbiter.launches, multi_read.launches, mvcc_version_select.launches) == before
 
 
 def _attn_inputs(B, H, Sq, Sk, Dh, seed):
