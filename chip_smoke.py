@@ -11,7 +11,9 @@ Run from a checkout of the repository on a machine with one CUDA card and
    (one nvcc process per source, all at once);
 3. each kernel held against its plain PyTorch version on the card (the
    RCC kernels exactly; ``flash_attention`` within 1e-5 in float32 and
-   3e-2 in bfloat16) at every main path's shapes and at edge cases, then,
+   3e-2 in bfloat16) at every main path's batched shapes and at edge cases
+   (``lock_arbiter`` at G in {4, 64} configs x M in {480, 2400} requests,
+   the gathers and the fused version read over G*262144 store rows), then,
    at each main path's shapes, its device time per call (calls captured in
    a CUDA graph, replayed between CUDA events), its time per call as the
    host issues them eagerly, its bound, the plain version's times and a
@@ -19,21 +21,27 @@ Run from a checkout of the repository on a machine with one CUDA card and
    per-array ``a[keys]`` of the torch plane).  ``multi_read`` and
    ``mvcc_version_select`` are timed as the whole ops-level call
    (``ops.gather_many``, ``ops.version_read``), which the profiler must see
-   as one launch, beside the parent tree's sequence for the same call
-   rebuilt op for op with this tree's kernels (a packed-table gather; the
-   gathers, copies and per-op pick); then one tick of each RCC main path
-   (NOWAIT/SmallBank and MVCC/YCSB, hybrid 63, kernel plane) timed bare
-   and traced with torch.profiler: wall time, device busy time, device
-   operations, ``torch.cat`` launches and top-level host operations per
-   tick (and, for YCSB, the share of its sequential key de-duplication);
+   as one launch (a trace that holds no device event is logged and traced
+   again, at most twice), beside the earlier packed-table sequence for the same
+   call rebuilt op for op with this tree's kernels; then batched ticks of each
+   RCC main path (kernel plane: NOWAIT/SmallBank at G = 1, 4 and 64
+   configs, MVCC/YCSB at G = 1 and 4) timed bare and traced with
+   torch.profiler: wall time, device busy time, device operations,
+   ``torch.cat`` launches and top-level host operations per batched tick;
 4. the RCC main paths: ``repro_torch.api.run`` at the full ExperimentSpec
    defaults (4 nodes x 60 co-routines, 65536 records per node, 400 + 80
-   ticks) for hybrid codes {0, 63, 21, 42} on the ``"kernel"`` plane, with
-   the kernels' launch counts, for NOWAIT/SmallBank and then MVCC/YCSB
-   (16-word records, 10 ops per txn, 4 version slots);
-5. the same specs on the ``"torch"`` plane (MVCC/YCSB for hybrid 63 only),
-   whose counters must be equal;
-6. phase 4's counters against the JAX reference's golden files;
+   ticks) for hybrid codes {0, 63, 21, 42} as ONE batched run on the
+   ``"kernel"`` plane, with the kernels' launch counts per batched tick,
+   for NOWAIT/SmallBank and then MVCC/YCSB (16-word records, 10 ops per
+   txn, 4 version slots), then the same runs on the ``"torch"`` plane,
+   whose counters must be equal, and both planes' counters against the JAX
+   reference's golden files;
+5. configs per second: NOWAIT/SmallBank hybrid 63 alone (G = 1) and its
+   64 hybrid codes as one bucket (G = 64, against the reference's 64-code
+   golden file), beside phase 4's G = 4;
+6. CALVIN at the full spec on the kernel plane (smallbank, ycsb, tpcc, one
+   bucket of the four codes each) against its golden file, and a profiled
+   run of its batched epochs;
 7. the LM serving path, stablelm-1.6b at full width in float32 with TF32
    off: ``init_lm`` from seed 0 on the card (checked against the reference's
    weights), a 2 x 256-token, 8-step run against the JAX reference's
@@ -43,8 +51,10 @@ Run from a checkout of the repository on a machine with one CUDA card and
    launch ``flash_attention`` once per layer, and on the ``"torch"`` plane,
    whose prefill logits and decided greedy tokens must agree.
 
-It prints a JSON line of kernel measurements (each kernel's times are the
-mean over its main-path launches; ``by_path`` holds them per main path),
+Every path's kernel launches are counted from 0 just before it runs and
+read just after.  It prints a JSON line of kernel measurements (each
+kernel's times are the mean over its main-path launches; ``by_path`` holds
+them per main path),
 then, last, one JSON line
 ``{"ok": true, "device": {...}}``.  Any mismatch or fault raises: the exit
 code is then not 0 and the last line is not printed.  Without CUDA it
@@ -61,29 +71,38 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CODES = (0, 63, 21, 42)
-# main paths: (protocol, workload, golden file, the torch plane's codes)
+# main paths, each ONE batched run of the four codes: (protocol, workload, golden file)
 PATHS = (
-    ("nowait", "smallbank", "golden_nowait_smallbank.json", CODES),
-    ("mvcc", "ycsb", "golden_mvcc_ycsb.json", (63,)),
+    ("nowait", "smallbank", "golden_nowait_smallbank.json"),
+    ("mvcc", "ycsb", "golden_mvcc_ycsb.json"),
 )
-# kernel launches per tick on each path's kernel plane: one multi_read per gather_many (GATHERS) and
-# one mvcc_version_select per fused version read (PICKS)
+SWEEP_PATH = "nowait/smallbank/sweep64"  # NOWAIT/SmallBank's 64 hybrid codes as one bucket
+CALVIN_PATH = "calvin"  # smallbank, ycsb and tpcc x CODES, one bucket each: no RCC kernel on its path
+# kernel launches per batched tick on each path's kernel plane, whatever its config count: one
+# lock_arbiter per try_lock (one block per config), one multi_read per gather_many (GATHERS) and one
+# mvcc_version_select per fused version read (PICKS)
 PER_TICK = {
     "nowait": {"lock_arbiter": 1, "multi_read": 2, "mvcc_version_select": 0, "flash_attention": 0},
     "mvcc": {"lock_arbiter": 1, "multi_read": 5, "mvcc_version_select": 3, "flash_attention": 0},
 }
-R_RECORDS = 4 * 65536  # the RCC main paths' store rows
-# each main path's gather_many calls per tick on the kernel plane: (N, K, {what: (the arrays' shapes
-# after R, calls per tick)}).  MVCC: the read effect's rts_hi; the rts pair of the read and lock
-# effects' Cond W1 checks and try_lock's lock pair; the commit's wts_hi|wts_lo|ver
+R_RECORDS = 4 * 65536  # the RCC main paths' store rows per config
+# the shapes each RCC path hands the kernels: (G configs, N slots per config, K ops per txn); the store
+# arrays are (G*R_RECORDS, ...) and the keys store rows g*R_RECORDS + key
+ONE_PATH = "nowait/smallbank/g1"  # hybrid 63 alone: configs per second at G = 1
+SHAPES = {"nowait/smallbank": (4, 240, 2), "mvcc/ycsb": (4, 240, 10), SWEEP_PATH: (64, 240, 2), ONE_PATH: (1, 240, 2)}
+# each path's gather_many calls per batched tick on the kernel plane: {what: (the arrays' shapes after the
+# rows, calls per tick)}.  MVCC: the read effect's rts_hi; the rts pair of the read and lock effects' Cond W1
+# checks and try_lock's lock pair; the commit's wts_hi|wts_lo|ver
+_NOWAIT_GATHERS = {"lock_hi|lock_lo": (((), ()), 1), "data|ver (rw 2)": (((2,), ()), 1)}
 GATHERS = {
-    "nowait/smallbank": (240, 2, {"lock_hi|lock_lo": (((), ()), 1), "data|ver (rw 2)": (((2,), ()), 1)}),
-    "mvcc/ycsb": (240, 10, {"rts_hi": (((),), 1), "rts or lock pair": (((), ()), 3),
-                            "wts_hi|wts_lo|ver": (((4,), (4,), ()), 1)}),
+    "nowait/smallbank": _NOWAIT_GATHERS,
+    "mvcc/ycsb": {"rts_hi": (((),), 1), "rts or lock pair": (((), ()), 3), "wts_hi|wts_lo|ver": (((4,), (4,), ()), 1)},
+    SWEEP_PATH: _NOWAIT_GATHERS,
+    ONE_PATH: _NOWAIT_GATHERS,
 }
-# the MVCC main path's fused version reads per tick: ((N, K, S), {with the lock: reads per tick}):
-# the read and rts effects check the lock, the lock effect does not
-PICKS = {"mvcc/ycsb": ((240, 10, 4), {True: 2, False: 1})}
+# the MVCC path's fused version reads per batched tick: (S, {with the lock: reads per tick}): the read and
+# rts effects check the lock, the lock effect does not
+PICKS = {"mvcc/ycsb": (4, {True: 2, False: 1})}
 # H100 SXM peaks: the HBM3 rate (NVIDIA data sheet), and the INT32 issue rate
 # that bounds integer compares and selects: 132 SMs x 64 INT32 lanes per SM x
 # 1.98 GHz boost clock = 16.7e12 ops/s (the data sheet's 67 TFLOP/s float32
@@ -161,11 +180,13 @@ def bound_ms(n_bytes, n_ops, ops_per_s=INT32_OPS_PER_S):
 I32_WORDS = (-2**31, -2**31 + 1, -1, 0, 1, 2**31 - 2, 2**31 - 1)
 
 
-def arbiter_case(G, M, n_keys, gen, *, ties=False, pad=False, extremes=False):
+def arbiter_case(G, M, n_keys, gen, *, ties=False, pad=False, extremes=False, rows=0):
     """A random arbitration batch (narrow hi, so lo often decides; 70 %
     active); ``ties`` makes pairs share (hi, lo), ``pad`` adds a tail of
     inactive -1 keys, ``extremes`` draws keys, hi and lo from the int32
-    extremes; n_keys = 1 puts every request on one key."""
+    extremes; n_keys = 1 puts every request on one key.  ``rows`` > 0 offsets
+    group g's keys by g*rows (store rows, as a batched run hands them over);
+    with rows = 0 every group draws from the same keys."""
     import torch
 
     keys = torch.randint(0, max(n_keys, 1), (G, M), generator=gen, dtype=torch.int32)
@@ -177,11 +198,26 @@ def arbiter_case(G, M, n_keys, gen, *, ties=False, pad=False, extremes=False):
     if extremes:
         words = torch.tensor(I32_WORDS, dtype=torch.int32)
         keys, hi, lo = (words[torch.randint(0, len(I32_WORDS), (G, M), generator=gen)] for _ in range(3))
+    if rows:
+        keys = keys + torch.arange(G, dtype=torch.int32)[:, None] * rows
     act = torch.rand((G, M), generator=gen) < 0.7
     if pad and M:
         keys[:, -max(1, M // 4):] = -1
         act[:, -max(1, M // 4):] = False
     return [t.cuda() for t in (keys, hi, lo, act)]
+
+
+def arbiter_ref(args):
+    """lock_arbiter's plain version, a group at a time where its (G, M, M)
+    pair tensor would pass 64 MB a call."""
+    import torch
+
+    from repro_torch.kernels.ref import lock_arbiter_ref
+
+    G, M = args[0].shape
+    if G * M * M <= 2**26:
+        return lock_arbiter_ref(*args)
+    return torch.cat([lock_arbiter_ref(*(a[g:g + 1] for a in args)) for g in range(G)])
 
 
 def timed(fn, plain, library=None):
@@ -211,37 +247,40 @@ def mix(parts):
 
 def phase_kernels():
     """Each kernel against its plain version on the card, exactly, at every
-    main path's shapes and at edge cases, then timed at each main path's
-    shapes.  Returns the kernels' measurement rows (without ``launches``),
-    each with ``by_path``: its numbers at each main path's shapes."""
+    main path's batched shapes and at edge cases, then timed at each main
+    path's shapes.  Returns the kernels' measurement rows (without
+    ``launches``), each with ``by_path``: its numbers at each main path's
+    shapes."""
     import torch
 
     from repro_torch.kernels.lock_arbiter import lock_arbiter
-    from repro_torch.kernels.ref import lock_arbiter_ref
 
     gen = torch.Generator().manual_seed(0)
     rows = []
 
-    # lock_arbiter: G = 1, M = N*K over 262144 records (NOWAIT 480, MVCC 2400)
+    # lock_arbiter: the main paths' (G, M = N*K) over G*262144 store rows, then edge cases
     worst = 0
-    cases = [
-        dict(G=1, M=480, n_keys=262144), dict(G=1, M=480, n_keys=64), dict(G=1, M=480, n_keys=64, ties=True),
-        dict(G=1, M=2400, n_keys=262144), dict(G=1, M=2400, n_keys=262144, ties=True),
-        dict(G=1, M=2400, n_keys=262144, pad=True), dict(G=1, M=2400, n_keys=600, ties=True),
+    cases = [dict(G=G, M=N * K, n_keys=R_RECORDS, rows=R_RECORDS) for G, N, K in SHAPES.values()]
+    cases += [
+        dict(G=64, M=2400, n_keys=R_RECORDS, rows=R_RECORDS), dict(G=4, M=480, n_keys=64, ties=True, rows=R_RECORDS),
+        # every group on the same keys: a group's table must never see another group's requests
+        dict(G=64, M=480, n_keys=64, ties=True), dict(G=4, M=2400, n_keys=600, ties=True),
+        dict(G=64, M=2400, n_keys=300, pad=True),
+        dict(G=1, M=480, n_keys=R_RECORDS), dict(G=1, M=480, n_keys=64), dict(G=1, M=480, n_keys=64, ties=True),
+        dict(G=1, M=2400, n_keys=R_RECORDS), dict(G=1, M=2400, n_keys=R_RECORDS, ties=True),
+        dict(G=1, M=2400, n_keys=R_RECORDS, pad=True), dict(G=1, M=2400, n_keys=600, ties=True),
         dict(G=3, M=37, n_keys=9, pad=True), dict(G=3, M=1, n_keys=1), dict(G=1, M=0, n_keys=1),
         dict(G=1, M=2048, n_keys=300, ties=True), dict(G=2, M=2048, n_keys=40, pad=True),
         # one hot key, with and without exact ties; int32 extremes; the global-memory table (M > 4096)
         dict(G=1, M=2400, n_keys=1), dict(G=1, M=2400, n_keys=1, ties=True),
         dict(G=1, M=2400, n_keys=0, extremes=True), dict(G=2, M=480, n_keys=0, extremes=True, pad=True),
-        dict(G=2, M=12000, n_keys=262144), dict(G=2, M=12000, n_keys=50, ties=True, pad=True),
+        dict(G=2, M=12000, n_keys=R_RECORDS), dict(G=2, M=12000, n_keys=50, ties=True, pad=True),
     ]
     for c in cases:
         args = arbiter_case(c["G"], c["M"], c["n_keys"], gen, ties=c.get("ties", False), pad=c.get("pad", False),
-                            extremes=c.get("extremes", False))
+                            extremes=c.get("extremes", False), rows=c.get("rows", 0))
         got = lock_arbiter(*args)
-        # the reference's (G, M, M) pair tensor at M = 12000 is 288 MB a group: take it a group at a time
-        want = torch.cat([lock_arbiter_ref(*(a[g:g + 1] for a in args)) for g in range(c["G"])]) if c["M"] > 4096 \
-            else lock_arbiter_ref(*args)
+        want = arbiter_ref(args)
         torch.cuda.synchronize()
         bad = int((got != want).sum())
         worst = max(worst, bad)
@@ -249,15 +288,16 @@ def phase_kernels():
         if bad:
             raise AssertionError(f"lock_arbiter disagrees with its plain version at {c}")
     by_path = {}
-    for path, M in (("nowait/smallbank", 480), ("mvcc/ycsb", 2400)):
-        args = arbiter_case(1, M, 262144, gen)
-        t = timed(lambda: lock_arbiter(*args), lambda: lock_arbiter_ref(*args))
+    for path, G, M in [(p, G, N * K) for p, (G, N, K) in SHAPES.items()] + [("not a main path", 64, 2400)]:
+        args = arbiter_case(G, M, R_RECORDS, gen, rows=R_RECORDS)
+        t = timed(lambda: lock_arbiter(*args), lambda: arbiter_ref(args))
         # the function's least work: one pass over 3 int32 + 1 bool in and 1 bool out per request
-        t["bound_ms"], t["bound_by"] = bound_ms(M * 14, 0)
-        log(f"lock_arbiter ({path}: G=1, M={M}): {t['ms']:.6f} ms/call on the device ({t['host_ms']:.6f} issued "
+        t["bound_ms"], t["bound_by"] = bound_ms(G * M * 14, 0)
+        log(f"lock_arbiter ({path}: G={G}, M={M}): {t['ms']:.6f} ms/call on the device ({t['host_ms']:.6f} issued "
             f"eagerly), plain {t['plain_ms']:.6f} ms ({t['plain_host_ms']:.6f}), "
             f"bound {t['bound_ms']:.9f} ms ({t['bound_by']})")
-        by_path[path] = dict(t, M=M)
+        if path in SHAPES:
+            by_path[path] = dict(t, G=G, M=M)
     rows.append(dict(
         name="lock_arbiter", route="cuda", source="src/repro_torch/kernels/csrc/lock_arbiter.cu",
         replaces="src/repro/kernels/lock_arbiter.py:41", max_abs_err=float(worst), by_path=by_path,
@@ -401,20 +441,43 @@ def parent_pick(wh, wl, keys, ch, cl, lh=None, ll=None):
     return mvcc_version_select(*(a.contiguous() for a in args))
 
 
-def one_device_op(fn, kernel):
+EMPTY_TRACES = []  # one entry per one_device_op trace that held no device event
+
+
+def one_device_op(fn, kernel, case):
     """Profile one call of ``fn``: it must issue exactly one device
-    operation, a launch of ``kernel`` (no copy, no fill, no cat)."""
+    operation, a launch of ``kernel`` (no copy, no fill, no cat).
+
+    The profiler is warmed up on the call before the trace that counts.
+    A trace that holds no device event at all is logged with its kernel,
+    its case and the kernel's launch count over the traced call (1: the
+    wrapper launched and the trace missed it), kept in EMPTY_TRACES, and
+    traced again, at most twice; a trace with any other content fails at
+    once."""
+    import importlib
+
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    wrapper = getattr(importlib.import_module(f"repro_torch.kernels.{kernel}"), kernel)
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):  # warm-up: CUPTI set up
         fn()
         torch.cuda.synchronize()
-    dev = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    for attempt in range(1, 4):
+        before = wrapper.launches
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        dev = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        if dev:
+            break
+        entry = {"kernel": kernel, "case": case, "attempt": attempt, "launches": wrapper.launches - before}
+        EMPTY_TRACES.append(entry)
+        log("one_device_op: trace with no device event: " + json.dumps(entry))
     if len(dev) != 1 or kernel + "_kernel" not in dev[0]:
-        raise AssertionError(f"one call must be one {kernel} launch, the device ran {dev}")
+        raise AssertionError(f"{case}: one call must be one {kernel} launch, the device ran {dev}")
 
 
 def phase_multi_read(gen):
@@ -464,29 +527,34 @@ def phase_multi_read(gen):
             f"the unaligned views: max |err| 0")
 
     by_path = {}
-    for path, (N, K, sets) in GATHERS.items():
-        M, parts = N * K, []
-        keys = torch.randint(0, R_RECORDS, (N, K), generator=gen, dtype=torch.int32).cuda()
+    for path, sets in GATHERS.items():
+        G, N, K = SHAPES[path]
+        M, R, parts = G * N * K, G * R_RECORDS, []
+        # store rows: config g's keys lie in [g*R_RECORDS, (g+1)*R_RECORDS), the first and last of each included
+        keys = torch.randint(0, R_RECORDS, (G, N, K), generator=gen, dtype=torch.int32)
+        keys[:, 0, 0], keys[:, 0, 1] = 0, R_RECORDS - 1
+        keys = (keys + torch.arange(G, dtype=torch.int32)[:, None, None] * R_RECORDS).reshape(G * N, K).cuda()
         kf = keys.reshape(-1)
         for name, (shapes, n) in sets.items():
-            arrs = [torch.randint(0, 1000, (R_RECORDS,) + s, generator=gen, dtype=torch.int32).cuda() for s in shapes]
+            arrs = [torch.randint(0, 1000, (R,) + s, generator=gen, dtype=torch.int32).cuda() for s in shapes]
             fn = lambda: ops.gather_many(arrs, keys, plane=ops.KERNEL)  # noqa: E731
-            one_device_op(fn, "multi_read")
-            for g, w in zip(fn(), packed_gather(arrs, keys)):
-                if not torch.equal(g, w):
-                    raise AssertionError(f"multi_read ({path}, {name}): the parent's packed sequence disagrees")
+            one_device_op(fn, "multi_read", f"gather_many {path} {name}")
+            for g, w, p in zip(fn(), packed_gather(arrs, keys), gather_many_ref(arrs, kf)):
+                if not torch.equal(g, w) or not torch.equal(g.reshape(p.shape), p):
+                    raise AssertionError(f"multi_read ({path}, {name}): the plain version or the parent's packed "
+                                         "sequence disagrees")
             t = timed(fn, lambda: gather_many_ref(arrs, kf), lambda: ops.gather_many(arrs, keys, plane=ops.TORCH))
             packed = lambda: packed_gather(arrs, keys)  # noqa: E731
             t["packed_ms"], t["packed_host_ms"] = time_graph_ms(packed), time_ms(packed)
             words = sum(math.prod(s) for s in shapes)
             t["bound_ms"], t["bound_by"] = bound_ms(M * 4 + 2 * M * words * 4, 0)  # keys + rows read + rows written
-            log(f"multi_read ({path}: {name}, R={R_RECORDS}, M={M}, {n} per tick): ops.gather_many "
+            log(f"multi_read ({path}: {name}, G={G}, R={R}, M={M}, {n} per tick): ops.gather_many "
                 f"{t['ms']:.6f} ms/call on the device ({t['host_ms']:.6f} issued eagerly), the parent's packed "
                 f"sequence {t['packed_ms']:.6f} ({t['packed_host_ms']:.6f}), per-array a[keys] "
                 f"{t['library_ms']:.6f} ({t['library_host_ms']:.6f}), plain {t['plain_ms']:.6f} "
                 f"({t['plain_host_ms']:.6f}), bound {t['bound_ms']:.9f} ms ({t['bound_by']})")
             parts.append((n, t))
-        by_path[path] = dict(mix(parts), M=M, calls_per_tick={name: n for name, (_, n) in sets.items()})
+        by_path[path] = dict(mix(parts), G=G, M=M, calls_per_tick={name: n for name, (_, n) in sets.items()})
     return dict(
         name="multi_read", route="cuda", source="src/repro_torch/kernels/csrc/multi_read.cu",
         replaces="src/repro/kernels/multi_read.py:41", max_abs_err=float(worst), by_path=by_path,
@@ -553,18 +621,23 @@ def phase_version_select(gen):
     log(f"  mvcc_version_select: row views at S = 1, 4, 16 and {len(cases)} per-op cases equal their plain version")
 
     by_path = {}
-    for path, ((N, K, S), picks) in PICKS.items():
+    for path, (S, picks) in PICKS.items():
+        G, N1, K = SHAPES[path]
+        N, R = G * N1, G * R_RECORDS
         M, parts = N * K, []
-        wh, wl, lh, ll, keys, ch, cl = read_case(R_RECORDS, N, K, S, gen, "engine")
-        keys = torch.randint(0, R_RECORDS, (N, K), generator=gen, dtype=torch.int32).cuda()
+        wh, wl, lh, ll, keys, ch, cl = read_case(R, N, K, S, gen, "engine")
+        keys = (torch.randint(0, R_RECORDS, (G, N1, K), generator=gen, dtype=torch.int32)
+                + torch.arange(G, dtype=torch.int32)[:, None, None] * R_RECORDS).reshape(N, K).cuda()
         for with_lock, n in picks.items():
             lock = (lh, ll) if with_lock else (None, None)
             fn = lambda: ops.version_read(wh, wl, keys, ch, cl, *lock)  # noqa: E731
-            one_device_op(fn, "mvcc_version_select")
+            one_device_op(fn, "mvcc_version_select", f"version_read {path} lock={with_lock}")
             parent = lambda: parent_pick(wh, wl, keys, ch, cl, *lock)  # noqa: E731
-            got, old = fn(), parent()
-            if not all(torch.equal(a.reshape(-1), b) for a, b in zip(got[:3 if with_lock else 2], old)):
-                raise AssertionError(f"mvcc_version_select ({path}): the parent's sequence disagrees")
+            got, old, plain = fn(), parent(), version_read_ref(wh, wl, keys, ch, cl, *lock)
+            if not all(torch.equal(a.reshape(-1), b) for a, b in zip(got[:3 if with_lock else 2], old)) or \
+                    not all((a is None and b is None) or torch.equal(a, b) for a, b in zip(got, plain)):
+                raise AssertionError(f"mvcc_version_select ({path}): the plain version or the parent's sequence "
+                                     "disagrees")
             t = timed(fn, lambda: version_read_ref(wh, wl, keys, ch, cl, *lock))
             t["parent_seq_ms"], t["parent_seq_host_ms"] = time_graph_ms(parent), time_ms(parent)
             # bytes: keys, the ctts pairs, each op's 2S wts words (and lock pair) read; found, slot (and ok) and the
@@ -572,13 +645,14 @@ def phase_version_select(gen):
             n_in = M * 4 + N * 8 + M * 2 * S * 4 + (M * 8 if with_lock else 0)
             n_out = M * (1 + 4 + (1 if with_lock else 0)) + M * 2 * S * 4
             t["bound_ms"], t["bound_by"] = bound_ms(n_in + n_out, M * (12 * S + 6))
-            log(f"mvcc_version_select ({path}: fused read, R={R_RECORDS}, N={N}, K={K}, S={S}, "
+            log(f"mvcc_version_select ({path}: fused read, G={G}, R={R}, N={N}, K={K}, S={S}, "
                 f"{'with' if with_lock else 'without'} the lock, {n} per tick): {t['ms']:.6f} ms/call on the device "
                 f"({t['host_ms']:.6f} issued eagerly), the parent's sequence {t['parent_seq_ms']:.6f} "
                 f"({t['parent_seq_host_ms']:.6f}), plain {t['plain_ms']:.6f} ({t['plain_host_ms']:.6f}), "
                 f"no library call, bound {t['bound_ms']:.9f} ms ({t['bound_by']})")
             parts.append((n, t))
-        by_path[path] = dict(mix(parts), M=M, S=S, picks_per_tick={"with lock": picks[True], "without": picks[False]})
+        by_path[path] = dict(mix(parts), G=G, M=M, S=S,
+                             picks_per_tick={"with lock": picks[True], "without": picks[False]})
     return dict(
         name="mvcc_version_select", route="cuda", source="src/repro_torch/kernels/csrc/mvcc_version_select.cu",
         replaces="src/repro/kernels/mvcc_version_select.py:47", max_abs_err=float(worst), by_path=by_path,
@@ -673,25 +747,26 @@ def phase_flash(gen):
     )
 
 
-def phase_profile(protocol, workload, n_ticks=20):
-    """Where one main-path tick's time goes: ``n_ticks`` ticks of one
-    config (hybrid 63, kernel plane) timed bare, then traced with
-    torch.profiler for the device's busy time and kernel launches.  On
-    YCSB, the workload's sequential key de-duplication is timed and traced
-    alone as well, at the tick's shape."""
+def phase_profile(protocol, workload, codes=(63,), n_ticks=20):
+    """Where one batched main-path tick's time goes: ``n_ticks`` ticks of
+    one bucket of ``codes`` (kernel plane) timed bare, then traced with
+    torch.profiler for the device's busy time, kernel launches and the
+    host's top-level operations.  On YCSB with one config, the workload's
+    sequential key de-duplication is timed and traced alone as well, at the
+    tick's shape."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core.engine import init_state
     from repro_torch.core.registry import get_protocol, protocol_family
     from repro_torch.core.store import init_store
-    from repro_torch.core.sweep import GridSpec, engine_config, resolve_knobs
+    from repro_torch.core.sweep import GridSpec, engine_config, make_knobs
 
     gs = GridSpec(protocol=protocol, workload=workload, kernel_plane="kernel", device="cuda")
-    ec, cm, wl = engine_config(gs, resolve_knobs(workload, {"hybrid": 63}))
+    ec, cm, wl = engine_config(gs, make_knobs(workload, [{"hybrid": c} for c in codes]))
     tick = get_protocol(protocol).tick
     st = init_state(ec, wl)
-    store = init_store(protocol_family(protocol), ec.n_records, wl.rw, wl.init_value,
+    store = init_store(protocol_family(protocol), ec.store_rows, wl.rw, wl.init_value,
                        n_versions=ec.mvcc_slots, device="cuda")
     t = 0
     for _ in range(40):  # past warm-up allocations
@@ -734,7 +809,7 @@ def phase_profile(protocol, workload, n_ticks=20):
     names = ("lock_arbiter", "multi_read", "mvcc_version_select")
     cats = [e for e in dev if "CatArrayBatchedCopy" in e.name]
     prof_line = {
-        "path": f"{protocol}/{workload}",
+        "path": f"{protocol}/{workload}", "configs": len(codes),
         "tick_wall_ms": wall_ms, "device_busy_ms_per_tick": busy_ms,
         "device_idle_share": (1 - busy_ms / wall_ms) if dev else None,
         "device_ops_per_tick": len(dev) / n_ticks, "host_top_level_ops_per_tick": host_ops,
@@ -747,7 +822,7 @@ def phase_profile(protocol, workload, n_ticks=20):
             for n in names
         },
     }
-    if workload == "ycsb":
+    if workload == "ycsb" and len(codes) == 1:
         from repro_torch.workloads.util import dedup_keys
 
         keys, slot = st["keys"].clone(), torch.arange(ec.n_slots, dtype=torch.int32, device="cuda")
@@ -964,17 +1039,118 @@ def main_path_spec(protocol, workload, plane, codes=CODES):
     )
 
 
-def show_rows(label, res):
-    for r in res.rows:
-        ticks = r["ticks"] + res.plan.grid_spec.warmup
-        log(f"  {label} hybrid={r['hybrid']} commits={r['commits']} aborts={r['aborts']} "
-            f"throughput_mtps={r['throughput_mtps']} avg_latency_us={r['avg_latency_us']} "
-            f"wall_s={r['wall_s']:.3f} sim_ticks_per_s={ticks / r['wall_s']:.1f}")
+def show_rows(label, res, every=True):
+    """Each row's counters (or, with ``every`` False, the first four) and
+    its bucket's simulated ticks per wall second; fails on a metric that is
+    not finite."""
+    for i, r in enumerate(res.rows):
+        ticks = r["ticks"] + res.plan.buckets[r["bucket"]].grid_spec.warmup
+        if every or i < 4:
+            log(f"  {label} hybrid={r['hybrid']} commits={r['commits']} aborts={r['aborts']} "
+                f"throughput_mtps={r['throughput_mtps']} avg_latency_us={r['avg_latency_us']} "
+                f"bucket wall_s={r['wall_s']:.3f} sim_ticks_per_s={ticks / r['wall_s']:.1f}")
         for k in ("throughput_mtps", "avg_latency_us", "abort_rate", "avg_round_trips"):
             if not math.isfinite(r[k]):
                 raise AssertionError(f"{label} {r['hybrid']}: {k}={r[k]} is not finite")
         if len(r["stage_us_per_commit"]) != 8 or not all(map(math.isfinite, r["stage_us_per_commit"])):
             raise AssertionError(f"{label} {r['hybrid']}: bad stage_us_per_commit")
+
+
+def counted_run(spec, counted):
+    """``api.run(spec)`` with every kernel's launch count set to 0 just
+    before and read just after: (results, launches by kernel)."""
+    from repro_torch import api
+
+    for fn in counted:
+        fn.launches = 0
+    res = api.run(spec)
+    return res, {fn.__name__: fn.launches for fn in counted}
+
+
+def check_launches(path, protocol, res, got):
+    """A batched RCC path launches each kernel PER_TICK times per tick,
+    whatever its config count."""
+    gs = res.plan.buckets[0].grid_spec
+    n_ticks = gs.ticks + gs.warmup
+    expect = {name: per * n_ticks for name, per in PER_TICK[protocol].items()}
+    if len(res.plan.buckets) != 1 or got != expect:
+        raise AssertionError(f"{path}: {len(res.plan.buckets)} bucket(s), kernel launches {got} != {expect}")
+    return n_ticks
+
+
+def golden_counters(path, res, golden_file):
+    with open(os.path.join(ROOT, "src", "repro_torch", "data", golden_file)) as f:
+        golden = json.load(f)
+    want = {r["hybrid"]: r for r in golden["rows"]}
+    rows = [{"hybrid": r["hybrid"], "commits": r["commits"], "aborts": r["aborts"]} for r in res.rows]
+    if [want[r["hybrid"]] for r in rows] != rows:
+        raise AssertionError(f"{path}: counters {rows} != JAX golden {golden['rows']}")
+    log(f"{path} golden: counters of {len(rows)} configs equal the JAX reference's ({golden_file})")
+    return golden
+
+
+def phase_sweep(counted):
+    """NOWAIT/SmallBank's 64 hybrid codes as ONE bucket on the kernel plane
+    at the full spec: launches per tick as for any batch, rows against the
+    JAX reference's vmapped 64-code grid."""
+    spec = main_path_spec("nowait", "smallbank", "kernel", tuple(range(64)))
+    res, got = counted_run(spec, counted)
+    n_ticks = check_launches(SWEEP_PATH, "nowait", res, got)
+    log(f"main path {SWEEP_PATH} (kernel plane, 64 configs in one bucket): {res.wall_s:.3f} s for {n_ticks} "
+        f"batched ticks, {64 / res.wall_s:.3f} configs/s, launches {got}")
+    show_rows(SWEEP_PATH, res, every=False)
+    golden = golden_counters(SWEEP_PATH, res, "golden_nowait_smallbank_sweep64.json")
+    if golden["spec"] != {"protocol": "nowait", "workload": "smallbank", "configs": [{"hybrid": c} for c in range(64)]}:
+        raise AssertionError(f"golden_nowait_smallbank_sweep64.json holds another spec: {golden['spec']}")
+    return res, got
+
+
+def phase_calvin(counted):
+    """CALVIN at the full spec on the kernel plane: smallbank, ycsb and tpcc,
+    each ONE bucket of CODES, against golden_calvin.json (commits, aborts and
+    the round and wave averages exactly, the float32 epoch-sum metrics to
+    rtol 1e-5); CALVIN reaches no RCC kernel.  Then a profiled run of
+    smallbank's batched epochs."""
+    from repro_torch.api import ExperimentSpec
+    from repro_torch.core.protocols import calvin
+    from repro_torch.core.sweep import GridSpec, engine_config, make_knobs
+
+    with open(os.path.join(ROOT, "src", "repro_torch", "data", "golden_calvin.json")) as f:
+        golden = json.load(f)
+    total = {fn.__name__: 0 for fn in counted}
+    for cell in golden["cells"]:
+        spec = cell["spec"]
+        if spec["protocol"] != "calvin" or spec["configs"] != [{"hybrid": c} for c in CODES]:
+            raise AssertionError(f"golden_calvin.json holds another spec: {spec}")
+        res, got = counted_run(ExperimentSpec(**spec, kernel_plane="kernel"), counted)
+        n_epochs = calvin.epochs_for_ticks(res.plan.buckets[0].grid_spec.ticks)
+        log(f"main path {CALVIN_PATH}/{spec['workload']} (kernel plane, {len(CODES)} configs in one bucket): "
+            f"{res.wall_s:.3f} s for {n_epochs} batched epochs, {res.wall_s / n_epochs * 1e3:.3f} ms per epoch, "
+            f"{len(CODES) / res.wall_s:.3f} configs/s, launches {got}")
+        if len(res.plan.buckets) != 1 or any(got.values()):
+            raise AssertionError(f"{CALVIN_PATH}/{spec['workload']}: one bucket, no RCC kernel launch expected: {got}")
+        total = {name: total[name] + n for name, n in got.items()}
+        for a, b in zip(res.rows, cell["rows"]):
+            log(f"  calvin/{spec['workload']} hybrid={a['hybrid']} commits={a['commits']} avg_waves={a['avg_waves']} "
+                f"avg_round_trips={a['avg_round_trips']} throughput_mtps={a['throughput_mtps']}")
+            for k in ("hybrid", "commits", "aborts", "abort_rate", "avg_round_trips", "avg_waves"):
+                if a[k] != b[k]:
+                    raise AssertionError(f"calvin/{spec['workload']} {a['hybrid']}: {k} {a[k]} != golden {b[k]}")
+            for k in ("throughput_mtps", "avg_latency_us"):
+                if not math.isclose(a[k], b[k], rel_tol=1e-5):
+                    raise AssertionError(f"calvin/{spec['workload']} {a['hybrid']}: {k} {a[k]} vs golden {b[k]}")
+        log(f"calvin/{spec['workload']} golden: rows equal the JAX reference's (golden_calvin.json)")
+
+    # where a batched epoch's time goes
+    gs = GridSpec(protocol="calvin", workload="smallbank", kernel_plane="kernel", device="cuda")
+    ec, cm, wl = engine_config(gs, make_knobs("smallbank", [{"hybrid": c} for c in CODES]))
+    n_epochs = 4
+    _, wall, busy, n_ops, top = device_busy(lambda: calvin.run_epochs(ec, cm, wl, n_epochs))
+    log("calvin profile: " + json.dumps({
+        "path": "calvin/smallbank", "configs": len(CODES), "epoch_wall_ms": wall / n_epochs,
+        "device_busy_ms_per_epoch": busy / n_epochs, "device_idle_share": 1 - busy / wall,
+        "device_ops_per_epoch": n_ops / n_epochs, "top_launches_and_ms": top}))
+    return total
 
 
 def main() -> int:
@@ -1012,50 +1188,61 @@ def main() -> int:
                 log(f"  {name}: {line.strip()}")
 
     kernels = phase_kernels()
-    for protocol, workload, _, _ in PATHS:
-        phase_profile(protocol, workload)
+    for protocol, workload in (("nowait", "smallbank"), ("mvcc", "ycsb")):
+        for codes in ((63,), CODES):
+            phase_profile(protocol, workload, codes)
+    phase_profile("nowait", "smallbank", tuple(range(64)))
 
     launches = {k["name"]: {} for k in kernels}
-    for protocol, workload, golden_file, torch_codes in PATHS:
+    configs_per_s = {}
+    for protocol, workload, golden_file in PATHS:
         path = f"{protocol}/{workload}"
-        # phase 4: the main path on the kernel plane; launches counted from 0
-        for fn in counted:
-            fn.launches = 0
-        pl = api.plan(main_path_spec(protocol, workload, "kernel"))
-        log(pl.summary())
-        res = api.execute(pl)
-        got = {fn.__name__: fn.launches for fn in counted}
-        n_ticks = len(CODES) * (pl.grid_spec.ticks + pl.grid_spec.warmup)
-        log(f"main path {path} (kernel plane): {res.wall_s:.3f} s for {n_ticks} ticks, launches {got}")
+        # phase 4: the main path on the kernel plane, one batched run; launches counted from 0
+        res, got = counted_run(main_path_spec(protocol, workload, "kernel"), counted)
+        log(res.plan.summary())
+        n_ticks = check_launches(path, protocol, res, got)
+        log(f"main path {path} (kernel plane, {len(CODES)} configs in one bucket): {res.wall_s:.3f} s for "
+            f"{n_ticks} batched ticks, {len(CODES) / res.wall_s:.3f} configs/s, launches {got}")
         show_rows(f"{path} kernel", res)
-        expect = {name: per * n_ticks for name, per in PER_TICK[protocol].items()}
-        if got != expect:
-            raise AssertionError(f"{path}: kernel launches {got} != {expect}")
         for name, n in got.items():
             launches[name][path] = n
+        configs_per_s[f"{path} G={len(CODES)} kernel"] = len(CODES) / res.wall_s
 
         # phase 5: the torch plane gives the same counters
-        res_t = api.run(main_path_spec(protocol, workload, "torch", torch_codes))
-        log(f"main path {path} (torch plane, hybrid {list(torch_codes)}): {res_t.wall_s:.3f} s")
+        res_t = api.run(main_path_spec(protocol, workload, "torch"))
+        log(f"main path {path} (torch plane, {len(CODES)} configs in one bucket): {res_t.wall_s:.3f} s, "
+            f"{len(CODES) / res_t.wall_s:.3f} configs/s")
         show_rows(f"{path} torch", res_t)
-        by_code = {r["hybrid"]: r for r in res.rows}
-        for b in res_t.rows:
-            a = by_code[b["hybrid"]]
-            for k in ("commits", "aborts", "abort_rate", "throughput_mtps", "avg_round_trips"):
+        configs_per_s[f"{path} G={len(CODES)} torch"] = len(CODES) / res_t.wall_s
+        for a, b in zip(res.rows, res_t.rows):
+            for k in ("hybrid", "commits", "aborts", "abort_rate", "throughput_mtps", "avg_round_trips"):
                 if a[k] != b[k]:
                     raise AssertionError(f"{path}: planes disagree on {a['hybrid']} {k}: {a[k]} vs {b[k]}")
         log(f"{path}: planes agree bitwise on the counters")
 
-        # phase 6: the JAX reference's golden counters
-        with open(os.path.join(ROOT, "src", "repro_torch", "data", golden_file)) as f:
-            golden = json.load(f)
-        if golden["spec"] != {"protocol": protocol, "workload": workload,
-                              "configs": [{"hybrid": c} for c in CODES]}:
+        # phase 6: the JAX reference's golden counters, on both planes
+        golden = golden_counters(f"{path} kernel", res, golden_file)
+        golden_counters(f"{path} torch", res_t, golden_file)
+        if golden["spec"] != {"protocol": protocol, "workload": workload, "configs": [{"hybrid": c} for c in CODES]}:
             raise AssertionError(f"{golden_file} holds another spec: {golden['spec']}")
-        rows = [{"hybrid": r["hybrid"], "commits": r["commits"], "aborts": r["aborts"]} for r in res.rows]
-        if rows != golden["rows"]:
-            raise AssertionError(f"{path}: counters {rows} != JAX golden {golden['rows']}")
-        log(f"{path} golden: counters equal the JAX reference's")
+
+    # configs per second at G = 1 (hybrid 63 alone) and G = 64 (the 64-code sweep)
+    res1, got = counted_run(main_path_spec("nowait", "smallbank", "kernel", (63,)), counted)
+    n_ticks = check_launches(ONE_PATH, "nowait", res1, got)
+    log(f"main path {ONE_PATH} (kernel plane, hybrid 63 alone): {res1.wall_s:.3f} s for {n_ticks} ticks, "
+        f"{1 / res1.wall_s:.3f} configs/s, launches {got}")
+    golden_counters(ONE_PATH, res1, "golden_nowait_smallbank.json")
+    for name, n in got.items():
+        launches[name][ONE_PATH] = n
+    configs_per_s["nowait/smallbank G=1 kernel"] = 1 / res1.wall_s
+    res64, got = phase_sweep(counted)
+    for name, n in got.items():
+        launches[name][SWEEP_PATH] = n
+    configs_per_s["nowait/smallbank G=64 kernel"] = 64 / res64.wall_s
+    log("configs_per_s: " + json.dumps(configs_per_s))
+
+    for name, n in phase_calvin(counted).items():
+        launches[name][CALVIN_PATH] = n
 
     # phase 7: the LM serving path (stablelm-1.6b at full width)
     for name, n in phase_serve(counted).items():
@@ -1067,6 +1254,7 @@ def main() -> int:
         mean = mix([(launches[k["name"]][p], r) for p, r in k["by_path"].items()])
         k.update({key: mean[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                                              "host_ms", "plain_host_ms", "library_host_ms")})
+    log(f"one_device_op: {len(EMPTY_TRACES)} traces with no device event: {json.dumps(EMPTY_TRACES)}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

@@ -4,14 +4,15 @@
     from repro_torch.api import ExperimentSpec, run
 
     rows = run(ExperimentSpec(protocol="nowait", workload="smallbank",
-                              configs=[{"hybrid": c} for c in (0, 63, 21, 42)])).rows
+                              configs=[{"hybrid": c} for c in range(64)])).rows
 
-Rows keep the reference's dense row schema.  The port runs the configs of
-a spec one after another on one device (the reference's vmapped grid is
-bitwise-equal to that sequential path).  ``device`` defaults to
-``"cuda"``: ``plan`` raises when CUDA is absent and the caller did not ask
-for ``device="cpu"``.  Multi-device layouts and per-config static shape
-axes are not ported yet and raise at plan time.
+Rows keep the reference's dense row schema.  ``plan`` groups the configs
+into power-of-two shape buckets (``sweep.plan_buckets``, as the reference),
+and ``execute`` runs each bucket as ONE batched run on one device, its
+configs on a leading config axis (the reference's vmapped grid).
+``device`` defaults to ``"cuda"``: ``plan`` raises when CUDA is absent and
+the caller did not ask for ``device="cpu"``.  Multi-device layouts are not
+ported yet and raise at plan time.
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ import time
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Tuple, Union
 
+import numpy as np
 import torch
 
 from repro_torch.core import registry
@@ -26,15 +28,17 @@ from repro_torch.core import sweep as _sweep
 from repro_torch.core.sweep import (  # noqa: F401  (public planner helpers, re-exported)
     KNOB_KEYS,
     STATIC_AXES,
+    BucketPlan,
     GridSpec,
     all_hybrid_codes,
     grid_product,
+    make_knobs,
     normalize_hybrid,
-    resolve_knobs,
+    plan_buckets,
 )
 from repro_torch.kernels import ops as _kernel_ops
 
-DENSE = "dense"  # the one ported layout: one device, configs run in turn
+DENSE = "dense"  # the one ported layout: one device, each bucket one batched run
 
 
 @dataclass(frozen=True)
@@ -42,10 +46,12 @@ class ExperimentSpec:
     """Declarative description of one experiment sweep (the reference's
     fields, plus ``device``).
 
-    ``configs`` is a sequence of per-run knob dicts (``hybrid``, ``seed``,
-    ``exec_ticks``, ``hot_prob``, ``qp_pressure``); everything else is
-    grid-level.  ``kernel_plane`` is ``"auto"`` (``"kernel"`` on CUDA,
-    ``"torch"`` on the CPU), ``"torch"`` or ``"kernel"``.
+    ``configs`` is a sequence of per-run dicts mixing knobs (``hybrid``,
+    ``seed``, ``exec_ticks``, ``hot_prob``, ``qp_pressure``) with static
+    shape axes (:data:`STATIC_AXES`: ``coroutines``, ``records_per_node``,
+    ``ticks``); everything else is grid-level.  ``kernel_plane`` is
+    ``"auto"`` (``"kernel"`` on CUDA, ``"torch"`` on the CPU), ``"torch"``
+    or ``"kernel"``.
     """
 
     protocol: str
@@ -74,19 +80,44 @@ class ExperimentSpec:
 
 
 @dataclass(frozen=True)
+class PlannedBucket:
+    """One shape bucket of the plan: a padded GridSpec (= one batched run),
+    the per-config active extents that make the padding inert, and the
+    bucket's stacked knobs."""
+
+    index: int
+    grid_spec: GridSpec
+    bucket: BucketPlan
+    knobs: _sweep.RunKnobs
+
+    def describe(self) -> str:
+        b, g = self.bucket, self.grid_spec
+        axes = []
+        for name, padded, active in (
+            ("coroutines", g.coroutines, b.coroutines_active),
+            ("records_per_node", g.records_per_node, b.records_active),
+            ("ticks", g.ticks, b.ticks_active),
+        ):
+            if active is None:
+                axes.append(f"{name}={padded}")
+            else:
+                axes.append(f"{name}={padded} (active {min(active)}..{max(active)})")
+        return f"bucket {self.index}: {len(b.indices)} config(s), " + ", ".join(axes) + " -> 1 batched run"
+
+
+@dataclass(frozen=True)
 class ExecutionPlan:
-    """What :func:`execute` will run: one grid spec, its configs' knobs,
-    the resolved device and kernel plane."""
+    """What :func:`execute` will run: the buckets, the resolved device and
+    kernel plane."""
 
     spec: ExperimentSpec
-    grid_spec: GridSpec
-    knobs: Tuple[_sweep.RunKnobs, ...]
+    buckets: Tuple[PlannedBucket, ...]
     kernel_plane: str = _kernel_ops.TORCH
     device: str = "cuda"
 
     @property
     def n_configs(self) -> int:
-        return len(self.knobs)
+        return len(self.spec.configs)
 
     def device_name(self) -> str:
         dev = torch.device(self.device)
@@ -95,13 +126,13 @@ class ExecutionPlan:
         return str(dev)
 
     def summary(self) -> str:
-        """Human-readable plan: shapes, device and kernel plane."""
-        s, g = self.spec, self.grid_spec
+        """Human-readable plan: buckets, shapes, device and kernel plane."""
+        s, g = self.spec, self.buckets[0].grid_spec
         return "\n".join([
             f"ExperimentSpec: protocol={s.protocol} workload={s.workload} configs={self.n_configs}",
-            f"layout: {DENSE} — 1 device, configs run in turn",
-            f"shapes: n_nodes={g.n_nodes}, coroutines={g.coroutines}, "
-            f"records_per_node={g.records_per_node}, ticks={g.ticks} (+{g.warmup} warmup)",
+            f"layout: {DENSE} — 1 device, {len(self.buckets)} bucket(s), each one batched run",
+            f"shapes: n_nodes={g.n_nodes}, warmup={g.warmup}",
+            *(pb.describe() for pb in self.buckets),
             f"device: {self.device_name()}",
             f"kernel plane: {self.kernel_plane} — {_kernel_ops.describe_plane(self.kernel_plane)}",
         ])
@@ -142,69 +173,75 @@ def plan(spec: ExperimentSpec) -> ExecutionPlan:
         raise ValueError("ExperimentSpec.configs is empty: pass at least one knob dict")
     if spec.layout not in (None, DENSE):
         raise NotImplementedError(
-            f"layout={spec.layout!r} is not ported yet (ROADMAP A.9/A.10); the port runs 'dense'"
+            f"layout={spec.layout!r} is not ported yet (ROADMAP A.10); the port runs 'dense'"
         )
     if spec.devices is not None or (spec.node_shards is not None and spec.node_shards >= 1):
         raise NotImplementedError(
-            "multi-device runs (devices / node_shards) are not ported yet (ROADMAP A.9/A.10); "
+            "multi-device runs (devices / node_shards) are not ported yet (ROADMAP A.10); "
             "pick one device with ExperimentSpec.device"
-        )
-    swept = sorted({k for c in spec.configs for k in c} & set(STATIC_AXES))
-    if swept:
-        raise NotImplementedError(
-            f"configs sweep the static axes {swept}; shape bucketing is not ported yet "
-            "(ROADMAP A.9): set them on the ExperimentSpec instead"
         )
     device = _resolve_device(spec.device)
     kernel_plane = _kernel_ops.resolve_plane(spec.kernel_plane, device)
-    knobs = tuple(resolve_knobs(spec.workload, c) for c in spec.configs)
-    gs = GridSpec(
-        protocol=spec.protocol,
-        workload=spec.workload,
-        n_nodes=spec.n_nodes,
-        coroutines=spec.coroutines,
-        records_per_node=spec.records_per_node,
-        ticks=spec.ticks,
-        warmup=spec.warmup,
-        history_cap=spec.history_cap,
-        mvcc_slots=spec.mvcc_slots,
-        doorbell=spec.doorbell,
-        tcp=spec.tcp,
-        merge_stages=spec.merge_stages,
-        kernel_plane=kernel_plane,
-        device=str(device),
+    buckets = plan_buckets(
+        list(spec.configs), coroutines=spec.coroutines, records_per_node=spec.records_per_node, ticks=spec.ticks
     )
-    return ExecutionPlan(
-        spec=spec, grid_spec=gs, knobs=knobs, kernel_plane=kernel_plane, device=str(device)
-    )
+    planned = []
+    for i, b in enumerate(buckets):
+        knobs = make_knobs(spec.workload, b.knob_configs)
+        for name, active in (("coroutines_active", b.coroutines_active), ("records_active", b.records_active),
+                             ("ticks_active", b.ticks_active)):
+            if active is not None:
+                knobs = knobs._replace(**{name: np.array(active, np.int32)})
+        gs = GridSpec(
+            protocol=spec.protocol,
+            workload=spec.workload,
+            n_nodes=spec.n_nodes,
+            coroutines=b.coroutines,
+            records_per_node=b.records_per_node,
+            ticks=b.ticks if b.ticks is not None else spec.ticks,
+            warmup=spec.warmup,
+            history_cap=spec.history_cap,
+            mvcc_slots=spec.mvcc_slots,
+            doorbell=spec.doorbell,
+            tcp=spec.tcp,
+            merge_stages=spec.merge_stages,
+            kernel_plane=kernel_plane,
+            device=str(device),
+        )
+        planned.append(PlannedBucket(index=i, grid_spec=gs, bucket=b, knobs=knobs))
+    return ExecutionPlan(spec=spec, buckets=tuple(planned), kernel_plane=kernel_plane, device=str(device))
 
 
 def execute(pl: ExecutionPlan) -> Results:
-    """Run an :class:`ExecutionPlan`; rows follow the reference's dense row
-    schema (``engine.summarize`` metrics as Python values plus ``wall_s``,
-    ``grid_size``, ``n_buckets``, ``bucket``, ``n_devices``,
-    ``n_node_shards``, ``protocol``, ``workload``, ``hybrid`` and the static
-    axes).  ``wall_s`` is this config's own wall time, unrounded."""
-    spec, gs = pl.spec, pl.grid_spec
+    """Run an :class:`ExecutionPlan`, one batched run per bucket; rows
+    follow the reference's dense row schema (``engine.summarize`` metrics
+    as Python values plus ``wall_s``, ``grid_size``, ``n_buckets``,
+    ``bucket``, ``n_devices``, ``n_node_shards``, ``protocol``,
+    ``workload``, ``hybrid`` and the per-config static axes).  ``wall_s``
+    is the bucket's wall time, unrounded."""
+    spec = pl.spec
     t0_all = time.perf_counter()
-    rows = []
-    for kn in pl.knobs:
+    rows: List[Optional[Dict]] = [None] * len(spec.configs)
+    for pb in pl.buckets:
+        b, gs, kn = pb.bucket, pb.grid_spec, pb.knobs
         t0 = time.perf_counter()
-        out = _sweep.run_one(gs, kn)
-        m = {k: v.tolist() for k, v in out.items()}  # waits for the device
-        m["wall_s"] = time.perf_counter() - t0
-        m["grid_size"] = len(pl.knobs)
-        m["n_buckets"] = 1
-        m["bucket"] = 0
-        m["n_devices"] = 1
-        m["n_node_shards"] = 1
-        m["protocol"], m["workload"] = spec.protocol, spec.workload
-        m["hybrid"] = "".join(str(int(b)) for b in kn.hybrid)
-        m["coroutines"] = gs.coroutines
-        m["records_per_node"] = gs.records_per_node
-        m["ticks"] = gs.ticks
-        rows.append(m)
-    return Results(rows=rows, plan=pl, wall_s=time.perf_counter() - t0_all)
+        out = {k: v.tolist() for k, v in _sweep._run_one(gs, kn).items()}  # waits for the device
+        wall = time.perf_counter() - t0
+        for g, idx in enumerate(b.indices):
+            m = {k: v[g] for k, v in out.items()}
+            m["wall_s"] = wall
+            m["grid_size"] = len(spec.configs)
+            m["n_buckets"] = len(pl.buckets)
+            m["bucket"] = pb.index
+            m["n_devices"] = 1
+            m["n_node_shards"] = 1
+            m["protocol"], m["workload"] = spec.protocol, spec.workload
+            m["hybrid"] = "".join(str(int(bit)) for bit in kn.hybrid[g])
+            m["coroutines"] = b.coroutines if b.coroutines_active is None else b.coroutines_active[g]
+            m["records_per_node"] = b.records_per_node if b.records_active is None else b.records_active[g]
+            m["ticks"] = gs.ticks if b.ticks_active is None else b.ticks_active[g]
+            rows[idx] = m
+    return Results(rows=rows, plan=pl, wall_s=time.perf_counter() - t0_all)  # type: ignore[arg-type]
 
 
 def run(spec: ExperimentSpec) -> Results:
@@ -216,6 +253,7 @@ __all__ = [
     "DENSE",
     "ExperimentSpec",
     "ExecutionPlan",
+    "PlannedBucket",
     "Results",
     "plan",
     "execute",

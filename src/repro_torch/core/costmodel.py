@@ -10,7 +10,7 @@ constants rounds to float32 exactly where the reference's does.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict
+from typing import Dict, Tuple, Union
 
 import numpy as np
 import torch
@@ -39,12 +39,21 @@ class CostModel:
     mmio_us: float = 0.15  # per-verb MMIO cost saved by doorbell batching
     byte_us: float = 0.00008  # ~12.5 GB/s per link
     n_backups: int = 3  # 3-way replication (paper §6.1)
-    qp_pressure: float = 0.0  # grows with emulated cluster size (Fig. 10)
+    # grows with emulated cluster size (Fig. 10); a tuple holds one value per
+    # config of a batched run
+    qp_pressure: Union[float, Tuple[float, ...]] = 0.0
 
-    def nic_eff_cap(self) -> np.float32:
+    def nic_eff_cap(self):
         """NIC verb capacity degraded by QP-state cache pressure (float32,
-        as the reference computes it from its float32 sweep knob)."""
-        return _F32(self.nic_cap) / (_F32(1.0) + _F32(self.qp_pressure))
+        as the reference computes it from its float32 sweep knob): a
+        ``np.float32``, or a float32 array of one per config."""
+        qp = np.asarray(self.qp_pressure, np.float32)
+        return _F32(self.nic_cap) / (_F32(1.0) + qp)
+
+    def nic_unit(self):
+        """One-sided queueing time per queued verb, float32: ``1 / nic_eff_cap
+        * tick_us`` (a ``np.float32``, or an array of one per config)."""
+        return _F32(1.0) / np.maximum(self.nic_eff_cap(), _F32(1e-6)) * _F32(self.tick_us)
 
     @staticmethod
     def tcp() -> "CostModel":
@@ -116,6 +125,13 @@ WIRE_COSTS: Dict[str, Dict[int, WireCost]] = {
     },
 }
 
+# CALVIN's epoch plane (sequencing broadcast + RS/WS forwarding) is not a
+# slot-engine stage machine, but its message shapes live in the same table.
+CALVIN_WIRE: Dict[str, WireCost] = {
+    "sequence": WireCost(base=16.0, per_op=5.0, n_verbs=2),  # txn descriptor batch
+    "forward": WireCost(base=8.0, words=1.0, n_verbs=2),  # RS/WS record ship
+}
+
 _PROTO_FAMILY = {"nowait": "twopl", "waitdie": "twopl"}
 
 
@@ -127,19 +143,29 @@ def wire_cost(protocol: str, stage: int) -> WireCost:
     return WIRE_COSTS[_PROTO_FAMILY.get(fam, fam)][stage]
 
 
-def queue_delay_us(cm: CostModel, primitive_is_rpc: bool, dest_load: torch.Tensor):
+def queue_delay_us(cm: CostModel, primitive_is_rpc, dest_load: torch.Tensor, nic_unit=None):
     """Queueing delay at the destination given this tick's same-plane load
     (float32 tensor).  RPC requests queue on the handler CPU, one-sided
-    verbs on the RNIC."""
+    verbs on the RNIC.  ``primitive_is_rpc`` is a Python bool or a bool
+    tensor broadcastable to ``dest_load`` (then both branches are computed
+    and selected, as the reference's ``jnp.where``); ``nic_unit`` overrides
+    ``cm.nic_unit()`` with a tensor of one value per row (a batch whose
+    configs differ in ``qp_pressure``)."""
+    if isinstance(primitive_is_rpc, torch.Tensor):
+        return torch.where(
+            primitive_is_rpc,
+            queue_delay_us(cm, True, dest_load, nic_unit),
+            queue_delay_us(cm, False, dest_load, nic_unit),
+        )
     excess = torch.clamp(dest_load - 1, min=0.0)
     if primitive_is_rpc:
         return excess * _F32(cm.handler_us) / 2.0 + _F32(cm.handler_us)
-    nic_unit = _F32(1.0) / max(cm.nic_eff_cap(), _F32(1e-6)) * _F32(cm.tick_us)
-    return excess * nic_unit / 2.0
+    return excess * (cm.nic_unit() if nic_unit is None else nic_unit) / 2.0
 
 
 def round_latency_us(
-    cm: CostModel, primitive_is_rpc: bool, dest_load, msg_bytes, n_verbs: int = 1, doorbell: bool = True
+    cm: CostModel, primitive_is_rpc, dest_load, msg_bytes, n_verbs: int = 1, doorbell: bool = True,
+    nic_unit=None,
 ):
     """Latency of one network round for a request batch of n_verbs verbs.
 
@@ -147,12 +173,19 @@ def round_latency_us(
     ``dest_load``; the sum runs left to right in float32 as the reference's.
     Tensors stand first in each product and sum (float32 ``*`` and ``+``
     commute exactly): a numpy scalar on the left would take the tensor
-    into numpy.
+    into numpy.  ``primitive_is_rpc`` and ``nic_unit`` are as in
+    :func:`queue_delay_us`.
     """
+    if isinstance(primitive_is_rpc, torch.Tensor):
+        return torch.where(
+            primitive_is_rpc,
+            round_latency_us(cm, True, dest_load, msg_bytes, n_verbs, doorbell, nic_unit),
+            round_latency_us(cm, False, dest_load, msg_bytes, n_verbs, doorbell, nic_unit),
+        )
     base = _F32(cm.rpc_rtt_us if primitive_is_rpc else cm.os_rtt_us)
     mmio = _F32(cm.mmio_us if primitive_is_rpc else cm.mmio_us * (1 if doorbell else n_verbs))
     if isinstance(msg_bytes, torch.Tensor):
         head = msg_bytes * _F32(cm.byte_us) + (base + mmio)
     else:
         head = (base + mmio) + _F32(msg_bytes * cm.byte_us)
-    return queue_delay_us(cm, primitive_is_rpc, dest_load) + head
+    return queue_delay_us(cm, primitive_is_rpc, dest_load, nic_unit) + head

@@ -16,12 +16,27 @@ that takes the reference's out-of-range "drop" index.  The only in-place
 updates are to tensors the same function has just allocated
 (``_scatter_drop``'s copy, ``service_ops``' ranks, ``account_round``'s
 copy of ``stage_us``).
+
+**The config axis.**  One run carries ``EngineConfig.n_configs`` = G
+configs of one shape bucket at once, where the reference vmaps them.  Every
+state tensor is (G·N, ...), the contiguous view of (G, N, ...) with N =
+``n_slots`` rows per config; every store array is (G·R, ...) with R =
+``n_records``.  ``st["keys"]`` holds STORE ROWS: config g's key k is row
+g·R + k, so every gather, scatter and kernel reads the flat store with no
+offset at its boundary, and the drop sentinel ``store_rows`` = G·R lies
+past every config.  Per-config quantities (``stage_us``, ``h_idx``, the
+history rows) are flat (G·X, ...) as well, so a run of one config has
+exactly the reference's shapes.  A knob (``hybrid`` per stage, ``seed``,
+``exec_ticks``, the active extents) is one Python value when every config
+of the run shares it, so a run whose configs agree computes no per-config
+select, or a tuple of G values, expanded per row by :func:`per_row`.
+The rest of the code is the same for every G, one config included.
 """
 from __future__ import annotations
 
 import functools
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, NamedTuple, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -36,47 +51,78 @@ from repro_torch.kernels import ops as kops
 
 _I32_MIN = -(2**31)
 
+# a per-config knob: one value for every config, or a tuple of one per config
+Knob = Union[int, float, Tuple]
+
 
 @dataclass(frozen=True)
 class EngineConfig:
     """Engine configuration (the reference's fields, dense layout).
 
-    ``hybrid`` holds one primitive per canonical stage (Python ints: the
-    port runs each config on its own, so protocol code may branch on it).
-    ``active_coroutines`` / ``active_records_per_node`` are the bucket
-    padding extents: only the first ``active_*`` slots per node run and
-    only the first ``active_records_per_node`` rows per node are
-    addressable, while every identity-derived value uses LOGICAL ids, so a
-    padded run equals the unpadded one bitwise.  ``kernel_plane`` picks the
-    hot-path backend (:mod:`repro_torch.kernels.ops`); ``device`` is where
-    every tensor of the run lives.
+    ``n_configs`` configs of one shape run at once (module docstring).
+    ``hybrid`` holds one primitive per canonical stage, each a Python int
+    (every config) or a tuple of one per config; ``seed``, ``exec_ticks``
+    and the active extents likewise.  ``active_coroutines`` /
+    ``active_records_per_node`` are the bucket padding extents: only the
+    first ``active_*`` slots per node run and only the first
+    ``active_records_per_node`` rows per node are addressable, while every
+    identity-derived value uses LOGICAL ids, so a padded run equals the
+    unpadded one bitwise.  ``kernel_plane`` picks the hot-path backend
+    (:mod:`repro_torch.kernels.ops`); ``device`` is where every tensor of
+    the run lives.
     """
 
     protocol: str
     n_nodes: int = 4
     coroutines: int = 10
     records_per_node: int = 16384
-    active_coroutines: Optional[int] = None
-    active_records_per_node: Optional[int] = None
+    active_coroutines: Optional[Knob] = None
+    active_records_per_node: Optional[Knob] = None
     rw: int = 2
     max_ops: int = 4
-    hybrid: Tuple[int, ...] = (RPC,) * N_STAGES
+    hybrid: Tuple[Knob, ...] = (RPC,) * N_STAGES
     doorbell: bool = True
     merge_stages: bool = False
-    exec_ticks: int = 1
+    exec_ticks: Knob = 1
     history_cap: int = 0
     mvcc_slots: int = 4
-    seed: int = 0
+    seed: Knob = 0
     kernel_plane: str = kops.TORCH
     device: str = "cuda"
+    n_configs: int = 1
+
+    def __post_init__(self):
+        for name in ("active_coroutines", "active_records_per_node", "exec_ticks", "seed"):
+            _check_knob(self, name, getattr(self, name))
+        for stage, v in enumerate(self.hybrid):
+            _check_knob(self, f"hybrid[{stage}]", v)
 
     @property
     def n_slots(self) -> int:
+        """Co-routine slots per config (rows of state per config)."""
         return self.n_nodes * self.coroutines
 
     @property
     def n_records(self) -> int:
+        """Store rows per config."""
         return self.n_nodes * self.records_per_node
+
+    @property
+    def store_rows(self) -> int:
+        """Rows of every store array (all configs), and the drop sentinel."""
+        return self.n_configs * self.n_records
+
+
+def _check_knob(ec: EngineConfig, name: str, v) -> None:
+    if isinstance(v, tuple) and len(v) != ec.n_configs:
+        raise ValueError(f"EngineConfig.{name}: {len(v)} values for n_configs={ec.n_configs}")
+
+
+def uniform(v) -> Knob:
+    """A knob's values, one per config, as the engine takes them: the one
+    value when all are equal, else the tuple."""
+    v = tuple(v)
+    return v[0] if all(x == v[0] for x in v) else v
 
 
 class Workload(NamedTuple):
@@ -84,11 +130,75 @@ class Workload(NamedTuple):
     rw: int
     max_ops: int
     init_value: int
-    # gen(keys (N, 2), slot_node (N,), slot_id (N,)) -> (keys, is_w, valid), each (N, K)
+    # gen(keys (N, 2), slot_node (N,), slot_id (N,)[, per_row]) -> (keys, is_w, valid), each (N, K);
+    # a run of several configs passes per_row(value, dtype), which maps a knob given per config to its
+    # (N,) values
     gen: Callable
     # execute(keys, is_w, valid, rvals (N, K, RW)) -> wvals (N, K, RW)
     execute: Callable
-    exec_ticks: int = 1
+    exec_ticks: Knob = 1
+
+
+# ---------------------------------------------------------------------------
+# Per-config knobs, per row
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=256)
+def _expanded(ec: EngineConfig, v: tuple, dtype: torch.dtype, per: int):
+    return torch.tensor(v, dtype=dtype, device=ec.device).repeat_interleave(per)
+
+
+def per_row(ec: EngineConfig, v, dtype=torch.int32):
+    """A knob as the state rows see it: ``v`` itself when it is one value
+    for every config, else a (G·N,) tensor of each row's config's value."""
+    return _expanded(ec, v, dtype, ec.n_slots) if isinstance(v, tuple) else v
+
+
+def per_node(ec: EngineConfig, v, dtype=torch.int32):
+    """A knob per simulated node of the batch (G·n_nodes,), or ``v`` itself."""
+    return _expanded(ec, v, dtype, ec.n_nodes) if isinstance(v, tuple) else v
+
+
+def per_config(ec: EngineConfig, v, dtype=torch.int32):
+    """A knob per config (G,), or ``v`` itself."""
+    return _expanded(ec, v, dtype, 1) if isinstance(v, tuple) else v
+
+
+@functools.lru_cache(maxsize=256)
+def stage_primitive(ec: EngineConfig, stage: int):
+    """The stage's primitive (RPC / ONE_SIDED): an int, or (G·N,) int32."""
+    return per_row(ec, ec.hybrid[stage])
+
+
+@functools.lru_cache(maxsize=256)
+def stage_is_rpc(ec: EngineConfig, stage: int):
+    """Whether the stage runs over RPC: a Python bool, or (G·N,) bool."""
+    v = ec.hybrid[stage]
+    if isinstance(v, tuple):
+        return per_row(ec, tuple(x == RPC for x in v), torch.bool)
+    return v == RPC
+
+
+@functools.lru_cache(maxsize=64)
+def nic_unit(ec: EngineConfig, cm: CostModel, per: int):
+    """The one-sided queueing unit (``cm.nic_unit()``, float32) repeated
+    ``per`` times for each config, when ``cm.qp_pressure`` differs by
+    config; else None (the one value applies)."""
+    if not isinstance(cm.qp_pressure, tuple):
+        return None
+    return torch.from_numpy(np.asarray(cm.nic_unit(), np.float32)).to(ec.device).repeat_interleave(per)
+
+
+@functools.lru_cache(maxsize=64)
+def _nic_cap(ec: EngineConfig, cm: CostModel):
+    """One-sided verbs a node's RNIC serves per tick (the reference's
+    float32 capacity truncated to int32): an int, or (G·n_nodes,) int32
+    when ``cm.qp_pressure`` differs by config."""
+    nic = np.asarray(cm.nic_eff_cap(), np.float32).astype(np.int32)
+    if nic.ndim == 0:
+        return int(nic)
+    return torch.from_numpy(nic).to(ec.device).repeat_interleave(ec.n_nodes)
 
 
 # ---------------------------------------------------------------------------
@@ -97,7 +207,7 @@ class Workload(NamedTuple):
 
 
 def init_state(ec: EngineConfig, wl: Workload) -> Dict[str, torch.Tensor]:
-    N, K, RW = ec.n_slots, ec.max_ops, wl.rw
+    G, N, K, RW = ec.n_configs, ec.n_configs * ec.n_slots, ec.max_ops, wl.rw
     dev = ec.device
 
     def z(*s):
@@ -109,8 +219,10 @@ def init_state(ec: EngineConfig, wl: Workload) -> Dict[str, torch.Tensor]:
     def zf(*s):
         return torch.zeros(s, dtype=torch.float32, device=dev)
 
+    ids = _ids(ec)
     st = {
-        "keys": z(N, K),
+        # a fresh slot's keys: key 0 of its own config (the reference's zeros)
+        "keys": ids.row0[:, None].expand(N, K).contiguous(),
         "is_w": zb(N, K),
         "valid": zb(N, K),
         "rvals": z(N, K, RW),
@@ -136,13 +248,13 @@ def init_state(ec: EngineConfig, wl: Workload) -> Dict[str, torch.Tensor]:
         "n_abort": z(N),
         "lat_sum": zf(N),
         "rt_sum": zf(N),
-        "stage_us": zf(N_STAGES),
-        "wait_us": zf(1),
+        "stage_us": zf(G * N_STAGES),
+        "wait_us": zf(G),
         "tick": z(1),
     }
     if ec.history_cap:
-        H = ec.history_cap
-        st["h_idx"] = z(1)
+        H = G * ec.history_cap
+        st["h_idx"] = z(G)
         st["h_keys"] = z(H, K)
         st["h_ver_r"] = z(H, K)
         st["h_ver_w"] = z(H, K)
@@ -153,35 +265,55 @@ def init_state(ec: EngineConfig, wl: Workload) -> Dict[str, torch.Tensor]:
     return st
 
 
+class Ids(NamedTuple):
+    """Per-row identity tensors of a run (all (G·N,) int32 or bool)."""
+
+    sid: torch.Tensor  # slot id within its config
+    node: torch.Tensor  # node within its config
+    lsid: torch.Tensor  # LOGICAL slot id (padding-invariant)
+    alive: Optional[torch.Tensor]  # live slot (None: the coroutine axis is unpadded)
+    cfg: torch.Tensor  # config index
+    row0: torch.Tensor  # first store row of the row's config
+    node0: torch.Tensor  # first batch node of the row's config
+
+
 # The id tensors below depend on the (frozen, hashable) config alone; the
 # reference's compiler folds them to constants, the port builds them once.
-@functools.lru_cache(maxsize=32)
-def _ids(ec: EngineConfig):
-    sid = torch.arange(ec.n_slots, dtype=torch.int32, device=ec.device)
+@functools.lru_cache(maxsize=64)
+def _ids(ec: EngineConfig) -> Ids:
+    dev, G, N = ec.device, ec.n_configs, ec.n_slots
+    sid = torch.arange(N, dtype=torch.int32, device=dev).repeat(G)
     node = sid // ec.coroutines
-    if ec.active_coroutines is None:
+    cfg = torch.arange(G, dtype=torch.int32, device=dev).repeat_interleave(N)
+    act = ec.active_coroutines
+    if act is None:
         lsid, alive = sid, None
     else:
         c = sid % ec.coroutines
-        lsid, alive = node * int(ec.active_coroutines) + c, c < int(ec.active_coroutines)
-    return sid, node, lsid, alive
+        act = per_row(ec, act)
+        lsid, alive = node * act + c, c < act
+    return Ids(sid, node, lsid, alive, cfg, cfg * ec.n_records, cfg * ec.n_nodes)
 
 
-@functools.lru_cache(maxsize=32)
+@functools.lru_cache(maxsize=64)
 def _op_index(ec: EngineConfig, k: int):
-    lsid = _ids(ec)[2]
+    lsid = _ids(ec).lsid
     return lsid[:, None] * k + torch.arange(k, dtype=torch.int32, device=ec.device)[None, :]
 
 
-@functools.lru_cache(maxsize=32)
-def _slot_keys(ec: EngineConfig):
-    """``fold_in(PRNGKey(seed), lsid)``: each slot's RNG stream key."""
-    return prng.fold_in(prng.prng_key(ec.seed, ec.device), _ids(ec)[2])
+@functools.lru_cache(maxsize=64)
+def slot_keys(ec: EngineConfig):
+    """``fold_in(PRNGKey(seed), lsid)``: each slot's RNG stream key (G·N, 2)."""
+    lsid = _ids(ec).lsid
+    if not isinstance(ec.seed, tuple):
+        return prng.fold_in(prng.prng_key(ec.seed, ec.device), lsid)
+    key0 = torch.stack([prng.prng_key(s) for s in ec.seed]).to(ec.device)
+    return prng.fold_in(key0.repeat_interleave(ec.n_slots, dim=0), lsid)
 
 
 def slot_ids(ec: EngineConfig):
-    sid, node, _, _ = _ids(ec)
-    return sid, node  # (slot, node)
+    ids = _ids(ec)
+    return ids.sid, ids.node  # (slot, node)
 
 
 def logical_ids(ec: EngineConfig):
@@ -191,37 +323,58 @@ def logical_ids(ec: EngineConfig):
     (node * active_coroutines + coroutine).  ``alive`` is None when the
     coroutine axis is unpadded.
     """
-    _, node, lsid, alive = _ids(ec)
-    return lsid, node, alive
+    ids = _ids(ec)
+    return ids.lsid, ids.node, ids.alive
 
 
 def alive_mask(ec: EngineConfig):
-    """(n_slots,) bool of live slots, or None when nothing is padded."""
-    return _ids(ec)[3]
+    """(G·N,) bool of live slots, or None when nothing is padded."""
+    return _ids(ec).alive
 
 
 def op_index(ec: EngineConfig, k: int):
-    """(n_slots, k) logical flat op index ``lsid * k + op``."""
+    """(G·N, k) logical flat op index ``lsid * k + op``."""
     return _op_index(ec, k)
 
 
 def physical_keys(ec: EngineConfig, keys):
     """Map workload-generated LOGICAL keys onto the padded store layout:
-    node k // aR gets physical row ``node * records_per_node + k % aR``."""
+    node k // aR gets physical row ``node * records_per_node + k % aR``
+    (within the key's config)."""
     if ec.active_records_per_node is None:
         return keys
-    a_r = int(ec.active_records_per_node)
+    a_r = per_row(ec, ec.active_records_per_node)
+    if isinstance(a_r, torch.Tensor):
+        a_r = a_r[:, None]
     return (keys // a_r) * ec.records_per_node + keys % a_r
+
+
+def local_keys(ec: EngineConfig, keys):
+    """Store rows (G·N, K) -> each config's own key (the reference's keys)."""
+    row0 = _ids(ec).row0
+    return keys - row0[:, None]
+
+
+def draw_txns(ec: EngineConfig, wl: Workload, keys):
+    """Every slot's transaction from its PRNG key (G·N, 2): (store rows,
+    is_w, valid), each (G·N, K).  The workload draws LOGICAL keys over its
+    config's records; they are mapped onto the padded layout and offset to
+    the config's rows.  A run of one config has no per-config knob, so its
+    workload is called as the reference's, ``gen(keys, node, slot)``."""
+    _, node, lsid, _, _, row0, _ = _ids(ec)
+    if ec.n_configs == 1:
+        rows, is_w, valid = wl.gen(keys, node, lsid)
+    else:
+        rows, is_w, valid = wl.gen(keys, node, lsid, functools.partial(per_row, ec))
+    return physical_keys(ec, rows) + row0[:, None], is_w, valid
 
 
 def regen_txns(ec: EngineConfig, wl: Workload, st: Dict, mask, *, new_ts=True) -> Dict:
     """Generate fresh transactions for slots in `mask` (LOGICAL ids only)."""
-    lsid, node, alive = logical_ids(ec)
+    lsid, _, alive = logical_ids(ec)
     if alive is not None:
         mask = mask & alive
-    txn_keys = prng.fold_in(_slot_keys(ec), st["txn_no"])
-    keys, is_w, valid = wl.gen(txn_keys, node, lsid)
-    keys = physical_keys(ec, keys)
+    keys, is_w, valid = draw_txns(ec, wl, prng.fold_in(slot_keys(ec), st["txn_no"]))
     st = dict(st)
     m2 = mask[:, None]
     st["keys"] = torch.where(m2, keys, st["keys"])
@@ -256,48 +409,62 @@ def txn_ts(st) -> TS:
 # ---------------------------------------------------------------------------
 
 
-def service_ops(ec: EngineConfig, cm: CostModel, st: Dict, op_mask, primitive_is_rpc: bool, salt: int):
+def service_ops(ec: EngineConfig, cm: CostModel, st: Dict, op_mask, primitive_is_rpc, salt: int):
     """Which requested ops get served this tick, given per-node capacities.
 
-    op_mask (N,K) bool: ops wanting a round this tick.  Returns
-    (served (N,K), dest_load (N,K) float32: same-plane load at each op's
-    destination).  Requests rank within (destination, plane) by a hashed
-    arrival priority; the sort is stable, as the reference's.
+    op_mask (G·N, K) bool: ops wanting a round this tick;
+    ``primitive_is_rpc`` a Python bool or (G·N,) bool.  Returns (served
+    (G·N, K), dest_load (G·N, K) float32: same-plane load at each op's
+    destination).  Requests rank within (config, destination, plane) by a
+    hashed arrival priority; the sort is stable, as the reference's, and
+    runs along each config's row, so the int32 sort key never holds the
+    config.
     """
     N, K = op_mask.shape
+    G = ec.n_configs
     dev = op_mask.device
-    keys_f = st["keys"].reshape(-1)
+    ids = _ids(ec)
     active = op_mask.reshape(-1)
-    dest = torch.clamp(keys_f // ec.records_per_node, 0, ec.n_nodes - 1)
-    plane = int(bool(primitive_is_rpc))
+    dest = torch.clamp(local_keys(ec, st["keys"]).reshape(-1) // ec.records_per_node, 0, ec.n_nodes - 1)
+    bdest = dest + per_op(ids.node0, K)  # node of the batch
+    if isinstance(primitive_is_rpc, torch.Tensor):
+        plane = per_op(primitive_is_rpc.to(torch.int32), K)
+    else:
+        plane = int(bool(primitive_is_rpc))
 
     # execution-phase co-routines starve their node's RPC handler (Fig. 9)
-    _, node, _ = logical_ids(ec)
-    exec_load = torch.zeros((ec.n_nodes,), dtype=torch.int32, device=dev).index_add(
+    node = ids.node + ids.node0
+    exec_load = torch.zeros((G * ec.n_nodes,), dtype=torch.int32, device=dev).index_add(
         0, node, (st["exec_left"] > 0).to(torch.int32)
     )
-    rpc_cap = torch.clamp(cm.handler_cap - exec_load * max(1, ec.exec_ticks), min=1)
-    nic_cap = int(np.float32(cm.nic_eff_cap()))
+    et = per_node(ec, ec.exec_ticks)
+    et = torch.clamp(et, min=1) if isinstance(et, torch.Tensor) else max(1, et)
+    rpc_cap = torch.clamp(cm.handler_cap - exec_load * et, min=1)
+    nic_cap = _nic_cap(ec, cm)
+    if isinstance(nic_cap, torch.Tensor):
+        nic_cap = nic_cap[bdest]
 
     prio = hash_prio(op_index(ec, K).reshape(-1) + per_op(st["ts_lo"], K), salt)
     group = dest * 2 + plane
-    sort_key = torch.where(active, group * (2**20) + (prio & (2**20 - 1)), 2**30)
-    order = torch.argsort(sort_key, stable=True)
+    sort_key = torch.where(active, group * (2**20) + (prio & (2**20 - 1)), 2**30).view(G, -1)
+    order = torch.argsort(sort_key, dim=1, stable=True)
     # rank within group via the running start of each group's sorted run
-    g_sorted = group[order]
+    g_sorted = group.view(G, -1).gather(1, order)
     first = torch.ones_like(g_sorted, dtype=torch.bool)
-    first[1:] = g_sorted[1:] != g_sorted[:-1]
-    idx_in_sorted = torch.arange(N * K, dtype=torch.int32, device=dev)
-    seg_start = torch.cummax(torch.where(first, idx_in_sorted, 0), dim=0).values
-    rank = torch.empty_like(idx_in_sorted)
-    rank[order] = idx_in_sorted - seg_start
+    first[:, 1:] = g_sorted[:, 1:] != g_sorted[:, :-1]
+    idx_in_sorted = torch.arange(g_sorted.shape[1], dtype=torch.int32, device=dev).expand_as(g_sorted)
+    seg_start = torch.cummax(torch.where(first, idx_in_sorted, 0), dim=1).values
+    rank = torch.empty_like(sort_key).scatter_(1, order, idx_in_sorted - seg_start).view(-1)
 
-    cap = rpc_cap[dest] if plane else nic_cap
+    if isinstance(plane, int):
+        cap = rpc_cap[bdest] if plane else nic_cap
+    else:
+        cap = torch.where(plane > 0, rpc_cap[bdest], nic_cap)
     served = active & (rank < cap)
 
     # same-plane per-destination load (for queue-delay accounting)
-    slot = dest.long() * 2 + plane
-    load = torch.zeros((ec.n_nodes * 2,), dtype=torch.int32, device=dev).index_add(
+    slot = bdest.long() * 2 + plane
+    load = torch.zeros((G * ec.n_nodes * 2,), dtype=torch.int32, device=dev).index_add(
         0, slot, active.to(torch.int32)
     )
     op_load = load[slot].to(torch.float32)
@@ -307,17 +474,24 @@ def service_ops(ec: EngineConfig, cm: CostModel, st: Dict, op_mask, primitive_is
 def base_time(ec: EngineConfig, cm: CostModel, st: Dict, canon_stage) -> Dict:
     """Per-tick base time: every active txn spends tick_us in its stage.
 
-    canon_stage (N,) int32: canonical cost-stage id of each active txn
+    canon_stage (G·N,) int32: canonical cost-stage id of each active txn
     (negative => inactive).
     """
     st = dict(st)
     active = canon_stage >= 0
     tick = torch.where(active, cm.tick_us, 0.0)
     st["lat_us"] = st["lat_us"] + tick
+    G = ec.n_configs
+    canon_stage = canon_stage + _ids(ec).cfg * N_STAGES
     st["stage_us"] = _scatter_drop(
-        st["stage_us"], torch.where(active, canon_stage, N_STAGES), tick, accumulate=True
+        st["stage_us"], torch.where(active, canon_stage, G * N_STAGES), tick, accumulate=True
     )
     return st
+
+
+def _nic_per_op(ec: EngineConfig, cm: CostModel):
+    unit = nic_unit(ec, cm, ec.n_slots)
+    return None if unit is None else unit[:, None]
 
 
 def account_round(
@@ -327,15 +501,19 @@ def account_round(
     stage_id: int,
     op_mask,
     op_load,
-    primitive: int,
+    primitive,
     bytes_per_op,
     n_verbs: int = 1,
 ) -> Dict:
     """Attribute one round's *extras* (beyond the tick base) per txn:
     (plane RTT - tick) + MMIO + wire bytes + destination queueing.  Also
-    counts the network round for the round-trip metric (Fig. 5)."""
+    counts the network round for the round-trip metric (Fig. 5).
+    ``primitive`` is an int or a (G·N,) int32 tensor of primitives."""
+    is_rpc = primitive == RPC
+    if isinstance(is_rpc, torch.Tensor):
+        is_rpc = is_rpc[:, None]
     per_op = cmod.round_latency_us(
-        cm, primitive == RPC, op_load, bytes_per_op, n_verbs=n_verbs, doorbell=ec.doorbell
+        cm, is_rpc, op_load, bytes_per_op, n_verbs=n_verbs, doorbell=ec.doorbell, nic_unit=_nic_per_op(ec, cm)
     ) - cm.tick_us
     per_op = torch.where(op_mask, per_op, float("-inf"))
     per_txn = per_op.amax(dim=1)  # outstanding requests overlap within a round
@@ -345,7 +523,8 @@ def account_round(
     st["lat_us"] = st["lat_us"] + per_txn
     st["rounds"] = st["rounds"] + txn_mask.to(torch.int32)
     stage_us = st["stage_us"].clone()
-    stage_us[stage_id] += per_txn.sum()
+    G = ec.n_configs
+    stage_us.view(G, N_STAGES)[:, stage_id] += per_txn.view(G, -1).sum(dim=1)
     st["stage_us"] = stage_us
     return st
 
@@ -398,7 +577,7 @@ def read_rows2(ec: EngineConfig, arr, keys, sel):
 
 def write_rows(ec: EngineConfig, arr, idx, vals, *, op: str = "set"):
     """Row scatter.  ``idx`` (M,) rows, with the drop sentinel
-    (>= n_records) for masked-off requests."""
+    (>= store_rows) for masked-off requests."""
     return _scatter_drop(arr, idx, vals, accumulate=op == "add")
 
 
@@ -412,15 +591,17 @@ def write_rows2(ec: EngineConfig, arr, idx, sel, vals, *, op: str = "set"):
 
 def arb_winner(ec: EngineConfig, keys, prio_hi, prio_lo, active):
     """Per-key CAS arbitration (the RNIC's serialization of one round):
-    scatter-min (torch plane) or the arbitration kernel (kernel plane),
-    the same lexicographic-min winners bitwise."""
-    return kops.cas_arbitrate(keys, prio_hi, prio_lo, active, ec.n_records, plane=ec.kernel_plane)
+    scatter-min (torch plane) or the arbitration kernel, one group per
+    config (kernel plane), the same lexicographic-min winners bitwise."""
+    return kops.cas_arbitrate(
+        keys, prio_hi, prio_lo, active, ec.store_rows, plane=ec.kernel_plane, groups=ec.n_configs
+    )
 
 
 def scatter_ts_max(ec: EngineConfig, hi_arr, lo_arr, idx, ch, cl, active):
     """Lexicographic scatter-max of (ch, cl) timestamps into a store TS pair
     (MVCC rts bump, SUNDIAL lease renewal)."""
-    r = ec.n_records
+    r = ec.store_rows
     li = torch.clamp(idx, max=r).long()
 
     def seg_max(vals):
@@ -454,7 +635,7 @@ def try_lock(ec: EngineConfig, store, st, op_mask, prio_hi, prio_lo):
     new_hi = per_op(ts.hi, K)
     new_lo = per_op(ts.lo, K)
     store = dict(store)
-    idx_w = torch.where(wf, keys_f, ec.n_records)
+    idx_w = torch.where(wf, keys_f, ec.store_rows)
     store["lock_hi"] = write_rows(ec, store["lock_hi"], idx_w, torch.where(wf, new_hi, 0))
     store["lock_lo"] = write_rows(ec, store["lock_lo"], idx_w, torch.where(wf, new_lo, 0))
     return won, store
@@ -465,7 +646,7 @@ def release_locks(ec: EngineConfig, store, st, rel_mask):
     keys_f = st["keys"].reshape(-1)
     m = (rel_mask & st["locked"]).reshape(-1)
     store = dict(store)
-    idx = torch.where(m, keys_f, ec.n_records)
+    idx = torch.where(m, keys_f, ec.store_rows)
     store["lock_hi"] = write_rows(ec, store["lock_hi"], idx, 0)
     store["lock_lo"] = write_rows(ec, store["lock_lo"], idx, 0)
     return store
@@ -477,11 +658,14 @@ def finish_commit(ec: EngineConfig, cm: CostModel, st: Dict, mask) -> Dict:
     st["lat_sum"] = st["lat_sum"] + torch.where(mask, st["lat_us"], 0.0)
     st["rt_sum"] = st["rt_sum"] + torch.where(mask, st["rounds"].to(torch.float32), 0.0)
     if ec.history_cap:
-        H = ec.history_cap
-        offs = torch.cumsum(mask.to(torch.int32), dim=0, dtype=torch.int32) - 1
-        row = torch.where(mask, st["h_idx"][0] + offs, H)  # drop when full
-        row = torch.where(row < H, row, H)
-        st["h_keys"] = _scatter_drop(st["h_keys"], row, st["keys"])
+        # one history of H rows per config: config g's rows g*H .. g*H + H - 1
+        G, H = ec.n_configs, ec.history_cap
+        m = mask.view(G, -1).to(torch.int32)
+        offs = (torch.cumsum(m, dim=1, dtype=torch.int32) - 1).view(-1)
+        cfg = _ids(ec).cfg
+        row = torch.where(mask, st["h_idx"][cfg] + offs, H)
+        row = torch.where(row < H, row + cfg * H, G * H)  # drop when full
+        st["h_keys"] = _scatter_drop(st["h_keys"], row, local_keys(ec, st["keys"]))
         st["h_ver_r"] = _scatter_drop(st["h_ver_r"], row, st["ver_seen"])
         ver_w = st["ver_seen"] + st["is_w"].to(torch.int32)
         st["h_ver_w"] = _scatter_drop(st["h_ver_w"], row, ver_w)
@@ -489,7 +673,7 @@ def finish_commit(ec: EngineConfig, cm: CostModel, st: Dict, mask) -> Dict:
         st["h_valid"] = _scatter_drop(st["h_valid"], row, st["valid"])
         st["h_ts_hi"] = _scatter_drop(st["h_ts_hi"], row, st["ts_hi"])
         st["h_ts_lo"] = _scatter_drop(st["h_ts_lo"], row, st["ts_lo"])
-        st["h_idx"] = st["h_idx"] + mask.sum(dtype=torch.int32)
+        st["h_idx"] = st["h_idx"] + m.sum(dim=1, dtype=torch.int32)
     return st
 
 
@@ -512,19 +696,20 @@ def run(
     n_ticks: int,
     warmup: int = 0,
     *,
-    ticks_active: Optional[int] = None,
+    ticks_active: Optional[Knob] = None,
 ):
     """Run the engine; returns (final_state, final_store, metrics dict).
 
-    ``ticks_active`` (None = ``n_ticks``) runs only the first
-    ``ticks_active`` measured ticks: the reference freezes its whole carry
-    on the ticks past ``warmup + ticks_active``, which is the same as
-    stopping the loop there.
+    ``ticks_active`` (None = ``n_ticks``; an int, or a tuple of one per
+    config) runs only the first ``ticks_active`` measured ticks of each
+    config: on the ticks past ``warmup + ticks_active[g]`` config g's
+    whole carry, store included, stays as it was, as the reference's
+    freezes, and the loop ends once no config is live.
     """
     from repro_torch.core.registry import protocol_family
 
     store = init_store(
-        protocol_family(ec.protocol), ec.n_records, wl.rw, wl.init_value,
+        protocol_family(ec.protocol), ec.store_rows, wl.rw, wl.init_value,
         n_versions=ec.mvcc_slots, device=ec.device,
     )
     st = init_state(ec, wl)
@@ -541,26 +726,82 @@ def run(
         # reset counters after warmup
         for k in ("n_commit", "n_abort", "lat_sum", "rt_sum", "stage_us"):
             st[k] = torch.zeros_like(st[k])
-    n_live = n_ticks if ticks_active is None else max(0, min(int(ticks_active), n_ticks))
-    for t in range(warmup, warmup + n_live):
-        st, store = tick(st, store, t)
+    live = ticks_active if isinstance(ticks_active, tuple) else (n_ticks if ticks_active is None else ticks_active,)
+    live = tuple(max(0, min(int(n), n_ticks)) for n in live)
+    for t in range(max(live)):
+        new_st, new_store = tick(st, store, warmup + t)
+        if min(live) <= t:  # some config's ticks are over: its carry stays
+            keep = per_config(ec, tuple(n > t for n in live), torch.bool)
+            new_st, new_store = _freeze(ec, keep, new_st, st), _freeze(ec, keep, new_store, store)
+        st, store = new_st, new_store
     n_eff = n_ticks if ticks_active is None else ticks_active
     return st, store, summarize(ec, cm, st, n_eff)
 
 
-def summarize(ec: EngineConfig, cm: CostModel, st: Dict, n_ticks: int) -> Dict[str, Any]:
-    """Run metrics as tensors on the run's device (float32 ratios computed
-    as the reference computes them)."""
-    commits = st["n_commit"].sum(dtype=torch.int32)
-    aborts = st["n_abort"].sum(dtype=torch.int32)
-    sim_us = n_ticks * cm.tick_us
+# state tensors that the configs of a batch share; every other state or
+# store tensor's leading axis is (G·X), config g's rows g·X .. g·X + X - 1
+SHARED = frozenset({"tick"})
+
+
+def _rows_per_config(ec: EngineConfig, k: str, v) -> int:
+    """X of tensor ``k``'s leading (G·X) axis."""
+    if v.shape[0] % ec.n_configs:
+        raise ValueError(f"{k}: leading size {v.shape[0]} is no multiple of the {ec.n_configs} configs")
+    return v.shape[0] // ec.n_configs
+
+
+def _freeze(ec: EngineConfig, keep, new: Dict, old: Dict) -> Dict:
+    """``new`` where ``keep`` (G,) holds, ``old`` elsewhere: every tensor
+    takes its config's choice, a tensor in SHARED takes ``new``."""
+    G = ec.n_configs
+    out = {}
+    for k, v in new.items():
+        if k in SHARED:
+            out[k] = v
+            continue
+        shape = (G, _rows_per_config(ec, k, v)) + tuple(v.shape[1:])
+        m = keep.view((G,) + (1,) * v.dim())
+        out[k] = torch.where(m, v.reshape(shape), old[k].reshape(shape)).reshape(v.shape)
+    return out
+
+
+def config_slice(ec: EngineConfig, tensors: Dict, g: int) -> Dict:
+    """Config g's part of a batched run's state or store dict, laid out as
+    a run of that config alone: its rows of every tensor (a tensor in
+    SHARED whole), with ``keys`` the config's own keys (``st["keys"]``
+    holds store rows; the history holds own keys already).  The validator
+    (:mod:`repro_torch.core.validate`) checks each config of a batch
+    through it."""
+    out = {}
+    for k, v in tensors.items():
+        if k in SHARED:
+            out[k] = v
+            continue
+        n = _rows_per_config(ec, k, v)
+        out[k] = v[g * n:(g + 1) * n]
+    if "keys" in out and "stage" in out:
+        out["keys"] = out["keys"] - g * ec.n_records
+    return out
+
+
+def summarize(ec: EngineConfig, cm: CostModel, st: Dict, n_ticks: Knob) -> Dict[str, Any]:
+    """Run metrics as tensors on the run's device, each with a leading
+    config axis (G, ...) (float32 ratios computed as the reference computes
+    them).  ``n_ticks`` is an int, or a tuple of one per config."""
+    G = ec.n_configs
+    commits = st["n_commit"].view(G, -1).sum(dim=1, dtype=torch.int32)
+    aborts = st["n_abort"].view(G, -1).sum(dim=1, dtype=torch.int32)
+    if isinstance(n_ticks, tuple):
+        sim_us = torch.tensor(n_ticks, dtype=torch.float32, device=commits.device) * cm.tick_us
+    else:
+        sim_us = n_ticks * cm.tick_us
     per_commit = torch.clamp(commits, min=1)
     return {
         "commits": commits,
         "aborts": aborts,
         "throughput_mtps": commits / sim_us,  # million txns/sec (txns per us)
-        "avg_latency_us": st["lat_sum"].sum() / per_commit,
+        "avg_latency_us": st["lat_sum"].view(G, -1).sum(dim=1) / per_commit,
         "abort_rate": aborts / torch.clamp(commits + aborts, min=1),
-        "avg_round_trips": st["rt_sum"].sum() / per_commit,
-        "stage_us_per_commit": st["stage_us"] / per_commit,
+        "avg_round_trips": st["rt_sum"].view(G, -1).sum(dim=1) / per_commit,
+        "stage_us_per_commit": st["stage_us"].view(G, N_STAGES) / per_commit[:, None],
     }

@@ -115,20 +115,28 @@ def uniform(keys, shape: Sequence[int] = (), minval: float = 0.0, maxval: float 
     return uniform_from_bits(random_bits(keys, shape), minval, maxval)
 
 
-def randint_from_bits(higher, lower, minval: int, maxval: int) -> torch.Tensor:
+def randint_from_bits(higher, lower, minval, maxval) -> torch.Tensor:
     """``randint``'s fold of two 32-bit draws into [minval, maxval), int32.
 
     The reference's ``rem(higher, span) * multiplier + rem(lower, span)``
-    wraps mod 2**32, and so does the squared multiplier.
+    wraps mod 2**32, and so does the squared multiplier.  The bounds are
+    ints, or integer tensors broadcastable to the draws (a batch whose
+    configs draw over different ranges, as the reference's traced bounds).
     """
-    minval, maxval = int(minval), int(maxval)
-    if not (_INT32_MIN <= minval <= _INT32_MAX and _INT32_MIN <= maxval <= _INT32_MAX):
-        raise ValueError(f"randint: bounds [{minval}, {maxval}) must lie in int32")
-    span = 1 if maxval <= minval else (maxval - minval) & _M
-    multiplier = ((2**16 % span) ** 2 & _M) % span
+    if isinstance(minval, torch.Tensor) or isinstance(maxval, torch.Tensor):
+        lo = torch.as_tensor(minval, device=higher.device).to(torch.int64)
+        hi = torch.as_tensor(maxval, device=higher.device).to(torch.int64)
+        span = torch.where(hi <= lo, 1, (hi - lo) & _M)
+        multiplier = ((2**16 % span) ** 2 & _M) % span
+    else:
+        lo, hi = int(minval), int(maxval)
+        if not (_INT32_MIN <= lo <= _INT32_MAX and _INT32_MIN <= hi <= _INT32_MAX):
+            raise ValueError(f"randint: bounds [{lo}, {hi}) must lie in int32")
+        span = 1 if hi <= lo else (hi - lo) & _M
+        multiplier = ((2**16 % span) ** 2 & _M) % span
     offset = ((higher % span) * multiplier + lower % span) & _M
     offset = offset % span
-    out = (offset + minval + 2**31) & _M  # int32 add that wraps, as the reference's
+    out = (offset + lo + 2**31) & _M  # int32 add that wraps, as the reference's
     return (out - 2**31).to(torch.int32)
 
 

@@ -149,7 +149,7 @@ def _commit_effect(ec, cm, wl, st, store, in_c, served, salt):
     )
     oldest = _oldest_slot(TS(wh, wl_))  # (N,K)
     keys_f = st["keys"].reshape(-1)
-    idx_k = torch.where(served.reshape(-1), keys_f, ec.n_records)
+    idx_k = torch.where(served.reshape(-1), keys_f, ec.store_rows)
     idx_s = oldest.reshape(-1)
     store = dict(store)
     store["wts_hi"] = eng.write_rows2(ec, store["wts_hi"], idx_k, idx_s, eng.per_op(st["ts_hi"], K))
@@ -158,7 +158,7 @@ def _commit_effect(ec, cm, wl, st, store, in_c, served, salt):
     store["vver"] = eng.write_rows2(ec, store["vver"], idx_k, idx_s, (ver + 1).reshape(-1))
     store["ver"] = eng.write_rows(ec, store["ver"], idx_k, 1, op="add")
     rel = (served & st["locked"]).reshape(-1)
-    idx_r = torch.where(rel, keys_f, ec.n_records)
+    idx_r = torch.where(rel, keys_f, ec.store_rows)
     store["lock_hi"] = eng.write_rows(ec, store["lock_hi"], idx_r, 0)
     store["lock_lo"] = eng.write_rows(ec, store["lock_lo"], idx_r, 0)
     st["locked"] = st["locked"] & ~served
@@ -209,7 +209,7 @@ def _rts_effect(ec, cm, wl, st, store, in_t, served, salt):
     # lexicographic scatter-max of ctts into rts
     K = st["keys"].shape[1]
     sf = served.reshape(-1)
-    idx = torch.where(sf, st["keys"].reshape(-1), ec.n_records)
+    idx = torch.where(sf, st["keys"].reshape(-1), ec.store_rows)
     store = dict(store)
     store["rts_hi"], store["rts_lo"] = eng.scatter_ts_max(
         ec, store["rts_hi"], store["rts_lo"], idx, eng.per_op(st["ts_hi"], K), eng.per_op(st["ts_lo"], K), sf

@@ -17,7 +17,6 @@ from repro_torch.core import engine as eng
 from repro_torch.core import registry
 from repro_torch.core import rounds
 from repro_torch.core.costmodel import (
-    RPC,
     ST_COMMIT,
     ST_EXEC,
     ST_FETCH,
@@ -63,7 +62,7 @@ def _commit_effect(ec, cm, wl, st, store, in_c, served, salt):
     """Write back WS with wts = rts = commit_tts, then unlock."""
     st = dict(st)
     keys_f = st["keys"].reshape(-1)
-    idx = torch.where(served.reshape(-1), keys_f, ec.n_records)
+    idx = torch.where(served.reshape(-1), keys_f, ec.store_rows)
     K = st["keys"].shape[1]
     ch = eng.per_op(st["commit_hi"], K)
     cl = eng.per_op(st["ts_lo"], K)  # writer id in lo for wts uniqueness
@@ -75,7 +74,7 @@ def _commit_effect(ec, cm, wl, st, store, in_c, served, salt):
     store["rts_lo"] = eng.write_rows(ec, store["rts_lo"], idx, cl)
     store["ver"] = eng.write_rows(ec, store["ver"], idx, 1, op="add")
     rel = (served & st["locked"]).reshape(-1)
-    idx_r = torch.where(rel, keys_f, ec.n_records)
+    idx_r = torch.where(rel, keys_f, ec.store_rows)
     store["lock_hi"] = eng.write_rows(ec, store["lock_hi"], idx_r, 0)
     store["lock_lo"] = eng.write_rows(ec, store["lock_lo"], idx_r, 0)
     st["locked"] = st["locked"] & ~served
@@ -93,8 +92,11 @@ def _validate_effect(ec, cm, wl, st, store, in_v, served, salt):
     needs = rs & _lex_lt(rts_now.hi, rts_now.lo, cm_h, cm_l)
     # one-sided renewal: round 1 = atomic read, round 2 = CAS (substep);
     # RPC renewal: a single handler call
-    rounds_needed = 1 if ec.hybrid[ST_VALIDATE] == RPC else 2
-    final = st["substep"] >= (rounds_needed - 1)
+    is_rpc = eng.stage_is_rpc(ec, ST_VALIDATE)
+    if isinstance(is_rpc, torch.Tensor):  # the run's configs differ
+        final = st["substep"] >= torch.where(is_rpc, 0, 1)
+    else:
+        final = st["substep"] >= (0 if is_rpc else 1)  # rounds needed - 1
     eff = served & final[:, None]
     wts_now = _wts(ec, store, st["keys"])
     lh, ll = eng.read_rows_many(ec, (store["lock_hi"], store["lock_lo"]), st["keys"])
@@ -105,7 +107,7 @@ def _validate_effect(ec, cm, wl, st, store, in_v, served, salt):
     bad = eff & ((needs & ~renew_ok) | ~unchanged)
     # CAS rts -> commit_tts (lexicographic scatter-max, as MVCC)
     ok_eff = (eff & renew_ok).reshape(-1)
-    idx = torch.where(ok_eff, st["keys"].reshape(-1), ec.n_records)
+    idx = torch.where(ok_eff, st["keys"].reshape(-1), ec.store_rows)
     K = st["keys"].shape[1]
     store = dict(store)
     store["rts_hi"], store["rts_lo"] = eng.scatter_ts_max(

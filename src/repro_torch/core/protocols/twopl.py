@@ -19,7 +19,6 @@ from repro_torch.core import registry
 from repro_torch.core import rounds
 from repro_torch.core.arbiter import hash_prio
 from repro_torch.core.costmodel import (
-    RPC,
     ST_COMMIT,
     ST_EXEC,
     ST_LOCK,
@@ -38,13 +37,18 @@ def _lock_effect(wait_die: bool):
     one-sided waiters re-post CAS+READ every tick."""
 
     def effect(ec, cm, wl, st, store, in_l, served, salt):
-        is_rpc_l = ec.hybrid[ST_LOCK] == RPC
+        is_rpc_l = eng.stage_is_rpc(ec, ST_LOCK)
         st = dict(st)
         pend = in_l[:, None] & st["valid"] & ~st["locked"]
-        acc = served if is_rpc_l else torch.zeros_like(served)
         # under a parked RPC waiter st["served"] stays set, while the
         # one-sided plane never accumulates it: pend re-posts every tick
-        contenders = pend & (st["served"] | acc) if is_rpc_l else served
+        if isinstance(is_rpc_l, torch.Tensor):  # the run's configs differ
+            rpc = is_rpc_l[:, None]
+            acc = served & rpc
+            contenders = torch.where(rpc, pend & (st["served"] | acc), served)
+        else:
+            acc = served if is_rpc_l else torch.zeros_like(served)
+            contenders = pend & (st["served"] | acc) if is_rpc_l else served
 
         if wait_die:
             prio_hi = st["ts_hi"][:, None].expand(contenders.shape)

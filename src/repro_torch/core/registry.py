@@ -2,9 +2,9 @@
 
 A protocol is one module plus one :func:`register_protocol` call; every
 front-door surface picks it up by name.  The port registers nowait,
-waitdie, occ, mvcc and sundial when ``repro_torch.core.protocols`` is imported;
-:func:`get_protocol` triggers that import lazily.  Only the dense run is
-ported: ``RunHooks.node_run`` raises.
+waitdie, occ, mvcc, sundial and calvin when ``repro_torch.core.protocols``
+is imported; :func:`get_protocol` triggers that import lazily.  Only the
+dense run is ported: ``RunHooks.node_run`` raises (ROADMAP A.10).
 """
 from __future__ import annotations
 
@@ -25,7 +25,8 @@ class RunHooks(NamedTuple):
     """How the planner obtains metrics for one engine configuration:
     ``grid_run(entry, ec, cm, wl, *, ticks, warmup, ticks_active)`` and
     ``node_run(entry, ec, cm, wl, *, ticks, warmup, devices)``, each
-    returning the ``engine.summarize`` metrics dict."""
+    returning the ``engine.summarize`` metrics dict, every metric with a
+    leading config axis (``ec.n_configs``)."""
 
     grid_run: Callable[..., Dict]
     node_run: Callable[..., Dict]

@@ -14,9 +14,10 @@ doorbell batching on, ``EngineConfig.merge_stages`` set), completed
 transactions skip the intermediate stage and its wire bytes ride the
 absorbing stage's doorbell.
 
-The port runs one config at a time, so the hybrid coding is a tuple of
-Python ints and predicates on it are Python bools; predicates on state are
-tensors.
+A stage's primitive is one Python int when every config of the run codes
+it alike, and then the predicates on it are Python bools, as in a run of
+one config; where the run's configs differ they are (G·N,) tensors
+(``engine.stage_is_rpc``).  Predicates on state are tensors.
 """
 from __future__ import annotations
 
@@ -27,8 +28,6 @@ import torch
 
 from repro_torch.core import engine as eng
 from repro_torch.core.costmodel import (
-    ONE_SIDED,
-    RPC,
     ST_COMMIT,
     ST_LOG,
     ST_VALIDATE,
@@ -95,35 +94,52 @@ def merge_pairs(protocol: str) -> Tuple[Tuple[int, int], ...]:
     return MERGE_TABLE.get(protocol_family(protocol), MERGE_TABLE["default"])
 
 
-def _pair_on(ec: eng.EngineConfig, absorber: int, absorbed: int) -> bool:
-    """Raw pair predicate (ignoring precedence); off unless ``merge_stages``."""
+def _and(a, b):
+    """``a & b`` of Python bools or bool tensors (no tensor for two bools)."""
+    if isinstance(a, torch.Tensor) or isinstance(b, torch.Tensor):
+        return a & b
+    return a and b
+
+
+def _or(a, b):
+    if isinstance(a, torch.Tensor) or isinstance(b, torch.Tensor):
+        return a | b
+    return a or b
+
+
+def _not(a):
+    return ~a if isinstance(a, torch.Tensor) else not a
+
+
+def _pair_on(ec: eng.EngineConfig, absorber: int, absorbed: int):
+    """Raw pair predicate (ignoring precedence); off unless ``merge_stages``.
+    A Python bool, or (G·N,) bool where the run's configs differ."""
     if not (ec.merge_stages and ec.doorbell):
         return False
-    hy = ec.hybrid
-    return hy[absorber] == ONE_SIDED and hy[absorbed] == ONE_SIDED
+    return _and(_not(eng.stage_is_rpc(ec, absorber)), _not(eng.stage_is_rpc(ec, absorbed)))
 
 
 def log_rides(ec: eng.EngineConfig, st: Dict):
     """Which doorbell carries each txn's LOG bytes: ``(absorbed, by_v, by_c)``.
 
-    Each is a Python bool (same for every txn) or an (N,) bool tensor: the
-    VALIDATE→LOG pair only carries txns that post a validate round (a
+    Each is a Python bool (same for every txn) or an (G·N,) bool tensor:
+    the VALIDATE→LOG pair only carries txns that post a validate round (a
     non-empty read set); the others fall through to COMMIT.
     """
     by_v = False
     by_c = False
     for a, b in merge_pairs(ec.protocol):
-        if b != ST_LOG or not _pair_on(ec, a, b):
+        if b != ST_LOG:
+            continue
+        on = _pair_on(ec, a, b)
+        if on is False:
             continue
         if a == ST_VALIDATE:
-            has_rs = (st["valid"] & ~st["is_w"]).any(dim=1)
-            by_v = has_rs if by_v is False else by_v | has_rs
+            by_v = _or(by_v, _and(on, (st["valid"] & ~st["is_w"]).any(dim=1)))
         elif a == ST_COMMIT:
-            by_c = True
-    if isinstance(by_v, torch.Tensor):
-        by_c = ~by_v if by_c else torch.zeros_like(by_v)  # first registered pair claims it
-        return by_v | by_c, by_v, by_c
-    return by_c, by_v, by_c
+            by_c = _or(by_c, on)
+    by_c = _and(by_c, _not(by_v))  # the first registered pair claims the stage
+    return _or(by_v, by_c), by_v, by_c
 
 
 def _resolve_next(ec: eng.EngineConfig, spec: StageSpec, st: Dict):
@@ -152,7 +168,7 @@ def _stage_wire(ec: eng.EngineConfig, cm: CostModel, wl, spec: StageSpec, st: Di
             has_ws = (st["valid"] & st["is_w"]).any(dim=1)
             on = (has_ws & by_v)[:, None] & st["valid"] & ~st["is_w"]
         else:
-            on = st["is_w"] & (by_c[:, None] if isinstance(by_c, torch.Tensor) else by_c)
+            on = st["is_w"] & (by_c[:, None] if isinstance(by_c, torch.Tensor) else bool(by_c))
         nb = torch.where(on, extra, 0.0) + nb
     return nb, wc.n_verbs
 
@@ -167,7 +183,7 @@ def apply_commit(ec: eng.EngineConfig, store: Dict, st: Dict, eff, *, bump_seq: 
     (``bump_seq`` also advances OCC's validation sequence word)."""
     keys_f = st["keys"].reshape(-1)
     w_eff = (eff & st["is_w"]).reshape(-1)
-    idx_w = torch.where(w_eff, keys_f, ec.n_records)
+    idx_w = torch.where(w_eff, keys_f, ec.store_rows)
     store = dict(store)
     store["data"] = eng.write_rows(
         ec, store["data"], idx_w, st["wvals"].reshape(-1, st["wvals"].shape[-1])
@@ -176,7 +192,7 @@ def apply_commit(ec: eng.EngineConfig, store: Dict, st: Dict, eff, *, bump_seq: 
     if bump_seq:
         store["seq"] = eng.write_rows(ec, store["seq"], idx_w, 1, op="add")
     rel = (eff & st["locked"]).reshape(-1)
-    idx_r = torch.where(rel, keys_f, ec.n_records)
+    idx_r = torch.where(rel, keys_f, ec.store_rows)
     store["lock_hi"] = eng.write_rows(ec, store["lock_hi"], idx_r, 0)
     store["lock_lo"] = eng.write_rows(ec, store["lock_lo"], idx_r, 0)
     return store
@@ -262,10 +278,10 @@ def run_stage_round(
     ec: eng.EngineConfig, cm: CostModel, wl, st: Dict, store: Dict, spec: StageSpec, salt: int
 ) -> Tuple[Dict, Dict]:
     """One serviced network round for ``spec``: the full lifecycle."""
-    prim = ec.hybrid[spec.canon]
+    prim = eng.stage_primitive(ec, spec.canon)
     in_s = st["stage"] == spec.stage
     want = in_s[:, None] & spec.ops(ec, wl, st)
-    served, load = eng.service_ops(ec, cm, st, want, prim == RPC, salt)
+    served, load = eng.service_ops(ec, cm, st, want, eng.stage_is_rpc(ec, spec.canon), salt)
     out = spec.effect(ec, cm, wl, st, store, in_s, served, salt)
     st, store = dict(out.st), out.store
     nbytes, n_verbs = _stage_wire(ec, cm, wl, spec, st)
@@ -316,7 +332,7 @@ def run_stage_round(
         done = done & has_ws
     st["stage"] = torch.where(done, _resolve_next(ec, spec, st), st["stage"])
     if spec.start_exec:
-        st["exec_left"] = torch.where(done, wl.exec_ticks, st["exec_left"])
+        st["exec_left"] = torch.where(done, eng.per_row(ec, wl.exec_ticks), st["exec_left"])
     st["served"] = st["served"] & ~exit_mask[:, None]
     st["substep"] = torch.where(exit_mask, 0, st["substep"])
     return st, store
@@ -326,7 +342,7 @@ def _log_round(ec: eng.EngineConfig, cm: CostModel, wl, st: Dict, spec: StageSpe
     """Coordinator log to the replication group: one fire-and-forget round
     (no service arbitration; read-only txns advance for free).  Txns whose
     LOG bytes ride a doorbell were routed past this stage."""
-    prim = ec.hybrid[spec.canon]
+    prim = eng.stage_primitive(ec, spec.canon)
     in_g = st["stage"] == spec.stage
     ops = in_g[:, None] & st["is_w"] & st["valid"]
     load = torch.full(ops.shape, float(cm.n_backups), dtype=torch.float32, device=ops.device)

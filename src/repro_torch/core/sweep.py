@@ -1,21 +1,32 @@
-"""Sweep knobs and one engine run per config (subset of ``repro.core.sweep``).
+"""Batched sweep engine: a bucket of engine configurations as ONE run (port
+of ``repro.core.sweep``, dense layout).
 
-The reference vmaps a grid of knob settings through one compiled program;
-its batched grid is bitwise-equal to running each config on its own, which
-is what the port does.  This module keeps the reference's knob vocabulary
-and resolution rules (:func:`resolve_knobs` mirrors ``make_knobs``,
-:func:`run_one` mirrors ``_run_one``).
+The reference vmaps a grid of knob settings through one compiled program.
+The port writes the config axis out instead (``engine.EngineConfig.
+n_configs``): :func:`make_knobs` stacks the per-config knobs into arrays
+with a leading config axis, and :func:`_run_one` runs a whole bucket as
+one ``engine.run`` (or one CALVIN epoch loop) whose state carries that
+axis.  A knob that every config of a bucket shares stays one Python value
+(:func:`engine.uniform`), so a bucket of one config issues the host work
+of a single run, and a 2^6 hybrid sweep pays for both branches of a stage
+only where the codes differ.
+
+:func:`plan_buckets` groups configs that sweep the static shape axes
+(``coroutines``, ``records_per_node``, ``ticks``) into power-of-two
+buckets padded to the bucket's maximum, exactly as the reference does;
+the per-config ACTIVE extents ride as knobs, and padded slots, records
+and ticks are inert, so every row equals its unpadded run.
 """
 from __future__ import annotations
 
 import itertools
-from typing import Any, Dict, List, NamedTuple, Sequence, Tuple
+from typing import Any, Dict, Iterable, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 
 from repro_torch.core import registry
 from repro_torch.core.costmodel import N_HYBRID_STAGES, RPC, CostModel
-from repro_torch.core.engine import EngineConfig
+from repro_torch.core.engine import EngineConfig, uniform
 from repro_torch.workloads import make_workload
 
 # per-workload knob defaults, mirroring each factory's signature
@@ -24,12 +35,13 @@ YCSB_HOT_PROB = 0.10
 
 KNOB_KEYS = ("hybrid", "seed", "exec_ticks", "hot_prob", "qp_pressure")
 
-# static shape axes the reference buckets per config (not ported: ROADMAP A.9)
+# static shape axes that plan_buckets turns into per-config active extents;
+# ``ticks`` is the loop-length axis (dead ticks freeze a config's carry)
 STATIC_AXES = ("coroutines", "records_per_node", "ticks")
 
 
 class GridSpec(NamedTuple):
-    """Shape and program parameters shared by every config of a sweep."""
+    """Shape and program parameters shared by every config of a bucket."""
 
     protocol: str
     workload: str
@@ -48,13 +60,23 @@ class GridSpec(NamedTuple):
 
 
 class RunKnobs(NamedTuple):
-    """One config's per-run knobs, resolved to concrete Python values."""
+    """A bucket's per-run knobs, each a numpy array with a leading config
+    axis (the reference's dtypes).  ``coroutines_active`` /
+    ``records_active`` / ``ticks_active`` are the bucket-padding active
+    extents, None when the matching static axis is unpadded."""
 
-    hybrid: Tuple[int, ...]
-    seed: int
-    exec_ticks: int
-    hot_prob: float
-    qp_pressure: float
+    hybrid: np.ndarray  # int32 (G, N_HYBRID_STAGES)
+    seed: np.ndarray  # int32 (G,)
+    exec_ticks: np.ndarray  # int32 (G,)
+    hot_prob: np.ndarray  # float32 (G,)
+    qp_pressure: np.ndarray  # float32 (G,)
+    coroutines_active: Optional[np.ndarray] = None  # int32 (G,) live co-routines per node
+    records_active: Optional[np.ndarray] = None  # int32 (G,) live records per node
+    ticks_active: Optional[np.ndarray] = None  # int32 (G,) live measured ticks
+
+    @property
+    def n_configs(self) -> int:
+        return int(self.seed.shape[0])
 
 
 def normalize_hybrid(code) -> Tuple[int, ...]:
@@ -78,54 +100,178 @@ def grid_product(**axes: Sequence) -> List[Dict]:
     return [dict(zip(names, vals)) for vals in itertools.product(*(axes[n] for n in names))]
 
 
-def resolve_knobs(workload: str, config: Dict) -> RunKnobs:
-    """One config dict -> its knobs, omitted knobs taking the workload's
-    defaults; unknown keys raise, as in the reference's ``make_knobs``.
-    ``seed`` and ``qp_pressure`` take the reference's int32 / float32 types."""
-    c = dict(config)
-    hy = normalize_hybrid(c.pop("hybrid", (RPC,) * N_HYBRID_STAGES))
-    seed = int(np.int32(c.pop("seed", 0)))
-    et = c.pop("exec_ticks", None)
-    et = WL_EXEC_TICKS.get(workload, 1) if et is None else int(et)
-    hp = c.pop("hot_prob", None)
-    if hp is not None and workload != "ycsb":
-        raise TypeError(f"hot_prob is a ycsb-only knob; workload={workload!r}")
-    hp = YCSB_HOT_PROB if hp is None else float(hp)
-    qp = float(np.float32(c.pop("qp_pressure", 0.0)))
-    if c:
-        raise TypeError(f"unknown knob(s): {sorted(c)}; valid: {KNOB_KEYS}")
-    return RunKnobs(hybrid=hy, seed=seed, exec_ticks=et, hot_prob=hp, qp_pressure=qp)
+def make_knobs(workload: str, configs: Iterable[Dict]) -> RunKnobs:
+    """Stack per-config knob dicts into a batched RunKnobs.
+
+    Each config may set any of ``hybrid`` (tuple or int bitmask), ``seed``,
+    ``exec_ticks``, ``hot_prob``, ``qp_pressure``; omitted knobs take the
+    workload's defaults.
+    """
+    configs = list(configs)
+    if not configs:
+        raise ValueError("empty config grid: pass at least one knob dict")
+    rows = []
+    for c in configs:
+        c = dict(c)
+        hy = normalize_hybrid(c.pop("hybrid", (RPC,) * N_HYBRID_STAGES))
+        seed = int(c.pop("seed", 0))
+        et = c.pop("exec_ticks", None)
+        et = WL_EXEC_TICKS.get(workload, 1) if et is None else int(et)
+        hp = c.pop("hot_prob", None)
+        if hp is not None and workload != "ycsb":
+            raise TypeError(f"hot_prob is a ycsb-only knob; workload={workload!r}")
+        hp = YCSB_HOT_PROB if hp is None else float(hp)
+        qp = float(c.pop("qp_pressure", 0.0))
+        if c:
+            raise TypeError(f"unknown knob(s): {sorted(c)}; valid: {KNOB_KEYS}")
+        rows.append((hy, seed, et, hp, qp))
+    hy, seed, et, hp, qp = zip(*rows)
+    return RunKnobs(
+        hybrid=np.array(hy, np.int32),
+        seed=np.array(seed, np.int32),
+        exec_ticks=np.array(et, np.int32),
+        hot_prob=np.array(hp, np.float32),
+        qp_pressure=np.array(qp, np.float32),
+    )
+
+
+def _knob(a: Optional[np.ndarray]):
+    """A knob array as the engine takes it: None, one Python value when
+    every config shares it, else a tuple of one per config."""
+    return None if a is None else uniform(a.tolist())
 
 
 def engine_config(spec: GridSpec, kn: RunKnobs):
-    """The (EngineConfig, CostModel, Workload) triple of one config."""
-    cm = CostModel.tcp() if spec.tcp else CostModel(qp_pressure=kn.qp_pressure)
-    wkw: Dict[str, Any] = {"exec_ticks": kn.exec_ticks}
+    """The (EngineConfig, CostModel, Workload) triple of one bucket: its
+    configs' knobs ride the config axis."""
+    qp = _knob(kn.qp_pressure)
+    cm = CostModel.tcp() if spec.tcp else CostModel(qp_pressure=qp)
+    # bucket padding: the workload draws over the LOGICAL (active) record
+    # space; the engine owns the padded physical layout
+    ra = None if kn.records_active is None else tuple(kn.records_active.tolist())
+    n_records = spec.n_nodes * spec.records_per_node if ra is None else tuple(spec.n_nodes * r for r in ra)
+    et = _knob(kn.exec_ticks)
+    wkw: Dict[str, Any] = {"exec_ticks": et}
     if spec.workload == "ycsb":
-        wkw["hot_prob"] = kn.hot_prob
-    wl = make_workload(spec.workload, spec.n_nodes * spec.records_per_node, **wkw)
+        wkw["hot_prob"] = _knob(kn.hot_prob)
+    wl = make_workload(spec.workload, n_records, **wkw)
     ec = EngineConfig(
         protocol=spec.protocol,
         n_nodes=spec.n_nodes,
         coroutines=spec.coroutines,
         records_per_node=spec.records_per_node,
+        # the active extents stay tuples: the reference traces them whenever
+        # the axis is padded, and CALVIN's cost arithmetic follows that
+        active_coroutines=None if kn.coroutines_active is None else tuple(kn.coroutines_active.tolist()),
+        active_records_per_node=ra,
         rw=wl.rw,
         max_ops=wl.max_ops,
-        hybrid=kn.hybrid,
+        hybrid=tuple(uniform(col) for col in kn.hybrid.T.tolist()),
         doorbell=spec.doorbell,
         merge_stages=spec.merge_stages,
-        exec_ticks=kn.exec_ticks,
+        exec_ticks=et,
         history_cap=spec.history_cap,
         mvcc_slots=spec.mvcc_slots,
-        seed=kn.seed,
+        seed=_knob(kn.seed),
         kernel_plane=spec.kernel_plane,
         device=spec.device,
+        n_configs=kn.n_configs,
     )
     return ec, cm, wl
 
 
-def run_one(spec: GridSpec, kn: RunKnobs) -> Dict:
-    """One engine run; returns the ``engine.summarize`` metrics (tensors)."""
+def _run_one(spec: GridSpec, kn: RunKnobs) -> Dict:
+    """One bucket as one run; returns the ``engine.summarize`` metrics with
+    a leading config axis (tensors on the run's device)."""
     ec, cm, wl = engine_config(spec, kn)
     entry = registry.get_protocol(spec.protocol)
-    return entry.hooks.grid_run(entry, ec, cm, wl, ticks=spec.ticks, warmup=spec.warmup, ticks_active=None)
+    ta = None if kn.ticks_active is None else tuple(kn.ticks_active.tolist())
+    # epoch-vs-tick dispatch lives in the registry entry's hooks
+    return entry.hooks.grid_run(entry, ec, cm, wl, ticks=spec.ticks, warmup=spec.warmup, ticks_active=ta)
+
+
+# ---------------------------------------------------------------------------
+# Bucketing planner: static shape axes -> (padded spec, active extents)
+# ---------------------------------------------------------------------------
+
+
+class BucketPlan(NamedTuple):
+    """One shape bucket: configs that share a padded (coroutines,
+    records_per_node, ticks) shape and therefore one batched run.
+
+    ``coroutines`` / ``records_per_node`` / ``ticks`` are the PADDED shapes;
+    the matching ``*_active`` field carries each config's true extent
+    (None when every config already matches the padded shape).
+    """
+
+    indices: Tuple[int, ...]  # positions in the caller's config list
+    coroutines: int
+    records_per_node: int
+    knob_configs: Tuple[Dict, ...]  # static axes stripped
+    coroutines_active: Optional[Tuple[int, ...]]
+    records_active: Optional[Tuple[int, ...]]
+    ticks: Optional[int] = None  # None = every config uses the grid default
+    ticks_active: Optional[Tuple[int, ...]] = None
+
+
+def _pow2_ceil(v: int) -> int:
+    return 1 << (int(v) - 1).bit_length()
+
+
+def plan_buckets(
+    configs: Sequence[Dict],
+    *,
+    coroutines: int,
+    records_per_node: int,
+    ticks: Optional[int] = None,
+) -> List[BucketPlan]:
+    """Group configs into shape buckets (one batched run each).
+
+    Each config may set the static axes in :data:`STATIC_AXES`; omitted
+    axes take the grid-level default.  Bucket key = power-of-two ceiling of
+    each axis (so nearby shapes share a run); bucket shape = max actual
+    value inside the bucket (no padding beyond what the bucket needs).
+    """
+    groups: Dict[Tuple[int, int, int], List[Tuple[int, int, int, int, Dict]]] = {}
+    for i, cfg in enumerate(configs):
+        cfg = dict(cfg)
+        c = int(cfg.pop("coroutines", coroutines))
+        r = int(cfg.pop("records_per_node", records_per_node))
+        has_t = "ticks" in cfg
+        t = cfg.pop("ticks", ticks)
+        t = 0 if t is None else int(t)  # 0 = axis unset (grid default applies)
+        if c < 1 or r < 1:
+            raise ValueError(f"config {i}: coroutines/records_per_node must be >= 1, got {c}/{r}")
+        if has_t and t < 1:
+            raise ValueError(f"config {i}: ticks must be >= 1, got {t}")
+        groups.setdefault((_pow2_ceil(c), _pow2_ceil(r), _pow2_ceil(t) if t else 0), []).append(
+            (i, c, r, t, cfg)
+        )
+    buckets = []
+    for key in sorted(groups):
+        rows = groups[key]
+        pad_c = max(c for _, c, _, _, _ in rows)
+        pad_r = max(r for _, _, r, _, _ in rows)
+        pad_t = max(t for _, _, _, t, _ in rows)
+        buckets.append(
+            BucketPlan(
+                indices=tuple(i for i, _, _, _, _ in rows),
+                coroutines=pad_c,
+                records_per_node=pad_r,
+                knob_configs=tuple(cfg for _, _, _, _, cfg in rows),
+                coroutines_active=(
+                    None if all(c == pad_c for _, c, _, _, _ in rows)
+                    else tuple(c for _, c, _, _, _ in rows)
+                ),
+                records_active=(
+                    None if all(r == pad_r for _, _, r, _, _ in rows)
+                    else tuple(r for _, _, r, _, _ in rows)
+                ),
+                ticks=pad_t or None,
+                ticks_active=(
+                    None if all(t == pad_t for _, _, _, t, _ in rows)
+                    else tuple(t for _, _, _, t, _ in rows)
+                ),
+            )
+        )
+    return buckets

@@ -10,8 +10,9 @@ commit order against a plain sequential store, and :func:`final_data`
 projects a protocol store down to its latest committed record values, so
 ``replay == final_data`` asserts final-state equivalence.
 
-Every function takes the port's state/store dicts (tensors on any device)
-or dicts of numpy arrays.  The graph is the port's own: a dict of
+Every function takes the port's state/store dicts of one config (tensors
+on any device) or dicts of numpy arrays; a batched run keeps one history
+per config, and ``engine.config_slice`` hands each config's part over.  The graph is the port's own: a dict of
 successor sets, checked with Kahn's algorithm.
 """
 from __future__ import annotations

@@ -61,18 +61,18 @@ def describe_plane(plane: str) -> str:
 # ---------------------------------------------------------------------------
 
 
-def cas_arbitrate(keys, prio_hi, prio_lo, active, n_records: int, *, plane: str = TORCH):
+def cas_arbitrate(keys, prio_hi, prio_lo, active, n_records: int, *, plane: str = TORCH, groups: int = 1):
     """Per-key lexicographic-min CAS arbitration over a flat request batch.
 
     keys/prio_hi/prio_lo (M,) int32, active (M,) bool -> won (M,) bool,
-    bitwise-equal across planes (``scatter_min_winner`` semantics)."""
+    bitwise-equal across planes (``scatter_min_winner`` semantics).  The
+    batch is ``groups`` equal runs of requests (one per config), each on
+    its own keys; the kernel plane arbitrates them as the kernel's (G, M/G)
+    groups, one block each."""
     if plane != KERNEL:
         return scatter_min_winner(keys, prio_hi, prio_lo, active, n_records)
-    won = lock_arbiter(
-        keys.contiguous()[None], prio_hi.contiguous()[None],
-        prio_lo.contiguous()[None], active.contiguous()[None],
-    )
-    return won[0]
+    won = lock_arbiter(*(t.contiguous().view(groups, -1) for t in (keys, prio_hi, prio_lo, active)))
+    return won.view(-1)
 
 
 def version_select(wts_hi, wts_lo, ctts_hi, ctts_lo, lock_hi=None, lock_lo=None):
@@ -99,7 +99,8 @@ def gather_many(arrs, keys, *, plane: str = TORCH):
     at the same keys -> per-array results shaped ``keys.shape +
     arr.shape[1:]`` (engine.read_rows_many's kernel path).  The kernel
     plane is ONE ``multi_read`` launch that reads every array in place; the
-    torch plane indexes each array."""
+    torch plane indexes each array.  A batched run passes its flat (G·R,
+    ...) store and keys that are already store rows (``g·R + key``)."""
     if plane == KERNEL:
         return multi_read_many(arrs, keys.contiguous())
     kf = keys.reshape(-1)

@@ -11,17 +11,19 @@ import torch
 
 from repro_torch.core import prng
 from repro_torch.core.engine import Workload
-from repro_torch.workloads.util import imin
+from repro_torch.workloads.util import column, imin
 
 RW = 2  # record: (checking, savings)
 K = 2  # max ops per txn
 HOT_FRAC = 0.25  # fraction of accesses hitting the hot 100 accounts
 
 
-def make_smallbank(n_records: int, hot_accounts: int = 100, exec_ticks: int = 1) -> Workload:
+def make_smallbank(n_records, hot_accounts: int = 100, exec_ticks=1) -> Workload:
+    """``n_records`` and ``exec_ticks`` are ints, or tuples of one per
+    config of a batched run."""
     n_hot = imin(hot_accounts, n_records)
 
-    def gen(keys, node, slot):
+    def gen(keys, node, slot, per_row=None):
         """keys (N, 2) PRNG keys -> (keys (N, K) int32, is_w, valid (N, K) bool).
 
         The reference draws ``split(key, 5)``, ``randint`` three times and
@@ -35,14 +37,15 @@ def make_smallbank(n_records: int, hot_accounts: int = 100, exec_ticks: int = 1)
         halves = prng.split(torch.stack((sub[:, 0], sub[:, 2], sub[:, 3]), dim=1), 2)
         bits = prng.random_bits(torch.cat([halves.flatten(1, 2), sub[:, 1:2]], dim=1), (2,))
         # bits rows: k1 hi/lo, k3 hi/lo, k4 hi/lo, k2
+        n_rec = column(per_row, n_records)
         ttype = prng.randint_from_bits(bits[:, 0, 0], bits[:, 1, 0], 0, 6)
-        acct = prng.randint_from_bits(bits[:, 2], bits[:, 3], 0, n_records)
-        acct_hot = prng.randint_from_bits(bits[:, 4], bits[:, 5], 0, n_hot)
+        acct = prng.randint_from_bits(bits[:, 2], bits[:, 3], 0, n_rec)
+        acct_hot = prng.randint_from_bits(bits[:, 4], bits[:, 5], 0, column(per_row, n_hot))
         hot = prng.uniform_from_bits(bits[:, 6]) < HOT_FRAC
         a = torch.where(hot, acct_hot, acct)
         pos = torch.arange(2, dtype=torch.int32, device=keys.device)
         same = (a[:, 1] == a[:, 0])[:, None]
-        a = torch.where(same, (a + pos) % n_records, a)  # distinct accounts
+        a = torch.where(same, (a + pos) % n_rec, a)  # distinct accounts
         # balance() is read-only single-account; amalgamate / send-payment touch 2
         two_accounts = (ttype == 0) | (ttype == 3)
         read_only = ttype == 1

@@ -14,22 +14,24 @@ import torch
 
 from repro_torch.core import prng
 from repro_torch.core.engine import Workload
-from repro_torch.workloads.util import dedup_keys, imax
+from repro_torch.workloads.util import column, dedup_keys, imax, map_configs
 
 RW = 4
 K = 15
 
 
 def make_tpcc_neworder(
-    n_records: int,
+    n_records,
     n_warehouses: int = 16,
     remote_prob: float = 0.10,
-    exec_ticks: int = 5,
+    exec_ticks=5,
 ) -> Workload:
-    per_wh = imax(n_records // n_warehouses, 1)
+    """``n_records`` and ``exec_ticks`` are ints, or tuples of one per
+    config of a batched run."""
+    per_wh = imax(map_configs(lambda n: int(n) // n_warehouses, n_records), 1)
     remote_p = float(np.float32(remote_prob))
 
-    def gen(keys, node, slot):
+    def gen(keys, node, slot, per_row=None):
         """keys (N, 2) PRNG keys -> (keys (N, K) int32, is_w, valid (N, K) bool).
 
         The reference draws ``split(key, 5)``, then ``randint(k1, ())``,
@@ -45,8 +47,9 @@ def make_tpcc_neworder(
         wh = (slot * 7 + node) % n_warehouses  # home warehouse
         remote = prng.uniform_from_bits(bits[:, 6]) < remote_p
         wh_i = torch.where(remote, prng.randint_from_bits(bits[:, 2], bits[:, 3], 0, n_warehouses), wh[:, None])
-        item = prng.randint_from_bits(bits[:, 4], bits[:, 5], 0, per_wh)
-        ks = dedup_keys((wh_i * per_wh + item).to(torch.int32), slot, n_records)
+        pw = column(per_row, per_wh)
+        item = prng.randint_from_bits(bits[:, 4], bits[:, 5], 0, pw)
+        ks = dedup_keys((wh_i * pw + item).to(torch.int32), slot, column(per_row, n_records))
         valid = torch.arange(K, device=keys.device)[None, :] < n_items[:, None]
         return ks, valid.clone(), valid  # new-order: every stock access is read-modify-write
 

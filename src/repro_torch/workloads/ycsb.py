@@ -12,26 +12,28 @@ import torch
 
 from repro_torch.core import prng
 from repro_torch.core.engine import Workload
-from repro_torch.workloads.util import dedup_keys, scaled_count
+from repro_torch.workloads.util import column, dedup_keys, map_configs, scaled_count
 
 RW = 16  # 64-byte records
 K = 10
 
 
 def make_ycsb(
-    n_records: int,
-    hot_prob: float = 0.10,
+    n_records,
+    hot_prob=0.10,
     hot_frac: float = 0.001,
     write_frac: float = 0.20,
-    exec_ticks: int = 3,  # ~5us execution phase at tick=2us
+    exec_ticks=3,  # ~5us execution phase at tick=2us
 ) -> Workload:
+    """``n_records``, ``hot_prob`` and ``exec_ticks`` are Python values, or
+    tuples of one per config of a batched run."""
     # floor the hot set so tiny test stores don't degenerate to one record
     n_hot = scaled_count(n_records, hot_frac, 16)
     # the reference's knobs are float32: compare the float32 draws with them
-    hot_p = float(np.float32(hot_prob))
+    hot_p = map_configs(lambda p: float(np.float32(p)), hot_prob)
     write_p = float(np.float32(write_frac))
 
-    def gen(keys, node, slot):
+    def gen(keys, node, slot, per_row=None):
         """keys (N, 2) PRNG keys -> (keys (N, K) int32, is_w, valid (N, K) bool).
 
         The reference draws ``split(key, 4)``, then ``uniform(k1)``,
@@ -42,10 +44,11 @@ def make_ycsb(
         halves = prng.split(sub[:, 1:3], 2)  # randint's (higher, lower) keys of k2, k3
         bits = prng.random_bits(torch.cat([sub[:, 0:1], halves.flatten(1, 2), sub[:, 3:4]], dim=1), (K,))
         # bits rows: k1, k2 hi/lo, k3 hi/lo, k4
-        hot = prng.uniform_from_bits(bits[:, 0]) < hot_p
-        cold = prng.randint_from_bits(bits[:, 1], bits[:, 2], n_hot, n_records)
-        hot_keys = prng.randint_from_bits(bits[:, 3], bits[:, 4], 0, n_hot)
-        ks = dedup_keys(torch.where(hot, hot_keys, cold), slot, n_records)
+        n_rec, n_h = column(per_row, n_records), column(per_row, n_hot)
+        hot = prng.uniform_from_bits(bits[:, 0]) < column(per_row, hot_p, torch.float32)
+        cold = prng.randint_from_bits(bits[:, 1], bits[:, 2], n_h, n_rec)
+        hot_keys = prng.randint_from_bits(bits[:, 3], bits[:, 4], 0, n_h)
+        ks = dedup_keys(torch.where(hot, hot_keys, cold), slot, n_rec)
         is_w = prng.uniform_from_bits(bits[:, 5]) < write_p
         valid = torch.ones_like(is_w)
         return ks, is_w, valid

@@ -234,9 +234,10 @@ def test_kernel_plane_matches_torch_plane_on_the_card(card, protocol, workload):
               n_nodes=2, coroutines=6, records_per_node=64, ticks=32, warmup=4)
     before = (multi_read.launches, mvcc_version_select.launches)
     k_rows = run(ExperimentSpec(kernel_plane="kernel", **kw)).rows
-    # per tick: one multi_read launch per gather_many, one mvcc_version_select launch per fused version read
+    # per batched tick of the four configs' one bucket: one multi_read launch per gather_many, one
+    # mvcc_version_select launch per fused version read
     per_tick = {"nowait": (2, 0), "mvcc": (5, 3)}[protocol]
-    n_ticks = 4 * (32 + 4)
+    n_ticks = 32 + 4
     assert (multi_read.launches - before[0], mvcc_version_select.launches - before[1]) == \
         (per_tick[0] * n_ticks, per_tick[1] * n_ticks)
     t_rows = run(ExperimentSpec(kernel_plane="torch", **kw)).rows

@@ -223,11 +223,13 @@ def test_summarize_matches(mid_run):
     want = jeng.summarize(jec, jc, st, 12)
     got = teng.summarize(tec, tc, tst, 12)
     assert set(want) == set(got)
+    # the port's metrics carry a leading config axis: this run's one config is row 0
     for k in ("commits", "aborts", "throughput_mtps", "abort_rate", "avg_round_trips"):
+        assert tuple(got[k].shape) == (1,) + np.asarray(want[k]).shape, k
         assert np.asarray(want[k]).dtype == got[k].numpy().dtype, k
-        np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]), err_msg=k)
+        np.testing.assert_array_equal(got[k][0].numpy(), np.asarray(want[k]), err_msg=k)
     for k in ("avg_latency_us", "stage_us_per_commit"):
-        np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]), rtol=RTOL, err_msg=k)
+        np.testing.assert_allclose(got[k][0].numpy(), np.asarray(want[k]), rtol=RTOL, err_msg=k)
 
 
 @pytest.mark.parametrize("M,n_records,seed", [(1, 4, 0), (37, 9, 1), (2400, 262144, 2), (2400, 64, 3), (0, 8, 4)])

@@ -174,6 +174,10 @@ def test_plan_defaults_to_cuda_and_refuses_without_it():
 
 
 def test_plan_names_plane_and_device_and_rejects_unported_layouts():
+    """Kept: the plane and device in the summary, and the refusal of the
+    layouts still to port (node, devices, node_shards: ROADMAP A.10).  A
+    per-config static axis and calvin used to be refused here as well; they
+    now run, to the reference's rows."""
     pl = tapi.plan(tapi.ExperimentSpec(protocol="nowait", workload="smallbank", device="cpu", **KW))
     assert pl.kernel_plane == "torch"  # "auto" on the CPU
     s = pl.summary()
@@ -181,15 +185,27 @@ def test_plan_names_plane_and_device_and_rejects_unported_layouts():
     pk = tapi.plan(tapi.ExperimentSpec(protocol="nowait", workload="smallbank", device="cpu",
                                        kernel_plane="kernel", **KW))
     assert "kernel plane: kernel" in pk.summary()
-    for bad in (dict(layout="node"), dict(devices="auto"), dict(node_shards=2),
-                dict(configs=[{"coroutines": 4}])):
-        with pytest.raises(NotImplementedError, match="ROADMAP A.9"):
+    for bad in (dict(layout="node"), dict(devices="auto"), dict(node_shards=2)):
+        with pytest.raises(NotImplementedError, match="ROADMAP A.10"):
             tapi.plan(tapi.ExperimentSpec(protocol="nowait", workload="smallbank", device="cpu",
                                           **dict(KW, **bad)))
-    with pytest.raises(KeyError, match="unknown protocol 'calvin'"):
-        tapi.plan(tapi.ExperimentSpec(protocol="calvin", workload="smallbank", device="cpu", **KW))
-    with pytest.raises(NotImplementedError, match="ROADMAP A.9/A.10"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A.10"):
         tapi.run(tapi.ExperimentSpec(protocol="mvcc", workload="ycsb", device="cpu", layout="node", **KW))
+    # a config that sweeps a static axis plans into the reference's buckets and runs to its rows
+    configs = [{"hybrid": 21, "coroutines": 4}, {"hybrid": 42}]
+    j_rows, t_rows = _rows_both("nowait", "torch", configs=configs)
+    assert [r["bucket"] for r in t_rows] == [r["bucket"] for r in j_rows]
+    assert [r["coroutines"] for r in t_rows] == [4, KW["coroutines"]]
+    for a, b in zip(j_rows, t_rows):
+        for k in EXACT + ("n_buckets",):
+            assert a[k] == b[k], (a["hybrid"], k)
+    # calvin, the sixth protocol, runs through the same front door to the reference's rows
+    j_rows, t_rows = _rows_both("calvin", "torch")
+    for a, b in zip(j_rows, t_rows):
+        for k in ("commits", "aborts", "abort_rate", "avg_round_trips", "avg_waves"):
+            assert a[k] == b[k], ("calvin", a["hybrid"], k)
+        for k in ("throughput_mtps", "avg_latency_us"):
+            np.testing.assert_allclose(b[k], a[k], rtol=RTOL, err_msg=k)
 
 
 def golden_rows():
