@@ -42,7 +42,18 @@ Run from a checkout of the repository on a machine with one CUDA card and
 6. CALVIN at the full spec on the kernel plane (smallbank, ycsb, tpcc, one
    bucket of the four codes each) against its golden file, and a profiled
    run of its batched epochs;
-7. the LM serving path, stablelm-1.6b at full width in float32 with TF32
+7. the node-sharded layouts, four node shards of one config on the one
+   card (``devices=("cuda",) * 4``): NOWAIT/SmallBank, MVCC/YCSB and
+   CALVIN/SmallBank hybrid 63 on ``layout="node"`` and the four codes on a
+   2 x 2 ``config_node`` mesh, each against its golden file with the
+   kernels' launches per tick, and one NOWAIT final store against the
+   dense run's.  Before them, the kernel phase holds each RCC kernel at the
+   node path's calls (``lock_arbiter`` on the coordinator over G*R global
+   rows with requests at the shard boundaries; ``multi_read`` per shard
+   with local keys outside [0, R_l) over G*R_l rows) against its plain
+   version and the dense result, and times it there; the profile phase
+   traces 20 node-layout ticks beside the dense tick at G = 1;
+8. the LM serving path, stablelm-1.6b at full width in float32 with TF32
    off: ``init_lm`` from seed 0 on the card (checked against the reference's
    weights), a 2 x 256-token, 8-step run against the JAX reference's
    full-width golden file, a profiled prefill and decode step (device busy
@@ -54,7 +65,8 @@ Run from a checkout of the repository on a machine with one CUDA card and
 Every path's kernel launches are counted from 0 just before it runs and
 read just after.  It prints a JSON line of kernel measurements (each
 kernel's times are the mean over its main-path launches; ``by_path`` holds
-them per main path),
+them per main path; ``library_ms`` is the mean over the paths that have a
+library call, and ``ms_library_paths`` the kernel's own over those paths),
 then, last, one JSON line
 ``{"ok": true, "device": {...}}``.  Any mismatch or fault raises: the exit
 code is then not 0 and the last line is not printed.  Without CUDA it
@@ -103,6 +115,29 @@ GATHERS = {
 # the MVCC path's fused version reads per batched tick: (S, {with the lock: reads per tick}): the read and
 # rts effects check the lock, the lock effect does not
 PICKS = {"mvcc/ycsb": (4, {True: 2, False: 1})}
+# the node layout: four node shards of one config on the one card (a device may repeat), each owning one
+# simulated node's 65536 rows.  Per tick the coordinator runs one lock_arbiter per try_lock over the global rows
+# (the contest reads no store word), and each shard one multi_read per gather_many on its own rows; MVCC's
+# version reads take the reference's route there (the wts and lock rows in one exchange each, then
+# mvcc_version_select on the combined rows, once per read)
+NODE_SHARDS = 4
+NODE_DEVICES = ("cuda",) * NODE_SHARDS
+R_LOCAL = R_RECORDS // NODE_SHARDS
+NODE_PER_TICK = {
+    "nowait": {"lock_arbiter": 1, "multi_read": 8, "mvcc_version_select": 0, "flash_attention": 0},
+    "mvcc": {"lock_arbiter": 1, "multi_read": 40, "mvcc_version_select": 3, "flash_attention": 0},
+}
+# the config_node path: two config shards, each one run of two configs on two node shards
+CONFIG_NODE_PER_TICK = {"lock_arbiter": 2, "multi_read": 8, "mvcc_version_select": 0, "flash_attention": 0}
+NODE_NOWAIT, NODE_MVCC, NODE_CALVIN = "nowait/smallbank/node4", "mvcc/ycsb/node4", "calvin/smallbank/node4"
+CONFIG_NODE_PATH = "nowait/smallbank/config_node2x2"  # CODES on 2 config shards x 2 node shards
+# each node path's per-shard calls per tick: {what: (the arrays' shapes after the rows, calls per shard)}
+NODE_GATHERS = {
+    NODE_NOWAIT: _NOWAIT_GATHERS,
+    NODE_MVCC: {"rts_hi": (((),), 1), "rts or lock pair": (((), ()), 5), "wts pair": (((4,), (4,)), 3),
+                "wts_hi|wts_lo|ver": (((4,), (4,), ()), 1)},
+}
+NODE_SHAPES = {NODE_NOWAIT: (1, 240, 2), NODE_MVCC: (1, 240, 10)}
 # H100 SXM peaks: the HBM3 rate (NVIDIA data sheet), and the INT32 issue rate
 # that bounds integer compares and selects: 132 SMs x 64 INT32 lanes per SM x
 # 1.98 GHz boost clock = 16.7e12 ops/s (the data sheet's 67 TFLOP/s float32
@@ -747,27 +782,28 @@ def phase_flash(gen):
     )
 
 
-def phase_profile(protocol, workload, codes=(63,), n_ticks=20):
+def phase_profile(protocol, workload, codes=(63,), n_ticks=20, devices=None):
     """Where one batched main-path tick's time goes: ``n_ticks`` ticks of
-    one bucket of ``codes`` (kernel plane) timed bare, then traced with
-    torch.profiler for the device's busy time, kernel launches and the
-    host's top-level operations.  On YCSB with one config, the workload's
-    sequential key de-duplication is timed and traced alone as well, at the
-    tick's shape."""
+    one bucket of ``codes`` (kernel plane; node-sharded over ``devices``
+    when given) timed bare, then traced with torch.profiler for the
+    device's busy time, kernel launches and the host's top-level
+    operations.  On YCSB with one config on one device, the workload's
+    sequential key de-duplication is timed and traced alone as well, at
+    the tick's shape."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.core.engine import init_state
+    from repro_torch.core.engine import init_run_store, init_state, node_mesh_config
     from repro_torch.core.registry import get_protocol, protocol_family
-    from repro_torch.core.store import init_store
     from repro_torch.core.sweep import GridSpec, engine_config, make_knobs
 
     gs = GridSpec(protocol=protocol, workload=workload, kernel_plane="kernel", device="cuda")
     ec, cm, wl = engine_config(gs, make_knobs(workload, [{"hybrid": c} for c in codes]))
+    if devices is not None:
+        ec = node_mesh_config(ec, devices)
     tick = get_protocol(protocol).tick
     st = init_state(ec, wl)
-    store = init_store(protocol_family(protocol), ec.store_rows, wl.rw, wl.init_value,
-                       n_versions=ec.mvcc_slots, device="cuda")
+    store = init_run_store(ec, protocol_family(protocol), wl.rw, wl.init_value)
     t = 0
     for _ in range(40):  # past warm-up allocations
         st, store = tick(ec, cm, wl, st, store, t)
@@ -809,7 +845,7 @@ def phase_profile(protocol, workload, codes=(63,), n_ticks=20):
     names = ("lock_arbiter", "multi_read", "mvcc_version_select")
     cats = [e for e in dev if "CatArrayBatchedCopy" in e.name]
     prof_line = {
-        "path": f"{protocol}/{workload}", "configs": len(codes),
+        "path": f"{protocol}/{workload}", "configs": len(codes), "node_shards": len(devices) if devices else 1,
         "tick_wall_ms": wall_ms, "device_busy_ms_per_tick": busy_ms,
         "device_idle_share": (1 - busy_ms / wall_ms) if dev else None,
         "device_ops_per_tick": len(dev) / n_ticks, "host_top_level_ops_per_tick": host_ops,
@@ -822,7 +858,7 @@ def phase_profile(protocol, workload, codes=(63,), n_ticks=20):
             for n in names
         },
     }
-    if workload == "ycsb" and len(codes) == 1:
+    if workload == "ycsb" and len(codes) == 1 and devices is None:
         from repro_torch.workloads.util import dedup_keys
 
         keys, slot = st["keys"].clone(), torch.arange(ec.n_slots, dtype=torch.int32, device="cuda")
@@ -1153,6 +1189,281 @@ def phase_calvin(counted):
     return total
 
 
+def node_config(G, protocol="nowait"):
+    """A paper-scale EngineConfig of G configs on the node mesh (kernel plane)."""
+    from repro_torch.core.engine import EngineConfig, node_mesh_config
+
+    ec = EngineConfig(protocol=protocol, n_nodes=4, coroutines=60, records_per_node=65536, n_configs=G,
+                      kernel_plane="kernel", device="cuda")
+    return node_mesh_config(ec, NODE_DEVICES)
+
+
+def split_rows(ec, arr):
+    """A dense (G*R, ...) store array as the node shards' (G*R_l, ...) arrays."""
+    from repro_torch.core.planes import Shards
+
+    G, tail = ec.n_configs, tuple(arr.shape[1:])
+    v = arr.view((G, NODE_SHARDS, ec.records_local) + tail)
+    return Shards(v[:, s].reshape((G * ec.records_local,) + tail).contiguous() for s in range(NODE_SHARDS))
+
+
+def node_keys(G, N, K, gen):
+    """(G*N, K) global store rows of G configs: random, with every shard's
+    first and last rows of each config among them."""
+    import torch
+
+    keys = torch.randint(0, R_RECORDS, (G, N, K), generator=gen, dtype=torch.int32)
+    edges = torch.tensor([b for s in range(NODE_SHARDS) for b in (s * R_LOCAL, (s + 1) * R_LOCAL - 1)],
+                         dtype=torch.int32)
+    keys.view(G, -1)[:, :len(edges)] = edges
+    return (keys + torch.arange(G, dtype=torch.int32)[:, None, None] * R_RECORDS).view(G * N, K).cuda()
+
+
+def phase_shard_kernels(gen, rows):
+    """The three RCC kernels at the node layout's calls, each against its
+    plain version exactly: ``lock_arbiter`` as the node paths' coordinator
+    calls it (G groups over the G*R global rows, requests on the rows
+    either side of a shard boundary), equal to the node engine's
+    ``arb_winner``; ``multi_read`` on each shard's own arrays with local
+    keys outside [0, R_l) (the drop form and, at G = 1, the unclipped
+    ``key - s*R_l``), the shards' sum equal to the dense gather;
+    ``mvcc_version_select`` on the rows that exchange combines, equal to
+    the dense fused read.  Then each timed at the node paths' shapes; the
+    rows go into ``rows``' ``by_path``."""
+    import torch
+
+    from repro_torch.core import engine, planes
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.lock_arbiter import lock_arbiter
+    from repro_torch.kernels.ref import gather_many_ref, mvcc_version_select_ref, version_read_ref
+
+    by_name = {r["name"]: r for r in rows}
+    boundary = torch.tensor([s * R_LOCAL + d for s in range(NODE_SHARDS) for d in (-1, 0, 1)][1:], dtype=torch.int32)
+    checked = 0
+    for G, M, n_keys, ties, edge in [(1, 480, R_RECORDS, False, False), (1, 2400, R_RECORDS, False, False),
+                                     (4, 480, R_RECORDS, True, False), (4, 2400, R_RECORDS, False, False),
+                                     (1, 2400, 0, True, True), (4, 480, 0, False, True), (2, 12000, R_RECORDS, True, False)]:
+        ec = node_config(G)
+        args = arbiter_case(G, M, max(n_keys, 1), gen, ties=ties, rows=R_RECORDS)
+        if edge:  # every request on the rows either side of a shard boundary
+            pick = boundary[torch.randint(0, len(boundary), (G, M), generator=gen)].cuda()
+            args[0] = pick + (torch.arange(G, dtype=torch.int32)[:, None] * R_RECORDS).cuda()
+        want = arbiter_ref(args)
+        got = lock_arbiter(*args)
+        node = engine.arb_winner(ec, *(a.reshape(-1) for a in args))
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"lock_arbiter disagrees with its plain version at G={G} M={M} edge={edge}")
+        if not torch.equal(node, want.reshape(-1)):
+            raise AssertionError(f"arb_winner on the node mesh differs from the plain winners at G={G} M={M}")
+        checked += 1
+    log(f"  lock_arbiter on the node mesh: {checked} batches (G groups over G*R global rows, rows at the shard "
+        f"boundaries): exact, and the node engine's arb_winner gives the same winners")
+
+    for G, N, K, shapes in [(1, 240, 2, ((), ())), (1, 240, 2, ((2,), ())), (1, 240, 10, ((4,), (4,), ())),
+                            (4, 240, 10, ((), ())), (4, 240, 2, ((2,), ())), (64, 240, 2, ((), ()))]:
+        ec = node_config(G)
+        glob = [torch.randint(-2**31, 2**31 - 1, (G * R_RECORDS,) + sh, generator=gen, dtype=torch.int32).cuda()
+                for sh in shapes]
+        parts = [split_rows(ec, a) for a in glob]
+        keys = node_keys(G, N, K, gen)
+        kf = keys.reshape(-1)
+        owner, local = planes.owner_local(ec, kf)
+        for s in range(NODE_SHARDS):
+            mine = [p[s] for p in parts]
+            forms = [planes.local_ix_drop(ec, s, owner, local)]
+            if G == 1:
+                forms.append(kf - s * R_LOCAL)  # unclipped: keys outside [0, R_l) read zero rows
+            outs = [ops.gather_many(mine, li, plane=ops.KERNEL) for li in forms]
+            for li, got in zip(forms, outs):
+                if not all(torch.equal(g, w) for g, w in zip(got, gather_many_ref(mine, li))):
+                    raise AssertionError(f"multi_read disagrees with its plain version at shard {s}, G={G}")
+            if G == 1 and not all(torch.equal(a, b) for a, b in zip(*outs)):
+                raise AssertionError("multi_read: the unclipped local keys read other rows than the drop form")
+        got = planes.node_read_batch(ec, parts, keys)
+        want = gather_many_ref(glob, kf)
+        if not all(torch.equal(g.reshape(w.shape), w) for g, w in zip(got, want)):
+            raise AssertionError(f"multi_read: the shards' summed gathers differ from the dense gather at G={G}")
+    log("  multi_read per shard: 6 array sets at G in {1, 4, 64}, drop-form and unclipped local keys: exact, "
+        "the summed replies equal the dense gather")
+
+    for G, kind in [(1, "engine"), (4, "engine"), (1, "narrow")]:
+        ec = node_config(G, "mvcc")
+        N, K, S = G * 240, 10, 4
+        wh, wl, lh, ll, _, ch, cl = read_case(G * R_RECORDS, N, K, S, gen, kind)
+        keys = node_keys(G, 240, K, gen)
+        vh, vl = planes.node_read_batch(ec, (split_rows(ec, wh), split_rows(ec, wl)), keys)
+        gh, gl = planes.node_read_batch(ec, (split_rows(ec, lh), split_rows(ec, ll)), keys)
+        got = ops.version_select(vh.reshape(-1, S), vl.reshape(-1, S), ch, cl, gh.reshape(-1), gl.reshape(-1))
+        want = mvcc_version_select_ref(vh.reshape(-1, S), vl.reshape(-1, S), ch.repeat_interleave(K),
+                                       cl.repeat_interleave(K), gh.reshape(-1), gl.reshape(-1))
+        dense = version_read_ref(wh, wl, keys, ch, cl, lh, ll)
+        if not all(torch.equal(a, b) for a, b in zip(got, want)) or \
+                not all(torch.equal(a, b.reshape(-1)) for a, b in zip(got, dense[:3])):
+            raise AssertionError(f"mvcc_version_select on the combined rows disagrees at G={G} {kind}")
+    log("  mvcc_version_select on the exchanged rows (G = 1, 4): exact, equal to the dense fused read")
+
+    # times at the node paths' calls (multi_read: shard 0's), as the kernel phase times the dense paths'
+    for path, (G, N, K) in NODE_SHAPES.items():
+        ec = node_config(G)
+        M = G * N * K
+        args = arbiter_case(G, M, R_RECORDS, gen, rows=R_RECORDS)
+        t = timed(lambda: lock_arbiter(*args), lambda: arbiter_ref(args))
+        t["bound_ms"], t["bound_by"] = bound_ms(G * M * 14, 0)
+        log(f"lock_arbiter ({path}, on the coordinator: G={G}, M={M}, {int(args[3].sum())} active): {t['ms']:.6f} ms/call "
+            f"on the device ({t['host_ms']:.6f} issued eagerly), plain {t['plain_ms']:.6f} ms "
+            f"({t['plain_host_ms']:.6f}), bound {t['bound_ms']:.9f} ms ({t['bound_by']})")
+        by_name["lock_arbiter"]["by_path"][path] = dict(t, G=G, M=M)
+
+        keys = node_keys(G, N, K, gen)
+        owner, local = planes.owner_local(ec, keys.reshape(-1))
+        li = planes.local_ix_drop(ec, 0, owner, local)
+        parts = []
+        for name, (shapes, n) in NODE_GATHERS[path].items():
+            arrs = [torch.randint(0, 1000, (G * R_LOCAL,) + sh, generator=gen, dtype=torch.int32).cuda()
+                    for sh in shapes]
+            fn = lambda: ops.gather_many(arrs, li, plane=ops.KERNEL)  # noqa: E731
+            one_device_op(fn, "multi_read", f"gather_many {path} {name}")
+            # no library call reads zero rows for the other shards' keys
+            t = timed(fn, lambda: gather_many_ref(arrs, li))
+            words = sum(math.prod(sh) for sh in shapes)
+            t["bound_ms"], t["bound_by"] = bound_ms(M * 4 + 2 * M * words * 4, 0)
+            log(f"multi_read ({path}: {name}, one shard's {G * R_LOCAL} rows, M={M}, {n} per shard per tick): "
+                f"{t['ms']:.6f} ms/call on the device ({t['host_ms']:.6f} issued eagerly), plain {t['plain_ms']:.6f} "
+                f"({t['plain_host_ms']:.6f}), no library call, bound {t['bound_ms']:.9f} ms ({t['bound_by']})")
+            parts.append((n, t))
+        by_name["multi_read"]["by_path"][path] = dict(mix(parts), G=G, M=M)
+
+    G, N, K, S = 1, 240, 10, 4
+    M = N * K
+    wh, wl, lh, ll, _, ch, cl = read_case(M, N, K, S, gen, "engine")  # one op's rows each, as combined
+    gh, gl = lh.contiguous(), ll.contiguous()
+    parts = []
+    for with_lock, n in ((True, 2), (False, 1)):
+        lock = (gh, gl) if with_lock else (None, None)
+        fn = lambda: ops.version_select(wh, wl, ch, cl, *lock)  # noqa: E731
+        one_device_op(fn, "mvcc_version_select", f"version_select {NODE_MVCC} lock={with_lock}")
+        z = torch.zeros_like(gh)
+        plain = lambda: mvcc_version_select_ref(wh, wl, ch.repeat_interleave(K), cl.repeat_interleave(K),  # noqa: E731
+                                                *(lock if with_lock else (z, z)))
+        t = timed(fn, plain)
+        n_in = M * 2 * S * 4 + N * 8 + (M * 8 if with_lock else 0)
+        t["bound_ms"], t["bound_by"] = bound_ms(n_in + M * (1 + 4 + (1 if with_lock else 0)), M * (12 * S + 6))
+        log(f"mvcc_version_select ({NODE_MVCC}: on the combined rows, M={M}, S={S}, "
+            f"{'with' if with_lock else 'without'} the lock, {n} per tick): {t['ms']:.6f} ms/call on the device "
+            f"({t['host_ms']:.6f} issued eagerly), plain {t['plain_ms']:.6f} ({t['plain_host_ms']:.6f}), no "
+            f"library call, bound {t['bound_ms']:.9f} ms ({t['bound_by']})")
+        parts.append((n, t))
+    by_name["mvcc_version_select"]["by_path"][NODE_MVCC] = dict(mix(parts), G=G, M=M, S=S)
+
+
+def node_row_check(path, row, want, exact, close=()):
+    """A node-layout row against a golden row: ``exact`` keys equal,
+    ``close`` keys within rtol 1e-5; fails on a metric that is not finite."""
+    for k in ("throughput_mtps", "avg_latency_us", "abort_rate", "avg_round_trips"):
+        if not math.isfinite(row[k]):
+            raise AssertionError(f"{path}: {k}={row[k]} is not finite")
+    for k in exact:
+        if row[k] != want[k]:
+            raise AssertionError(f"{path}: {k} {row[k]} != golden {want[k]}")
+    for k in close:
+        if not math.isclose(row[k], want[k], rel_tol=1e-5):
+            raise AssertionError(f"{path}: {k} {row[k]} vs golden {want[k]}")
+
+
+def phase_node(counted):
+    """The node-sharded layouts at paper scale on the kernel plane, four
+    node shards on the one card: NOWAIT/SmallBank and MVCC/YCSB hybrid 63
+    and CALVIN/SmallBank hybrid 63 (``layout="node"``), and the four codes
+    on a 2 x 2 ``config_node`` mesh, each against its golden file, with
+    launches per tick counted from 0; then one NOWAIT final store, node
+    against dense.  Returns the launches by path, and the wall s by path."""
+    import torch
+
+    from repro_torch.api import ExperimentSpec
+    from repro_torch.core import engine
+    from repro_torch.core.protocols import calvin
+    from repro_torch.core.registry import get_protocol
+    from repro_torch.core.sweep import GridSpec, engine_config, make_knobs
+
+    def load(name):
+        with open(os.path.join(ROOT, "src", "repro_torch", "data", name)) as f:
+            return json.load(f)
+
+    launches, walls = {}, {}
+    for path, protocol, workload, golden_file in ((NODE_NOWAIT, "nowait", "smallbank",
+                                                   "golden_nowait_smallbank_sweep64.json"),
+                                                  (NODE_MVCC, "mvcc", "ycsb", "golden_mvcc_ycsb.json")):
+        spec = ExperimentSpec(protocol=protocol, workload=workload, configs=[{"hybrid": 63}], kernel_plane="kernel",
+                              layout="node", devices=NODE_DEVICES)
+        res, got = counted_run(spec, counted)
+        if path == NODE_NOWAIT:
+            log(res.plan.summary())
+        row, n_ticks = res.row, spec.ticks + spec.warmup
+        expect = {name: per * n_ticks for name, per in NODE_PER_TICK[protocol].items()}
+        log(f"main path {path} (kernel plane, hybrid 63, {NODE_SHARDS} node shards on one card): {row['wall_s']:.3f} s "
+            f"for {n_ticks} ticks, {n_ticks / row['wall_s']:.1f} ticks/s, commits={row['commits']} "
+            f"aborts={row['aborts']}, launches {got} ({ {k: v / n_ticks for k, v in got.items()} } per tick)")
+        if got != expect or row["n_node_shards"] != NODE_SHARDS:
+            raise AssertionError(f"{path}: kernel launches {got} != {expect}")
+        want = next(r for r in load(golden_file)["rows"] if r["hybrid"] == "111111")
+        node_row_check(path, row, want, ("hybrid", "commits", "aborts"))
+        log(f"{path} golden: counters equal the JAX reference's ({golden_file}, hybrid 111111)")
+        launches[path], walls[path] = got, row["wall_s"]
+
+    spec = ExperimentSpec(protocol="calvin", workload="smallbank", configs=[{"hybrid": 63}], kernel_plane="kernel",
+                          layout="node", devices=NODE_DEVICES)
+    res, got = counted_run(spec, counted)
+    row = res.row
+    cell = next(c for c in load("golden_calvin.json")["cells"] if c["spec"]["workload"] == "smallbank")
+    want = next(r for r in cell["rows"] if r["hybrid"] == "111111")
+    log(f"main path {NODE_CALVIN} (kernel plane, hybrid 63, {NODE_SHARDS} node shards): {row['wall_s']:.3f} s for "
+        f"{calvin.epochs_for_ticks(spec.ticks)} epochs, commits={row['commits']} avg_waves={row['avg_waves']}, "
+        f"launches {got}")
+    if any(got.values()):
+        raise AssertionError(f"{NODE_CALVIN}: no RCC kernel launch expected: {got}")
+    node_row_check(NODE_CALVIN, row, want, ("hybrid", "commits", "aborts", "abort_rate", "avg_round_trips", "avg_waves"),
+                   ("throughput_mtps", "avg_latency_us"))
+    log(f"{NODE_CALVIN} golden: the row equals the JAX reference's (golden_calvin.json, hybrid 111111)")
+    launches[NODE_CALVIN], walls[NODE_CALVIN] = got, row["wall_s"]
+
+    spec = ExperimentSpec(protocol="nowait", workload="smallbank", configs=[{"hybrid": c} for c in CODES],
+                          kernel_plane="kernel", devices=NODE_DEVICES, node_shards=2)
+    res, got = counted_run(spec, counted)
+    log(res.plan.summary())
+    n_ticks = spec.ticks + spec.warmup
+    expect = {name: per * n_ticks for name, per in CONFIG_NODE_PER_TICK.items()}
+    log(f"main path {CONFIG_NODE_PATH} (kernel plane, codes {CODES}, 2 config shards x 2 node shards on one card): "
+        f"{res.wall_s:.3f} s, {len(CODES) / res.wall_s:.3f} configs/s, launches {got}")
+    if res.plan.layout != "config_node" or got != expect or {r["n_node_shards"] for r in res.rows} != {2}:
+        raise AssertionError(f"{CONFIG_NODE_PATH}: layout {res.plan.layout}, kernel launches {got} != {expect}")
+    show_rows(CONFIG_NODE_PATH, res)
+    golden_counters(CONFIG_NODE_PATH, res, "golden_nowait_smallbank.json")
+    launches[CONFIG_NODE_PATH], walls[CONFIG_NODE_PATH] = got, res.wall_s
+
+    # one final store: NOWAIT/SmallBank hybrid 63 node-sharded against the dense run's
+    gs = GridSpec(protocol="nowait", workload="smallbank", kernel_plane="kernel", device="cuda")
+    ec, cm, wl = engine_config(gs, make_knobs("smallbank", [{"hybrid": 63}]))
+    tick = get_protocol("nowait").tick
+    t0 = time.perf_counter()
+    _, node_store, node_m = engine.run_sharded(tick, ec, cm, wl, gs.ticks, warmup=gs.warmup, devices=NODE_DEVICES)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    _, dense_store, dense_m = engine.run(tick, ec, cm, wl, gs.ticks, warmup=gs.warmup)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    if set(node_store) != set(dense_store) or not all(torch.equal(node_store[k], dense_store[k]) for k in dense_store):
+        raise AssertionError("nowait/smallbank: the node-sharded final store differs from the dense run's")
+    if int(node_m["commits"][0]) != int(dense_m["commits"][0]):
+        raise AssertionError("nowait/smallbank: node-sharded and dense commits differ")
+    words = sum(v.numel() for v in dense_store.values())
+    log(f"{NODE_NOWAIT} final store: {len(dense_store)} arrays, {words} int32 words, equal to the dense run's "
+        f"(engine.run_sharded {t1 - t0:.3f} s, engine.run {t2 - t1:.3f} s)")
+    walls["nowait/smallbank/node4 engine.run_sharded"], walls["nowait/smallbank/g1 engine.run"] = t1 - t0, t2 - t1
+    log("node walls_s: " + json.dumps(walls))
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1188,9 +1499,11 @@ def main() -> int:
                 log(f"  {name}: {line.strip()}")
 
     kernels = phase_kernels()
+    phase_shard_kernels(torch.Generator().manual_seed(1), kernels)
     for protocol, workload in (("nowait", "smallbank"), ("mvcc", "ycsb")):
         for codes in ((63,), CODES):
             phase_profile(protocol, workload, codes)
+        phase_profile(protocol, workload, (63,), devices=NODE_DEVICES)
     phase_profile("nowait", "smallbank", tuple(range(64)))
 
     launches = {k["name"]: {} for k in kernels}
@@ -1244,6 +1557,11 @@ def main() -> int:
     for name, n in phase_calvin(counted).items():
         launches[name][CALVIN_PATH] = n
 
+    # the node-sharded layouts: four node shards on the one card
+    for path, got in phase_node(counted).items():
+        for name, n in got.items():
+            launches[name][path] = n
+
     # phase 7: the LM serving path (stablelm-1.6b at full width)
     for name, n in phase_serve(counted).items():
         launches[name][SERVE_PATH] = n
@@ -1251,9 +1569,14 @@ def main() -> int:
     for k in kernels:  # launches summed over the main paths' runs; times weighted by them
         k["launches"] = sum(launches[k["name"]].values())
         k["launches_by_path"] = launches[k["name"]]
-        mean = mix([(launches[k["name"]][p], r) for p, r in k["by_path"].items()])
-        k.update({key: mean[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                                             "host_ms", "plain_host_ms", "library_host_ms")})
+        weighted = [(launches[k["name"]][p], r) for p, r in k["by_path"].items()]
+        mean = mix(weighted)
+        k.update({key: mean[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "host_ms", "plain_host_ms")})
+        # the library call's mean over the paths that have one (none reads zeros for another shard's keys),
+        # beside the kernel's own mean over those paths
+        lib = [(n, r) for n, r in weighted if r.get("library_ms") is not None]
+        k.update({key: mix(lib)[key] if lib else None for key in ("library_ms", "library_host_ms")})
+        k["ms_library_paths"] = mix(lib)["ms"] if lib else None
     log(f"one_device_op: {len(EMPTY_TRACES)} traces with no device event: {json.dumps(EMPTY_TRACES)}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -14,7 +14,7 @@ in the same tick sees exactly what the reference's would.  The store
 scatters (:func:`write_rows`) write into a fresh copy with one spare row
 that takes the reference's out-of-range "drop" index.  The only in-place
 updates are to tensors the same function has just allocated
-(``_scatter_drop``'s copy, ``service_ops``' ranks, ``account_round``'s
+(``scatter_drop``'s copy, ``service_ops``' ranks, ``account_round``'s
 copy of ``stage_us``).
 
 **The config axis.**  One run carries ``EngineConfig.n_configs`` = G
@@ -31,9 +31,19 @@ exactly the reference's shapes.  A knob (``hybrid`` per stage, ``seed``,
 of the run shares it, so a run whose configs agree computes no per-config
 select, or a tuple of G values, expanded per row by :func:`per_row`.
 The rest of the code is the same for every G, one config included.
+
+**The node mesh.**  ``EngineConfig.shard`` is None for the dense run, or
+a :class:`~repro_torch.core.planes.NodeShard` (see :func:`run_sharded`).
+The state then stays on the coordinator (``device`` = the shard's first
+device) while every store array is a ``planes.Shards`` tuple of per-shard
+(G·R_l, ...) tensors, and every store access below routes through the
+planes transport: an owner-local step per shard and one exchange.  The
+steps that read no store word (the capacity ranking, the CAS contest)
+run once on the coordinator, as in the dense run.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, NamedTuple, Optional, Sequence, Tuple, Union
@@ -42,14 +52,13 @@ import numpy as np
 import torch
 
 from repro_torch.core import costmodel as cmod
-from repro_torch.core import prng
+from repro_torch.core import planes, prng
 from repro_torch.core.arbiter import hash_prio
 from repro_torch.core.costmodel import N_STAGES, RPC, CostModel
+from repro_torch.core.planes import NodeShard, Shards, scatter_drop
 from repro_torch.core.store import init_store
 from repro_torch.core.timestamps import TS, ts_eq, ts_is_zero
 from repro_torch.kernels import ops as kops
-
-_I32_MIN = -(2**31)
 
 # a per-config knob: one value for every config, or a tuple of one per config
 Knob = Union[int, float, Tuple]
@@ -69,7 +78,8 @@ class EngineConfig:
     identity-derived value uses LOGICAL ids, so a padded run equals the
     unpadded one bitwise.  ``kernel_plane`` picks the hot-path backend
     (:mod:`repro_torch.kernels.ops`); ``device`` is where every tensor of
-    the run lives.
+    the run lives, or, with ``shard`` set (the node mesh), where the
+    replicated state lives: the shard's first device.
     """
 
     protocol: str
@@ -90,6 +100,7 @@ class EngineConfig:
     kernel_plane: str = kops.TORCH
     device: str = "cuda"
     n_configs: int = 1
+    shard: Optional[NodeShard] = None
 
     def __post_init__(self):
         for name in ("active_coroutines", "active_records_per_node", "exec_ticks", "seed"):
@@ -111,6 +122,12 @@ class EngineConfig:
     def store_rows(self) -> int:
         """Rows of every store array (all configs), and the drop sentinel."""
         return self.n_configs * self.n_records
+
+    @property
+    def records_local(self) -> int:
+        """Store rows of one config that one node shard owns (= n_records
+        when dense)."""
+        return self.n_records // (self.shard.n_shards if self.shard else 1)
 
 
 def _check_knob(ec: EngineConfig, name: str, v) -> None:
@@ -419,6 +436,11 @@ def service_ops(ec: EngineConfig, cm: CostModel, st: Dict, op_mask, primitive_is
     hashed arrival priority; the sort is stable, as the reference's, and
     runs along each config's row, so the int32 sort key never holds the
     config.
+
+    Node-sharded, the ranking runs on the coordinator as in the dense run:
+    it reads the replicated request set (keys, ``ts_lo``, ``exec_left``)
+    and no store word, so the destination's own ranking would give the
+    same flags.
     """
     N, K = op_mask.shape
     G = ec.n_configs
@@ -446,21 +468,12 @@ def service_ops(ec: EngineConfig, cm: CostModel, st: Dict, op_mask, primitive_is
 
     prio = hash_prio(op_index(ec, K).reshape(-1) + per_op(st["ts_lo"], K), salt)
     group = dest * 2 + plane
-    sort_key = torch.where(active, group * (2**20) + (prio & (2**20 - 1)), 2**30).view(G, -1)
-    order = torch.argsort(sort_key, dim=1, stable=True)
-    # rank within group via the running start of each group's sorted run
-    g_sorted = group.view(G, -1).gather(1, order)
-    first = torch.ones_like(g_sorted, dtype=torch.bool)
-    first[:, 1:] = g_sorted[:, 1:] != g_sorted[:, :-1]
-    idx_in_sorted = torch.arange(g_sorted.shape[1], dtype=torch.int32, device=dev).expand_as(g_sorted)
-    seg_start = torch.cummax(torch.where(first, idx_in_sorted, 0), dim=1).values
-    rank = torch.empty_like(sort_key).scatter_(1, order, idx_in_sorted - seg_start).view(-1)
-
+    key = group * (2**20) + (prio & (2**20 - 1))
     if isinstance(plane, int):
         cap = rpc_cap[bdest] if plane else nic_cap
     else:
         cap = torch.where(plane > 0, rpc_cap[bdest], nic_cap)
-    served = active & (rank < cap)
+    served = active & (_group_rank(torch.where(active, key, 2**30).view(G, -1), group.view(G, -1)) < cap)
 
     # same-plane per-destination load (for queue-delay accounting)
     slot = bdest.long() * 2 + plane
@@ -469,6 +482,19 @@ def service_ops(ec: EngineConfig, cm: CostModel, st: Dict, op_mask, primitive_is
     )
     op_load = load[slot].to(torch.float32)
     return served.reshape(N, K), op_load.reshape(N, K)
+
+
+def _group_rank(sort_key, group):
+    """Each request's rank within its group: (G, M) int32 sort keys and
+    groups -> (G·M,) ranks along each config's row (the sort is stable;
+    a group's rank counts from the running start of its sorted run)."""
+    order = torch.argsort(sort_key, dim=1, stable=True)
+    g_sorted = group.gather(1, order)
+    first = torch.ones_like(g_sorted, dtype=torch.bool)
+    first[:, 1:] = g_sorted[:, 1:] != g_sorted[:, :-1]
+    idx_in_sorted = torch.arange(g_sorted.shape[1], dtype=torch.int32, device=sort_key.device).expand_as(g_sorted)
+    seg_start = torch.cummax(torch.where(first, idx_in_sorted, 0), dim=1).values
+    return torch.empty_like(sort_key).scatter_(1, order, idx_in_sorted - seg_start).view(-1)
 
 
 def base_time(ec: EngineConfig, cm: CostModel, st: Dict, canon_stage) -> Dict:
@@ -483,7 +509,7 @@ def base_time(ec: EngineConfig, cm: CostModel, st: Dict, canon_stage) -> Dict:
     st["lat_us"] = st["lat_us"] + tick
     G = ec.n_configs
     canon_stage = canon_stage + _ids(ec).cfg * N_STAGES
-    st["stage_us"] = _scatter_drop(
+    st["stage_us"] = scatter_drop(
         st["stage_us"], torch.where(active, canon_stage, G * N_STAGES), tick, accumulate=True
     )
     return st
@@ -531,24 +557,34 @@ def account_round(
 
 # ---------------------------------------------------------------------------
 # Store access helpers (the two communication planes differ only in cost and
-# round structure; raw memory semantics are identical).
+# round structure; raw memory semantics are identical).  Every helper routes
+# through the planes transport when the run is node-sharded.
 # ---------------------------------------------------------------------------
 
 
-def _scatter_drop(arr, idx, vals, *, accumulate: bool = False):
-    """``arr.at[idx].set/add(vals, mode="drop")``: a new tensor with rows
-    ``idx`` written, where an index >= ``len(arr)`` drops its write.
+def init_run_store(ec: EngineConfig, family: str, rw: int, init_value: int) -> Dict:
+    """The run's fresh store: (G·R, ...) arrays on ``ec.device``, or, node-
+    sharded, each array a ``Shards`` of (G·R_l, ...) arrays, one on each
+    shard's device (a shard's rows are the same words at any offset)."""
+    if ec.shard is None:
+        return init_store(family, ec.store_rows, rw, init_value, n_versions=ec.mvcc_slots, device=ec.device)
+    parts = [init_store(family, planes.local_rows(ec), rw, init_value, n_versions=ec.mvcc_slots, device=dev)
+             for dev in ec.shard.devices]
+    return {k: Shards(p[k] for p in parts) for k in parts[0]}
 
-    The copy carries one spare row that takes every dropped write; the
-    result is a view of its first ``len(arr)`` rows.  Adds to a repeated
-    index accumulate.
-    """
-    n = arr.shape[0]
-    ext = torch.cat([arr, arr.new_zeros((1,) + tuple(arr.shape[1:]))])
-    if not isinstance(vals, torch.Tensor):
-        vals = torch.full((), vals, dtype=arr.dtype, device=arr.device)
-    ext.index_put_((torch.clamp(idx, max=n).long(),), vals, accumulate=accumulate)
-    return ext[:n]
+
+def global_store(ec: EngineConfig, store: Dict) -> Dict:
+    """A node-sharded store laid back as the dense (G·R, ...) arrays on the
+    coordinator: each config's rows in owner order."""
+    if ec.shard is None:
+        return store
+    G = ec.n_configs
+    out = {}
+    for k, parts in store.items():
+        tail = tuple(parts[0].shape[1:])
+        rows = [p.to(ec.device).view((G, ec.records_local) + tail) for p in parts]
+        out[k] = torch.cat(rows, dim=1).view((G * ec.n_records,) + tail)
+    return out
 
 
 def gather_rows(arr, keys):
@@ -557,13 +593,19 @@ def gather_rows(arr, keys):
 
 
 def read_rows(ec: EngineConfig, arr, keys):
+    """Row gather: one-sided READ round when node-sharded."""
+    if ec.shard is not None:
+        return planes.node_read(ec, arr, keys)
     return gather_rows(arr, keys)
 
 
 def read_rows_many(ec: EngineConfig, arrs: Sequence, keys) -> Tuple:
     """Gather several store arrays at the same keys: independent gathers
     (torch plane) or ONE multi-read launch that reads every array in place
-    (kernel plane)."""
+    (kernel plane).  Node-sharded: ONE doorbell-batched exchange, its
+    owner-local reads on the same plane."""
+    if ec.shard is not None:
+        return planes.node_read_batch(ec, arrs, keys)
     if ec.kernel_plane == kops.KERNEL:
         return kops.gather_many(arrs, keys, plane=ec.kernel_plane)
     return tuple(gather_rows(a, keys) for a in arrs)
@@ -571,6 +613,8 @@ def read_rows_many(ec: EngineConfig, arrs: Sequence, keys) -> Tuple:
 
 def read_rows2(ec: EngineConfig, arr, keys, sel):
     """(row, slot) gather from a (R, S, ...) store array (MVCC versions)."""
+    if ec.shard is not None:
+        return planes.node_read2(ec, arr, keys, sel)
     flat = arr[keys.reshape(-1), sel.reshape(-1)]
     return flat.reshape(keys.shape + arr.shape[2:])
 
@@ -578,21 +622,28 @@ def read_rows2(ec: EngineConfig, arr, keys, sel):
 def write_rows(ec: EngineConfig, arr, idx, vals, *, op: str = "set"):
     """Row scatter.  ``idx`` (M,) rows, with the drop sentinel
     (>= store_rows) for masked-off requests."""
-    return _scatter_drop(arr, idx, vals, accumulate=op == "add")
+    if ec.shard is not None:
+        return planes.node_write(ec, arr, idx, vals, op=op)
+    return scatter_drop(arr, idx, vals, accumulate=op == "add")
 
 
 def write_rows2(ec: EngineConfig, arr, idx, sel, vals, *, op: str = "set"):
     """(row, slot) scatter into a (R, S, ...) store array."""
+    if ec.shard is not None:
+        return planes.node_write2(ec, arr, idx, sel, vals, op=op)
     R, S = arr.shape[0], arr.shape[1]
     flat = arr.reshape((R * S,) + tuple(arr.shape[2:]))
     fidx = torch.where(idx < R, idx * S + sel, R * S)
-    return _scatter_drop(flat, fidx, vals, accumulate=op == "add").reshape(arr.shape)
+    return scatter_drop(flat, fidx, vals, accumulate=op == "add").reshape(arr.shape)
 
 
 def arb_winner(ec: EngineConfig, keys, prio_hi, prio_lo, active):
     """Per-key CAS arbitration (the RNIC's serialization of one round):
     scatter-min (torch plane) or the arbitration kernel, one group per
-    config (kernel plane), the same lexicographic-min winners bitwise."""
+    config (kernel plane), the same lexicographic-min winners bitwise.
+    Node-sharded, the contest runs once on the coordinator over the global
+    rows: its inputs are the replicated requests, no store word, so each
+    owner's contest over its own rows would give the same flags."""
     return kops.cas_arbitrate(
         keys, prio_hi, prio_lo, active, ec.store_rows, plane=ec.kernel_plane, groups=ec.n_configs
     )
@@ -600,19 +651,10 @@ def arb_winner(ec: EngineConfig, keys, prio_hi, prio_lo, active):
 
 def scatter_ts_max(ec: EngineConfig, hi_arr, lo_arr, idx, ch, cl, active):
     """Lexicographic scatter-max of (ch, cl) timestamps into a store TS pair
-    (MVCC rts bump, SUNDIAL lease renewal)."""
-    r = ec.store_rows
-    li = torch.clamp(idx, max=r).long()
-
-    def seg_max(vals):
-        ext = torch.full((r + 1,), _I32_MIN, dtype=torch.int32, device=vals.device)
-        return ext.scatter_reduce(0, li, vals, "amax")[:r]
-
-    cand_hi = seg_max(torch.where(active, ch, _I32_MIN))
-    at_max = active & (ch == cand_hi[torch.clamp(idx, 0, r - 1).long()])
-    cand_lo = seg_max(torch.where(at_max, cl, _I32_MIN))
-    upd = (hi_arr < cand_hi) | ((hi_arr == cand_hi) & (lo_arr < cand_lo))
-    return torch.where(upd, cand_hi, hi_arr), torch.where(upd, cand_lo, lo_arr)
+    (MVCC rts bump, SUNDIAL lease renewal); owner-local when sharded."""
+    if ec.shard is not None:
+        return planes.node_scatter_ts_max(ec, hi_arr, lo_arr, idx, ch, cl, active)
+    return planes.ts_max_into(hi_arr, lo_arr, idx, ch, cl, active)
 
 
 def try_lock(ec: EngineConfig, store, st, op_mask, prio_hi, prio_lo):
@@ -665,14 +707,14 @@ def finish_commit(ec: EngineConfig, cm: CostModel, st: Dict, mask) -> Dict:
         cfg = _ids(ec).cfg
         row = torch.where(mask, st["h_idx"][cfg] + offs, H)
         row = torch.where(row < H, row + cfg * H, G * H)  # drop when full
-        st["h_keys"] = _scatter_drop(st["h_keys"], row, local_keys(ec, st["keys"]))
-        st["h_ver_r"] = _scatter_drop(st["h_ver_r"], row, st["ver_seen"])
+        st["h_keys"] = scatter_drop(st["h_keys"], row, local_keys(ec, st["keys"]))
+        st["h_ver_r"] = scatter_drop(st["h_ver_r"], row, st["ver_seen"])
         ver_w = st["ver_seen"] + st["is_w"].to(torch.int32)
-        st["h_ver_w"] = _scatter_drop(st["h_ver_w"], row, ver_w)
-        st["h_isw"] = _scatter_drop(st["h_isw"], row, st["is_w"])
-        st["h_valid"] = _scatter_drop(st["h_valid"], row, st["valid"])
-        st["h_ts_hi"] = _scatter_drop(st["h_ts_hi"], row, st["ts_hi"])
-        st["h_ts_lo"] = _scatter_drop(st["h_ts_lo"], row, st["ts_lo"])
+        st["h_ver_w"] = scatter_drop(st["h_ver_w"], row, ver_w)
+        st["h_isw"] = scatter_drop(st["h_isw"], row, st["is_w"])
+        st["h_valid"] = scatter_drop(st["h_valid"], row, st["valid"])
+        st["h_ts_hi"] = scatter_drop(st["h_ts_hi"], row, st["ts_hi"])
+        st["h_ts_lo"] = scatter_drop(st["h_ts_lo"], row, st["ts_lo"])
         st["h_idx"] = st["h_idx"] + m.sum(dim=1, dtype=torch.int32)
     return st
 
@@ -708,10 +750,7 @@ def run(
     """
     from repro_torch.core.registry import protocol_family
 
-    store = init_store(
-        protocol_family(ec.protocol), ec.store_rows, wl.rw, wl.init_value,
-        n_versions=ec.mvcc_slots, device=ec.device,
-    )
+    store = init_run_store(ec, protocol_family(ec.protocol), wl.rw, wl.init_value)
     st = init_state(ec, wl)
 
     def tick(st, store, t):
@@ -738,6 +777,48 @@ def run(
     return st, store, summarize(ec, cm, st, n_eff)
 
 
+def run_sharded(
+    protocol_tick,
+    ec: EngineConfig,
+    cm: CostModel,
+    wl: Workload,
+    n_ticks: int,
+    warmup: int = 0,
+    *,
+    devices: Optional[Sequence] = None,
+):
+    """:func:`run` with the simulated cluster on a node mesh: the store
+    sharded over ``devices`` (whole simulated nodes per shard), the
+    per-slot state replicated on the first device, every store access an
+    owner-local step per shard plus one exchange (:mod:`planes`).  Counters
+    and the store equal the dense run's bitwise.
+
+    ``devices`` defaults to every visible device of ``ec.device``'s type
+    (:func:`planes.visible_devices`); a device may repeat.  Their count must
+    divide ``ec.n_nodes``.  Returns (state, GLOBAL store, metrics), as
+    :func:`run`.
+    """
+    ec_sh = node_mesh_config(ec, devices)
+    st, store, m = run(protocol_tick, ec_sh, cm, wl, n_ticks, warmup=warmup)
+    return st, global_store(ec_sh, store), m
+
+
+def node_mesh_config(ec: EngineConfig, devices: Optional[Sequence]) -> EngineConfig:
+    """Validate the node mesh and return the sharded config (its state on
+    the mesh's first device).  Shared by :func:`run_sharded` and CALVIN's
+    epoch runner."""
+    if ec.shard is not None:
+        raise ValueError("node mesh: config already node-sharded")
+    devices = tuple(str(d) for d in devices) if devices is not None else planes.visible_devices(ec.device)
+    n_shards = len(devices)
+    if ec.n_nodes % n_shards:
+        raise ValueError(
+            f"node mesh: {n_shards} device(s) must divide n_nodes={ec.n_nodes} "
+            "(shards own whole simulated nodes)"
+        )
+    return dataclasses.replace(ec, device=devices[0], shard=NodeShard(n_shards, devices))
+
+
 # state tensors that the configs of a batch share; every other state or
 # store tensor's leading axis is (G·X), config g's rows g·X .. g·X + X - 1
 SHARED = frozenset({"tick"})
@@ -752,16 +833,23 @@ def _rows_per_config(ec: EngineConfig, k: str, v) -> int:
 
 def _freeze(ec: EngineConfig, keep, new: Dict, old: Dict) -> Dict:
     """``new`` where ``keep`` (G,) holds, ``old`` elsewhere: every tensor
-    takes its config's choice, a tensor in SHARED takes ``new``."""
+    takes its config's choice (each shard of a sharded array its slice of
+    the config), a tensor in SHARED takes ``new``."""
     G = ec.n_configs
+
+    def pick(k, v, o):
+        shape = (G, _rows_per_config(ec, k, v)) + tuple(v.shape[1:])
+        m = keep.to(v.device).view((G,) + (1,) * v.dim())
+        return torch.where(m, v.reshape(shape), o.reshape(shape)).reshape(v.shape)
+
     out = {}
     for k, v in new.items():
         if k in SHARED:
             out[k] = v
-            continue
-        shape = (G, _rows_per_config(ec, k, v)) + tuple(v.shape[1:])
-        m = keep.view((G,) + (1,) * v.dim())
-        out[k] = torch.where(m, v.reshape(shape), old[k].reshape(shape)).reshape(v.shape)
+        elif isinstance(v, Shards):
+            out[k] = Shards(pick(k, a, b) for a, b in zip(v, old[k]))
+        else:
+            out[k] = pick(k, v, old[k])
     return out
 
 

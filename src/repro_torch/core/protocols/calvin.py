@@ -14,7 +14,9 @@ the epoch barrier serializes sequencer rounds regardless of overlap.
 
 The runner takes the engine's config axis: G configs run their epochs
 together, each epoch's waves to the largest wave count in the batch.  The
-wave count is read on the host once per epoch.
+wave count is read on the host once per epoch, node-sharded too
+(:func:`run_epochs_sharded`: the store split by owner, each wave's reads
+and writes routed through the planes transport).
 """
 from __future__ import annotations
 
@@ -29,7 +31,6 @@ from repro_torch.core import prng
 from repro_torch.core import registry
 from repro_torch.core.costmodel import ONE_SIDED, CostModel
 from repro_torch.core.engine import EngineConfig, Knob, Workload
-from repro_torch.core.store import init_store
 
 tick = None  # CALVIN uses the epoch runner below, not the slot engine
 STAGES_USED = ("sequence", "forward", "execute")
@@ -123,10 +124,13 @@ def run_epochs(
     config) is the tick-bucketing mask: epochs past it execute zero waves,
     leave the store alone, and contribute zero to every stat, so a padded
     run is bitwise-equal to a run of exactly ``epochs_active`` epochs.
+    With ``ec.shard`` set the store is node-sharded (returned as such) and
+    the wave executor's gathers and scatters route through the planes
+    transport: one exchange per wave's read.
     """
     G, K = ec.n_configs, wl.max_ops
     dev = ec.device
-    store = init_store("nowait", ec.store_rows, wl.rw, wl.init_value, device=dev)
+    store = eng.init_run_store(ec, "nowait", wl.rw, wl.init_value)
     hy0 = ec.hybrid[0]
     if isinstance(hy0, tuple):  # the batch's configs differ
         one_sided = torch.tensor([h == ONE_SIDED for h in hy0], device=dev)
@@ -220,6 +224,25 @@ def run_epochs(
     return store, metrics
 
 
+def run_epochs_sharded(
+    ec: EngineConfig,
+    cm: CostModel,
+    wl: Workload,
+    n_epochs: int,
+    *,
+    devices=None,
+    epochs_active: Optional[Knob] = None,
+):
+    """:func:`run_epochs` on a node mesh (``engine.node_mesh_config``):
+    the partitioned store sharded by owner, sequencing and forwarding cost
+    replicated bookkeeping, each dependency wave's record exchange one
+    plane round.  Returns (GLOBAL store, metrics), bitwise the dense
+    :func:`run_epochs`'."""
+    ec_sh = eng.node_mesh_config(ec, devices)
+    store, m = run_epochs(ec_sh, cm, wl, n_epochs, epochs_active=epochs_active)
+    return eng.global_store(ec_sh, store), m
+
+
 # ---------------------------------------------------------------------------
 # Registry entry: CALVIN is epoch-driven, so it owns its run hooks instead of
 # a slot-engine tick.  ``ticks`` from the front door map onto epochs at the
@@ -242,14 +265,20 @@ def _grid_run(entry, ec, cm, wl, *, ticks, warmup, ticks_active):
     return m
 
 
+def _node_run(entry, ec, cm, wl, *, ticks, warmup, devices):
+    _, m = run_epochs_sharded(ec, cm, wl, epochs_for_ticks(ticks), devices=devices)
+    return m
+
+
 registry.register_protocol(
     "calvin",
     tick=None,
     stages=STAGES_USED,
-    hooks=registry.RunHooks(grid_run=_grid_run, node_run=registry.DEFAULT_HOOKS.node_run),
+    hooks=registry.RunHooks(grid_run=_grid_run, node_run=_node_run),
     capabilities=registry.Caps(
-        # the wave executor's per-config wave count cannot batch around the
-        # node collectives: single-config node meshes only (ROADMAP A.10)
+        # the reference's wave executor iterates a per-config traced wave
+        # count that cannot batch around its node collectives: single-config
+        # node meshes only, as there
         node_shardable=True,
         batch_node_shardable=False,
         deterministic=True,

@@ -98,8 +98,12 @@ def _version_read(ec, store, keys, ctts: TS, with_lock: bool):
 
     The kernel plane does it in ONE launch that reads the store in place
     (``kops.version_read``); the torch plane gathers, then picks inline.
+    Node-sharded, the fused read's outputs are no owner-only addends, so
+    it takes the reference's route on both planes: the rows come back in
+    one exchange each (wts pair, lock pair), then the pick runs on the
+    combined rows (``kops.version_select`` on the kernel plane).
     """
-    if ec.kernel_plane == kops.KERNEL:
+    if ec.kernel_plane == kops.KERNEL and ec.shard is None:
         lock = (store["lock_hi"], store["lock_lo"]) if with_lock else (None, None)
         found, slot, r2, wh, wl = kops.version_read(
             store["wts_hi"], store["wts_lo"], keys, ctts.hi.reshape(-1), ctts.lo.reshape(-1), *lock

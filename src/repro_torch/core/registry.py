@@ -3,8 +3,7 @@
 A protocol is one module plus one :func:`register_protocol` call; every
 front-door surface picks it up by name.  The port registers nowait,
 waitdie, occ, mvcc, sundial and calvin when ``repro_torch.core.protocols``
-is imported; :func:`get_protocol` triggers that import lazily.  Only the
-dense run is ported: ``RunHooks.node_run`` raises (ROADMAP A.10).
+is imported; :func:`get_protocol` triggers that import lazily.
 """
 from __future__ import annotations
 
@@ -40,7 +39,10 @@ def _default_grid_run(entry: "ProtocolEntry", ec, cm, wl, *, ticks, warmup, tick
 
 
 def _default_node_run(entry: "ProtocolEntry", ec, cm, wl, *, ticks, warmup, devices):
-    raise NotImplementedError("node-sharded runs are not ported yet: ROADMAP A.10")
+    from repro_torch.core.engine import run_sharded
+
+    _, _, m = run_sharded(entry.tick, ec, cm, wl, ticks, warmup=warmup, devices=devices)
+    return m
 
 
 DEFAULT_HOOKS = RunHooks(grid_run=_default_grid_run, node_run=_default_node_run)

@@ -1,5 +1,5 @@
 """Batched sweep engine: a bucket of engine configurations as ONE run (port
-of ``repro.core.sweep``, dense layout).
+of ``repro.core.sweep``).
 
 The reference vmaps a grid of knob settings through one compiled program.
 The port writes the config axis out instead (``engine.EngineConfig.
@@ -16,6 +16,13 @@ only where the codes differ.
 buckets padded to the bucket's maximum, exactly as the reference does;
 the per-config ACTIVE extents ride as knobs, and padded slots, records
 and ticks are inert, so every row equals its unpadded run.
+
+The device layouts (``repro_torch.api``): :func:`_run_sharded` splits a
+bucket's config axis over devices, :func:`_run_sharded_2d` also runs each
+part node-sharded (the ``config × node`` mesh), and :func:`_run_node` runs
+one config node-sharded.  One controller drives them: each part is one
+run on its device (or node mesh), one after the other.  The reference's
+jit caches and compile counters have no counterpart: nothing compiles.
 """
 from __future__ import annotations
 
@@ -26,7 +33,7 @@ import numpy as np
 
 from repro_torch.core import registry
 from repro_torch.core.costmodel import N_HYBRID_STAGES, RPC, CostModel
-from repro_torch.core.engine import EngineConfig, uniform
+from repro_torch.core.engine import EngineConfig, node_mesh_config, uniform
 from repro_torch.workloads import make_workload
 
 # per-workload knob defaults, mirroring each factory's signature
@@ -180,14 +187,75 @@ def engine_config(spec: GridSpec, kn: RunKnobs):
     return ec, cm, wl
 
 
-def _run_one(spec: GridSpec, kn: RunKnobs) -> Dict:
-    """One bucket as one run; returns the ``engine.summarize`` metrics with
-    a leading config axis (tensors on the run's device)."""
+def _run_one(spec: GridSpec, kn: RunKnobs, node_devices: Optional[Sequence[str]] = None) -> Dict:
+    """One bucket as one run (node-sharded over ``node_devices`` when
+    given); returns the ``engine.summarize`` metrics with a leading config
+    axis (tensors on the run's device)."""
     ec, cm, wl = engine_config(spec, kn)
+    if node_devices is not None:
+        ec = node_mesh_config(ec, node_devices)
     entry = registry.get_protocol(spec.protocol)
     ta = None if kn.ticks_active is None else tuple(kn.ticks_active.tolist())
     # epoch-vs-tick dispatch lives in the registry entry's hooks
     return entry.hooks.grid_run(entry, ec, cm, wl, ticks=spec.ticks, warmup=spec.warmup, ticks_active=ta)
+
+
+def _knob_rows(kn: RunKnobs, rows) -> RunKnobs:
+    """The knobs of the configs at ``rows`` (an index array)."""
+    return RunKnobs(*(None if a is None else a[rows] for a in kn))
+
+
+def _padded_parts(kn: RunKnobs, n_parts: int):
+    """A bucket's knobs padded to a multiple of ``n_parts`` configs by
+    repeating the last config, in ``n_parts`` equal consecutive parts."""
+    size = kn.n_configs
+    rows = np.minimum(np.arange(size + (-size) % n_parts), size - 1)
+    return [_knob_rows(kn, r) for r in np.split(rows, n_parts)]
+
+
+def _rows_out(outs: List[Dict], size: int) -> Dict:
+    """Per-part metrics laid back on the config axis as numpy arrays, the
+    pad rows sliced off."""
+    return {k: np.concatenate([o[k].cpu().numpy() for o in outs])[:size] for k in outs[0]}
+
+
+def _run_sharded(spec: GridSpec, kn: RunKnobs, devices: Sequence) -> Dict:
+    """One bucket with its config axis split over ``devices``: padded to a
+    multiple of the device count by repeating the last config, each part
+    one run on its device, the pad rows sliced off the output (numpy
+    arrays with a leading config axis)."""
+    parts = _padded_parts(kn, len(devices))
+    outs = [_run_one(spec._replace(device=str(dev)), part) for dev, part in zip(devices, parts)]
+    return _rows_out(outs, kn.n_configs)
+
+
+def _run_sharded_2d(spec: GridSpec, kn: RunKnobs, devices: Sequence, node_shards: int) -> Dict:
+    """One bucket on a 2-D ``config × node`` mesh: ``devices`` in rows of
+    ``node_shards``; the config axis splits over the rows as in
+    :func:`_run_sharded`, and each row runs its configs node-sharded."""
+    entry = registry.get_protocol(spec.protocol)
+    if not entry.caps.batch_node_shardable:
+        raise ValueError(
+            f"protocol {spec.protocol!r} cannot run on a 2-D config × node mesh: "
+            "its registry entry sets Caps(batch_node_shardable=False); shard the "
+            "config axis only (node_shards=None)"
+        )
+    devices = [str(d) for d in devices]
+    mesh = [tuple(devices[i:i + node_shards]) for i in range(0, len(devices), node_shards)]
+    parts = _padded_parts(kn, len(mesh))
+    outs = [_run_one(spec, part, row) for row, part in zip(mesh, parts)]
+    return _rows_out(outs, kn.n_configs)
+
+
+def _run_node(spec: GridSpec, kn: RunKnobs, devices: Sequence) -> Dict:
+    """ONE config with the simulated ``n_nodes`` axis node-sharded over
+    ``devices`` (the protocol's ``node_run`` hook); the metrics without a
+    config axis, as Python values."""
+    ec, cm, wl = engine_config(spec._replace(device=str(devices[0])), kn)
+    entry = registry.get_protocol(spec.protocol)
+    m = entry.hooks.node_run(entry, ec, cm, wl, ticks=spec.ticks, warmup=spec.warmup,
+                             devices=tuple(str(d) for d in devices))
+    return {k: v[0].tolist() for k, v in m.items()}
 
 
 # ---------------------------------------------------------------------------

@@ -191,8 +191,15 @@ def test_registry_entry_and_order_match_reference():
     assert tuple(t.caps) == tuple(j.caps)
     assert tcalvin.epochs_for_ticks(400) == jcalvin.epochs_for_ticks(400) == 50
     assert tcalvin.epochs_for_ticks(17) == jcalvin.epochs_for_ticks(17) == 8
-    with pytest.raises(NotImplementedError, match="A.10"):
-        t.hooks.node_run(t, None, None, None, ticks=8, warmup=0, devices=None)
+    # the node hook runs the epochs node-sharded (run_epochs_sharded), to the reference's dense metrics
+    jec, jwl, common, twl = _engine_configs("ycsb", 42)
+    _, jm = jcalvin.run_epochs(jec, JCostModel(), jwl, tcalvin.epochs_for_ticks(72))
+    tm = t.hooks.node_run(t, teng.EngineConfig(**common, device="cpu"), TCostModel(), twl, ticks=72, warmup=0,
+                          devices=("cpu",) * 2)
+    for k in ("commits", "aborts", "avg_round_trips", "avg_waves", "abort_rate"):
+        assert tm[k].shape == (1,) and tm[k].item() == np.asarray(jm[k]).item(), k
+    for k in FLOAT:
+        np.testing.assert_allclose(tm[k].item(), np.asarray(jm[k]), rtol=RTOL, err_msg=k)
 
 
 @pytest.mark.parametrize("configs,over", [

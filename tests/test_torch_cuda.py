@@ -226,6 +226,109 @@ def test_mvcc_version_select_cuda_matches_plain(card, M, S, kind):
         assert bool((got[1] == 1).all())
 
 
+def _node_config(G, n_shards=4):
+    """A paper-width EngineConfig of G configs on a node mesh of one card."""
+    from repro_torch.core.engine import EngineConfig, node_mesh_config
+
+    ec = EngineConfig(protocol="nowait", n_nodes=4, records_per_node=65536, n_configs=G, kernel_plane="kernel",
+                      device="cuda")
+    return node_mesh_config(ec, ("cuda",) * n_shards)
+
+
+@pytest.mark.parametrize("G,M,n_keys,ties", [(1, 480, 262144, False), (1, 2400, 262144, True), (4, 480, 64, True),
+                                             (4, 2400, 262144, False), (2, 12000, 262144, True)])
+def test_lock_arbiter_cuda_on_the_node_mesh(card, G, M, n_keys, ties):
+    """The node mesh's arbitration: one launch on the coordinator over the
+    G*R global rows, a third of the requests on the rows either side of a
+    shard boundary; its winners equal the plain version's."""
+    from repro_torch.core import engine
+
+    ec = _node_config(G)
+    keys, hi, lo, act = (torch.tensor(a) for a in _arbiter_case(G, M, n_keys, G + M, ties=ties))
+    r_l = ec.records_local
+    edge = torch.tensor([s * r_l + d for s in range(1, 4) for d in (-1, 0)], dtype=torch.int32)
+    keys[:, ::3] = edge[torch.arange(keys[:, ::3].numel()) % len(edge)].view(G, -1)
+    keys = keys + torch.arange(G, dtype=torch.int32)[:, None] * ec.n_records
+    n = lock_arbiter.launches
+    got = engine.arb_winner(ec, *(a.reshape(-1).to(card) for a in (keys, hi, lo, act))).cpu()
+    assert lock_arbiter.launches == n + (1 if M <= 4096 else 2)  # past 4096 requests: insert and decide
+    want = torch.cat([ref.lock_arbiter_ref(*(a[g:g + 1] for a in (keys, hi, lo, act))) for g in range(G)])
+    assert torch.equal(got, want.reshape(-1))
+
+
+@pytest.mark.parametrize("G,M,shapes", [(1, 480, ((), ())), (1, 480, ((2,), ())), (4, 2400, ((4,), (4,), ())),
+                                        (64, 480, ((), ()))])
+def test_multi_read_cuda_per_shard_keys(card, G, M, shapes):
+    """Each shard's gather on its own (G*R_l, ...) arrays with local keys
+    outside [0, R_l) (the drop form; at G = 1 also the unclipped
+    ``key - s*R_l``): zero rows there, as the plain version; the shards'
+    summed replies are the dense gather."""
+    from repro_torch.core import planes
+    from repro_torch.core.planes import Shards
+    from repro_torch.kernels import ops
+
+    ec = _node_config(G)
+    gen = torch.Generator().manual_seed(G + M)
+    glob = [torch.randint(-(2**31), 2**31 - 1, (G * ec.n_records,) + sh, generator=gen, dtype=torch.int32)
+            for sh in shapes]
+    split = [Shards(a.view((G, 4, ec.records_local) + sh)[:, s].reshape((-1,) + sh).contiguous().to(card)
+                    for s in range(4)) for a, sh in zip(glob, shapes)]
+    keys = torch.randint(0, G * ec.n_records, (M,), generator=gen, dtype=torch.int32)
+    owner, local = planes.owner_local(ec, keys)
+    for s in range(4):
+        forms = [planes.local_ix_drop(ec, s, owner, local)] + ([keys - s * ec.records_local] if G == 1 else [])
+        for li in forms:
+            n = multi_read.launches
+            got = ops.gather_many([a[s] for a in split], li.to(card), plane=ops.KERNEL)
+            assert multi_read.launches == n + 1
+            for g, w in zip(got, ref.gather_many_ref([a[s].cpu() for a in split], li)):
+                assert torch.equal(g.cpu(), w)
+    got = planes.node_read_batch(ec, split, keys.to(card))
+    for g, w in zip(got, ref.gather_many_ref(glob, keys)):
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("protocol,workload", [("nowait", "smallbank"), ("mvcc", "ycsb"), ("calvin", "ycsb")])
+def test_node_layout_on_the_card_matches_dense(card, protocol, workload):
+    """Four node shards on the one card: the node row equals the dense
+    row (kernel plane, and the torch plane on the CPU), with the node
+    path's launches per tick."""
+    from repro_torch.api import ExperimentSpec, run
+
+    kw = dict(protocol=protocol, workload=workload, configs=[{"hybrid": 63}], n_nodes=4, coroutines=6,
+              records_per_node=64, ticks=32, warmup=4)
+    counts = (lock_arbiter.launches, multi_read.launches, mvcc_version_select.launches)
+    node = run(ExperimentSpec(kernel_plane="kernel", layout="node", devices=("cuda",) * 4, **kw)).row
+    got = tuple(c.launches - n for c, n in zip((lock_arbiter, multi_read, mvcc_version_select), counts))
+    per_tick = {"nowait": (1, 8, 0), "mvcc": (1, 40, 3), "calvin": (0, 0, 0)}[protocol]
+    assert got == tuple(p * 36 for p in per_tick)
+    dense = run(ExperimentSpec(kernel_plane="kernel", **kw)).row
+    cpu = run(ExperimentSpec(kernel_plane="torch", layout="node", devices=("cpu",) * 4, device="cpu", **kw)).row
+    for key in ("commits", "aborts", "abort_rate", "avg_round_trips"):
+        assert node[key] == dense[key] == cpu[key], key
+    assert node["n_node_shards"] == 4
+
+
+@pytest.mark.parametrize("protocol,workload", [("nowait", "smallbank"), ("mvcc", "ycsb")])
+@pytest.mark.parametrize("layout,node_shards", [("config", None), ("config_node", 2)])
+def test_config_layouts_on_the_card_match_dense(card, protocol, workload, layout, node_shards):
+    """The config axis split over two parts on the one card (three codes,
+    so the last part is padded), and on a 2 x 2 config x node mesh: the
+    rows equal the dense run's."""
+    from repro_torch.api import ExperimentSpec, run
+
+    kw = dict(protocol=protocol, workload=workload, configs=[{"hybrid": c} for c in (0, 63, 21)], n_nodes=4,
+              coroutines=6, records_per_node=64, ticks=32, warmup=4, kernel_plane="kernel")
+    n_dev = 2 * (node_shards or 1)
+    res = run(ExperimentSpec(layout=layout, devices=("cuda",) * n_dev, node_shards=node_shards, **kw))
+    assert res.plan.layout == layout and res.plan.n_devices == n_dev
+    dense = run(ExperimentSpec(**kw)).rows
+    for a, b in zip(res.rows, dense):
+        for key in ("hybrid", "commits", "aborts", "abort_rate", "avg_round_trips", "throughput_mtps"):
+            assert a[key] == b[key], key
+        assert a["n_node_shards"] == (node_shards or 1)
+
+
 @pytest.mark.parametrize("protocol,workload", [("nowait", "smallbank"), ("mvcc", "ycsb")])
 def test_kernel_plane_matches_torch_plane_on_the_card(card, protocol, workload):
     from repro_torch.api import ExperimentSpec, run

@@ -174,23 +174,38 @@ def test_plan_defaults_to_cuda_and_refuses_without_it():
 
 
 def test_plan_names_plane_and_device_and_rejects_unported_layouts():
-    """Kept: the plane and device in the summary, and the refusal of the
-    layouts still to port (node, devices, node_shards: ROADMAP A.10).  A
-    per-config static axis and calvin used to be refused here as well; they
-    now run, to the reference's rows."""
+    """The plane and device in the summary.  The layouts this test once
+    refused (node, devices, node_shards) are ported: each case now plans
+    as the reference's planner does and runs to the reference's rows (the
+    node layout to its dense row, the reference's own contract), and
+    node_shards with no devices named meets the reference's error on one
+    device.  A per-config static axis and calvin, refused here once too,
+    run to the reference's rows as well."""
     pl = tapi.plan(tapi.ExperimentSpec(protocol="nowait", workload="smallbank", device="cpu", **KW))
     assert pl.kernel_plane == "torch"  # "auto" on the CPU
     s = pl.summary()
-    assert "kernel plane: torch" in s and "device: cpu" in s
+    assert "kernel plane: torch" in s and "device: cpu" in s and "layout: dense" in s
     pk = tapi.plan(tapi.ExperimentSpec(protocol="nowait", workload="smallbank", device="cpu",
                                        kernel_plane="kernel", **KW))
     assert "kernel plane: kernel" in pk.summary()
-    for bad in (dict(layout="node"), dict(devices="auto"), dict(node_shards=2)):
-        with pytest.raises(NotImplementedError, match="ROADMAP A.10"):
-            tapi.plan(tapi.ExperimentSpec(protocol="nowait", workload="smallbank", device="cpu",
-                                          **dict(KW, **bad)))
-    with pytest.raises(NotImplementedError, match="ROADMAP A.10"):
-        tapi.run(tapi.ExperimentSpec(protocol="mvcc", workload="ycsb", device="cpu", layout="node", **KW))
+    cases = [("nowait", "smallbank", dict(layout="node", devices=("cpu",) * 2), "node"),
+             ("nowait", "smallbank", dict(devices="auto"), "dense"),
+             ("nowait", "smallbank", dict(node_shards=2, devices=("cpu",) * 2), "node"),
+             ("mvcc", "ycsb", dict(layout="node", devices=("cpu",) * 2), "node")]
+    for proto, workload, over, layout in cases:
+        spec = dict(protocol=proto, workload=workload, **KW)
+        tp = tapi.plan(tapi.ExperimentSpec(device="cpu", **spec, **over))
+        assert tp.layout == layout, over
+        a, b = _jax_rows(proto, workload, [{}], KW)[0], tapi.execute(tp).row
+        for k in EXACT:
+            assert a[k] == b[k], (proto, over, k)
+        for k in LATENCY:
+            np.testing.assert_allclose(b[k], a[k], rtol=RTOL, err_msg=k)
+        assert b["n_node_shards"] == (2 if layout == "node" else 1)
+    with pytest.raises(ValueError, match=r"node_shards=2 > visible devices \(1\)"):
+        tapi.plan(tapi.ExperimentSpec(protocol="nowait", workload="smallbank", device="cpu", node_shards=2, **KW))
+    with pytest.raises(ValueError, match=r"node_shards=2 > visible devices \(1\)"):
+        japi.plan(japi.ExperimentSpec(protocol="nowait", workload="smallbank", node_shards=2, **KW))
     # a config that sweeps a static axis plans into the reference's buckets and runs to its rows
     configs = [{"hybrid": 21, "coroutines": 4}, {"hybrid": 42}]
     j_rows, t_rows = _rows_both("nowait", "torch", configs=configs)
