@@ -60,7 +60,17 @@ Run from a checkout of the repository on a machine with one CUDA card and
    time and idle share), then the main path ``serve`` (4 prompts of 2048
    tokens, 32 tokens each) on the ``"kernel"`` plane, whose prefill must
    launch ``flash_attention`` once per layer, and on the ``"torch"`` plane,
-   whose prefill logits and decided greedy tokens must agree.
+   whose prefill logits and decided greedy tokens must agree;
+9. the LM training path, stablelm-1.6b at full width in float32 with TF32
+   off: 3 AdamW steps at the depth the reference's golden file was cut to
+   (its pipeline tokens bitwise, losses, grad_norms and leaf sums within
+   10x the port's CPU gap), then the main path at full width and depth,
+   ``build_train_step`` on B = 4 x 2048 tokens for 5 AdamW steps (ms per
+   step, tokens/s, peak memory, finite losses, step 0's loss against a
+   torch-plane forward, one step profiled beside its bound; no hand-written
+   kernel may launch: training takes the reference's XLA attention route),
+   and a reduced ``TrainRunner`` whose injected failure leaves the loss
+   stream of the run without it, bitwise.
 
 Every path's kernel launches are counted from 0 just before it runs and
 read just after.  It prints a JSON line of kernel measurements (each
@@ -1067,6 +1077,154 @@ def phase_serve(counted):
     return got
 
 
+# the LM training main path: stablelm-1.6b at full width and depth, float32, AdamW, remat "full"
+TRAIN = dict(batch=4, seq=2048, steps=5)
+TRAIN_PATH = "train/stablelm-1.6b"
+# step-0 loss of the training path against a torch-plane forward of the same batch (absolute; the loss
+# is about 11.8, where a float32 step is 9.5e-7): the two differ only in summation order (the training
+# route's scan-flash attention and chunked loss against naive attention and whole logits)
+TRAIN_LOSS_TOL = 1e-4
+TRAIN_RUNNER = dict(batch=4, seq=32, steps=14, ckpt_every=5, fail_at=9)  # reduced config, tests/test_substrate.py
+
+
+def train_bound_ms(cfg, params, B, S):
+    """The least time of one training step at (B, S) under remat "full", and
+    what bounds it.  Operations: 2 flops per weight per token for each
+    product of the forward, twice that in the backward, and once more for
+    the recomputed products (each block's but the down projection, whose
+    output the backward does not need; the head, whose loss chunks are
+    checkpointed); attention 4 Dh flops per causal (query, key) pair
+    forward, as much recomputed, twice that backward.  Bytes: the
+    parameters, gradients, m and v read once and written once (float32)."""
+    n_param = sum(p.numel() for p in params.parameters())
+    head = params.lm_head.numel()
+    blocks = sum(p.numel() for n, p in params.named_parameters() if n.startswith("layers.") and p.dim() == 2)
+    down = sum(lp.mlp.wd.numel() for lp in params.layers)
+    T = B * S
+    pairs = B * cfg.n_heads * S * (S + 1) // 2
+    flops = 2 * T * (3 * (blocks + head) + (blocks - down) + head) + 16 * cfg.head_dim * pairs * cfg.n_layers
+    n_bytes = 4 * n_param * 8  # p, g, m, v: each read once and written once
+    ms = max(n_bytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S) * 1e3
+    return ms, ("operations" if flops / FP32_FLOPS_PER_S >= n_bytes / HBM_BYTES_PER_S else "bytes"), flops
+
+
+def phase_train(counted):
+    """The LM training path on the card: the golden-file run (full width,
+    depth cut as the file says, 3 AdamW steps) against the JAX reference;
+    the main path at full width and depth (B x S = TRAIN, 5 AdamW steps,
+    launches counted from 0: none, the path runs no hand-written kernel)
+    timed, its peak memory, one step profiled, its step-0 loss against a
+    torch-plane forward; then a reduced fault-tolerant run with an injected
+    failure against the same run without it.  Returns the main path's
+    launches by kernel."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.core import prng
+    from repro_torch.data.pipeline import make_pipeline
+    from repro_torch.ft.runner import TrainRunner
+    from repro_torch.models.lm import init_lm, lm_apply, xent_loss
+    from repro_torch.train.golden import GOLDEN_TRAIN, port_run, rel_gaps
+    from repro_torch.train.steps import build_train_step
+
+    with open(GOLDEN_TRAIN) as f:
+        golden = json.load(f)
+    full, _ = get_config("stablelm-1.6b")
+
+    # (a, b) the golden-file run
+    t0 = time.perf_counter()
+    record, tokens = port_run(golden, device="cuda")
+    for step, (got, want) in enumerate(zip(tokens, golden["tokens"])):
+        if got != want:
+            raise AssertionError(f"train golden: step {step}: the card's pipeline tokens differ from the reference's")
+    losses, gnorms = record["losses"], record["grad_norms"]
+    gaps = rel_gaps(record, golden)
+    log(f"train golden ({golden['arch']} width, {golden['n_layers']} layers, B={golden['batch']} x S={golden['seq']}, "
+        f"{golden['steps']} {golden['optimizer']} steps, {time.perf_counter() - t0:.3f} s): losses {losses} "
+        f"(reference {golden['losses']}), grad_norms {gnorms}; relative gaps {gaps}, tolerances "
+        f"{golden['tolerance']} (10x the port's CPU gaps {golden['port_cpu_gap']}); pipeline tokens bitwise")
+    for key, gap in gaps.items():
+        if not gap <= golden["tolerance"][key]:
+            raise AssertionError(f"train golden: {key} off by {gap} > {golden['tolerance'][key]}")
+
+    # (c) the main path: full width and depth
+    B, S = TRAIN["batch"], TRAIN["seq"]
+    params = init_lm(prng.prng_key(0), full, torch.float32, device="cuda")
+    init, nxt = make_pipeline(full.vocab_size, B, S, seed=0, device="cuda")
+    batches, ds = [], init()
+    for _ in range(TRAIN["steps"] + 1):
+        ds, b = nxt(ds)
+        batches.append(b)
+    with torch.inference_mode():  # step 0's loss from a torch-plane forward of the same batch and weights
+        logits = lm_apply(params, full, {"tokens": batches[0]["tokens"]}, plane="torch")
+        ref_loss = float(xent_loss(logits[:, :-1], batches[0]["labels"][:, 1:]))
+        del logits
+    step_fn, opt = build_train_step(full, "adamw")
+    state = opt.init(dict(params.named_parameters()))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counted:
+        fn.launches = 0
+    step_ms, losses, gnorms = [], [], []
+    for step in range(TRAIN["steps"]):
+        t0 = time.perf_counter()
+        params, state, m = step_fn(params, state, step, batches[step])
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    got = {fn.__name__: fn.launches for fn in counted}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    _, p_wall, p_busy, p_ops, p_top = device_busy(
+        lambda: step_fn(params, state, TRAIN["steps"], batches[TRAIN["steps"]]))
+    bound, bound_by, flops = train_bound_ms(full, params, B, S)
+    ms = sum(step_ms[1:]) / (len(step_ms) - 1)
+    log(f"main path {TRAIN_PATH} ({full.n_layers} layers, B={B} x S={S}, AdamW, float32, remat {full.remat}): "
+        f"{ms:.3f} ms/step over steps 1-{TRAIN['steps'] - 1} (step 0 {step_ms[0]:.3f}; all {step_ms}), "
+        f"{B * S / ms * 1e3:.1f} tokens/s, peak {peak:.3f} GB allocated, losses {losses}, grad_norms {gnorms}, "
+        f"launches {got}")
+    log("train profile: " + json.dumps({
+        "step_wall_ms": p_wall, "step_device_busy_ms": p_busy, "step_idle_share": 1 - p_busy / p_wall,
+        "step_device_ops": p_ops, "bound_ms": bound, "bound_by": bound_by, "flops": flops,
+        "bound_share_of_step": bound / ms, "top_launches_and_ms": p_top}))
+    if not all(map(math.isfinite, losses + gnorms)):
+        raise AssertionError(f"{TRAIN_PATH}: a loss or grad_norm is not finite")
+    if abs(losses[0] - ref_loss) > TRAIN_LOSS_TOL:
+        raise AssertionError(f"{TRAIN_PATH}: step-0 loss {losses[0]} vs torch-plane forward {ref_loss}")
+    log(f"{TRAIN_PATH}: step-0 loss {losses[0]} within {abs(losses[0] - ref_loss):.3e} of the torch-plane "
+        f"forward's {ref_loss} (tolerance {TRAIN_LOSS_TOL})")
+    if any(got.values()):
+        raise AssertionError(f"{TRAIN_PATH}: launched {got}; the training route runs no hand-written kernel")
+    del params, state, batches
+
+    # (d) the fault-tolerant runner, reduced, with and without an injected failure
+    r = TRAIN_RUNNER
+    red = reduced_config("stablelm-1.6b")
+    step_fn, opt = build_train_step(red, "adamw")
+
+    def init_state():
+        p = init_lm(prng.prng_key(0), red, torch.float32, device="cuda")
+        return p, opt.init(dict(p.named_parameters()))
+
+    init, nxt = make_pipeline(red.vocab_size, r["batch"], r["seq"], seed=1, device="cuda")
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    ckpt = tempfile.mkdtemp(dir=os.path.join(ROOT, "build"), prefix="train_ckpt_")
+    try:
+        clean = TrainRunner(step_fn, init_state, nxt, init).run(r["steps"], log_every=1000)
+        failed = TrainRunner(step_fn, init_state, nxt, init, ckpt_dir=ckpt, ckpt_every=r["ckpt_every"],
+                             fail_at=r["fail_at"]).run(r["steps"], log_every=1000)
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    f, c = failed["losses"], clean["losses"]
+    if f[: r["fail_at"]] != c[: r["fail_at"]] or f[r["fail_at"]:] != c[r["ckpt_every"]:]:
+        raise AssertionError(f"train runner: the failure-injected stream {f} differs from the clean {c}")
+    log(f"train runner ({red.name} reduced, {r['steps']} steps, failure at {r['fail_at']}, checkpoints every "
+        f"{r['ckpt_every']}): losses equal to the run without the failure, bitwise ({c[-1]} last)")
+    return got
+
+
 def main_path_spec(protocol, workload, plane, codes=CODES):
     from repro_torch.api import ExperimentSpec
 
@@ -1565,6 +1723,10 @@ def main() -> int:
     # phase 7: the LM serving path (stablelm-1.6b at full width)
     for name, n in phase_serve(counted).items():
         launches[name][SERVE_PATH] = n
+
+    # phase 8: the LM training path (stablelm-1.6b at full width and depth)
+    for name, n in phase_train(counted).items():
+        launches[name][TRAIN_PATH] = n
 
     for k in kernels:  # launches summed over the main paths' runs; times weighted by them
         k["launches"] = sum(launches[k["name"]].values())

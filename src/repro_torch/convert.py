@@ -8,7 +8,14 @@ JAX mid-run state and to compare the two key by key.
 ``lm_params_from_numpy`` builds the port's LM from the reference's parameter
 tree (nested dicts of arrays, layers stacked on a leading axis), and
 ``lm_params_to_numpy`` gives that tree back: the two are a name map
-(``layers/attn/wq[l]`` is ``layers.{l}.attn.wq``).
+(``layers/attn/wq[l]`` is ``layers.{l}.attn.wq``).  ``stack_named`` and
+``unstack_tree`` are that map for any flat name -> tensor dict (gradients,
+an optimizer's ``m``), ``opt_state_{to,from}_tree`` carry a whole
+optimizer state, and ``bundle_{to,from}_tree`` the training runner's
+bundle (``params``, ``opt``, ``data``, ``step``): the tree that
+``checkpoint`` writes in the reference's layout, so each package restores
+the other's checkpoints.  These trees hold torch tensors (bfloat16 has no
+numpy dtype without ``ml_dtypes``).
 """
 from __future__ import annotations
 
@@ -18,6 +25,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.data.pipeline import DataState
 from repro_torch.models.lm import LM, lm_from_state, resolve_device
 
 
@@ -37,39 +45,115 @@ def _leaves(tree, prefix=()):
             yield prefix + (k,), v
 
 
+def _tensor(a, dev) -> torch.Tensor:
+    """A copy of ``a`` (a tensor or an array) on ``dev``, its own storage."""
+    if isinstance(a, torch.Tensor):
+        return a.detach().to(dev, copy=True).contiguous()
+    return torch.tensor(np.asarray(a), device=dev)
+
+
+def unstack_tree(tree: Dict, n_layers: int, device=None) -> Dict[str, torch.Tensor]:
+    """A reference tree (layers stacked) -> the port's flat name map."""
+    out = {}
+    for path, arr in _leaves(tree):
+        if path[0] == "layers":
+            if arr.shape[0] != n_layers:
+                raise ValueError(f"{'/'.join(path)}: {arr.shape[0]} layers, config has {n_layers}")
+            for i in range(n_layers):
+                out[".".join(("layers", str(i)) + path[1:])] = _tensor(arr[i], device)
+        else:
+            out[".".join(path)] = _tensor(arr, device)
+    return out
+
+
+def stack_named(named: Dict[str, torch.Tensor]) -> Dict:
+    """The port's flat name map -> the reference's tree (layers stacked),
+    detached tensors on the map's devices."""
+    tree: Dict = {}
+    per_layer: Dict = {}
+
+    def put(path, value):
+        node = tree
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        node[path[-1]] = value
+
+    for name, t in named.items():
+        parts = name.split(".")
+        if parts[0] == "layers":
+            per_layer.setdefault(tuple(parts[2:]), {})[int(parts[1])] = t.detach()
+        else:
+            put(parts, t.detach())
+    for path, by_layer in per_layer.items():
+        put(("layers",) + path, torch.stack([by_layer[i] for i in range(len(by_layer))]))
+    return tree
+
+
 def lm_params_from_numpy(tree: Dict, cfg: ArchConfig, device="cuda") -> LM:
     """The port's LM holding the reference tree's values (copied to ``device``)."""
-    dev = resolve_device(device)
-    state = {}
-    for path, arr in _leaves(tree):
-        arr = np.asarray(arr)
-        if path[0] == "layers":
-            if arr.shape[0] != cfg.n_layers:
-                raise ValueError(f"{'/'.join(path)}: {arr.shape[0]} layers, config has {cfg.n_layers}")
-            for i in range(cfg.n_layers):
-                state[".".join(("layers", str(i)) + path[1:])] = torch.tensor(arr[i], device=dev)
-        else:
-            state[".".join(path)] = torch.tensor(arr, device=dev)
-    return lm_from_state(cfg, state)
+    return lm_from_state(cfg, unstack_tree(tree, cfg.n_layers, resolve_device(device)))
 
 
 def lm_params_to_numpy(model: LM) -> Dict:
     """The reference's parameter tree (numpy, layers stacked) of an LM."""
-    tree: Dict = {}
-    per_layer: Dict = {}
-    for name, t in model.state_dict().items():
-        parts = name.split(".")
-        a = t.detach().cpu().numpy()
-        if parts[0] == "layers":
-            per_layer.setdefault(tuple(parts[2:]), {})[int(parts[1])] = a
-            continue
-        node = tree
-        for p in parts[:-1]:
-            node = node.setdefault(p, {})
-        node[parts[-1]] = a
-    for path, by_layer in per_layer.items():
-        node = tree.setdefault("layers", {})
-        for p in path[:-1]:
-            node = node.setdefault(p, {})
-        node[path[-1]] = np.stack([by_layer[i] for i in range(len(by_layer))])
-    return tree
+    return map_tree(lambda t: t.cpu().numpy(), stack_named(model.state_dict()))
+
+
+def map_tree(fn, tree):
+    """``fn`` applied to every leaf of a nested dict."""
+    return {k: map_tree(fn, v) if isinstance(v, dict) else fn(v) for k, v in tree.items()}
+
+
+# an optimizer state's keys: those that hold one tensor per parameter, and
+# that of a wrapped optimizer's state (``with_error_feedback``)
+_PARAM_MAPS = ("m", "v", "residual")
+_INNER = "inner"
+
+
+def _map_opt_state(fn, state: Dict) -> Dict:
+    """``fn`` applied to each per-parameter map of an optimizer state (or
+    its tree), following the keys the optimizers write."""
+    out = {}
+    for k, v in state.items():
+        if k == _INNER:
+            out[k] = _map_opt_state(fn, v)
+        elif k in _PARAM_MAPS:
+            out[k] = fn(v)
+        else:
+            raise KeyError(f"optimizer state key {k!r}: expected one of {_PARAM_MAPS + (_INNER,)}")
+    return out
+
+
+def opt_state_to_tree(state: Dict) -> Dict:
+    """An optimizer state (``{"m": {name: t}, ...}``, wrappers nested) ->
+    the reference's state tree: every name map stacked."""
+    return _map_opt_state(stack_named, state)
+
+
+def opt_state_from_tree(tree: Dict, cfg: ArchConfig, device="cuda") -> Dict:
+    """The reference's optimizer-state tree -> the port's state on
+    ``device``: every per-parameter tree unstacked into a name map."""
+    dev = resolve_device(device)
+    return _map_opt_state(lambda t: unstack_tree(t, cfg.n_layers, dev), tree)
+
+
+def bundle_to_tree(params: LM, opt_state: Dict, data_state: DataState, step: int) -> Dict:
+    """The training runner's checkpoint bundle in the reference's layout,
+    on the CPU (stacking there takes no device memory)."""
+    i32 = lambda x: torch.tensor(int(x), dtype=torch.int32)  # noqa: E731
+    cpu = lambda t: t.detach().cpu()  # noqa: E731
+    return {
+        "params": stack_named(map_tree(cpu, params.state_dict())),
+        "opt": opt_state_to_tree(map_tree(cpu, opt_state)),
+        "data": {"step": i32(data_state.step), "seed": i32(data_state.seed)},
+        "step": i32(step),
+    }
+
+
+def bundle_from_tree(tree: Dict, cfg: ArchConfig, device="cuda"):
+    """A bundle tree (the port's or the reference's) -> (step, LM,
+    optimizer state, DataState) on ``device``."""
+    dev = resolve_device(device)
+    params = lm_params_from_numpy(tree["params"], cfg, dev)
+    data = DataState(int(tree["data"]["step"]), int(tree["data"]["seed"]))
+    return int(tree["step"]), params, opt_state_from_tree(tree["opt"], cfg, dev), data

@@ -113,9 +113,16 @@ def attention_op(q, k, v, *, causal=True, plane: str = AUTO):
 
     The ``"kernel"`` plane runs ``flash_attention`` on the transposed views
     (no copies: the kernel takes strides, and its output comes back in the
-    (B, S, H, Dh) layout); the ``"torch"`` plane runs ``naive_attention``."""
+    (B, S, H, Dh) layout); the ``"torch"`` plane runs ``naive_attention``.
+    The kernel has no backward, so the kernel plane refuses inputs that
+    autograd would differentiate (on CPU tensors too, where it runs the
+    plain version): train through ``models.lm``'s ``TRAIN`` route."""
     plane = resolve_plane(plane, q.device)
     if plane != KERNEL:
         return naive_attention(q, k, v, causal=causal)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError("attention_op: the flash_attention kernel has no backward, and these inputs require "
+                           "grad; train through models.lm's TRAIN route (naive_attention up to 512 tokens, "
+                           "flash_attention_xla above), as lm_loss does")
     out = flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal=causal)
     return out.transpose(1, 2)

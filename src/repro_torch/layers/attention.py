@@ -1,11 +1,12 @@
-"""GQA attention: projections, the O(S^2) reference and cached decode
-attention, port of ``repro.layers.attention``.
+"""GQA attention: projections, the O(S^2) reference, the scan-flash
+online softmax and cached decode attention, port of ``repro.layers.attention``.
 
-Prefill attention runs through ``kernels.ops.attention_op`` (the
+Serving's prefill attention runs through ``kernels.ops.attention_op`` (the
 ``flash_attention`` kernel on the ``"kernel"`` plane, ``naive_attention``
-on the ``"torch"`` plane); the reference's scan-flash ``flash_attention_xla``
-computes the same function, and the kernel's plain version stands in for it.
-Decode attention is plain PyTorch, as in the reference, which has no decode
+on the ``"torch"`` plane).  Training takes the reference's XLA route,
+``naive_attention`` up to 512 tokens and ``flash_attention_xla`` above,
+which autograd differentiates (the kernel has no backward).  Decode
+attention is plain PyTorch, as in the reference, which has no decode
 kernel.  The sequence-sharded decode branch, ``local_attention_xla`` and the
 cross-attention paths wait (ROADMAP.md A.12).
 """
@@ -13,6 +14,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
@@ -75,16 +77,60 @@ def repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
     return k[:, :, :, None, :].expand(B, S, KV, n_rep, Dh).reshape(B, S, KV * n_rep, Dh)
 
 
-def naive_attention(q, k, v, causal: bool):
-    """q (B,Sq,H,Dh), k/v (B,Sk,H,Dh) -> (B,Sq,H,Dh). float32 softmax."""
+def _mask(Sq: int, kpos, causal: bool, window: int, q_offset: int, device):
+    """(Sq, len(kpos)) bool: key positions ``kpos`` each query may attend."""
+    qpos = torch.arange(Sq, device=device)[:, None] + q_offset
+    mask = torch.ones((Sq, kpos.shape[0]), dtype=torch.bool, device=device)
+    if causal:
+        mask &= kpos[None, :] <= qpos
+    if window:
+        mask &= kpos[None, :] > qpos - window
+    return mask
+
+
+def naive_attention(q, k, v, causal: bool, window: int = 0, q_offset: int = 0):
+    """q (B,Sq,H,Dh), k/v (B,Sk,H,Dh) -> (B,Sq,H,Dh). float32 softmax;
+    query i sits at position ``i + q_offset``, and with ``window`` attends
+    only the keys less than ``window`` positions back."""
     Dh = q.shape[-1]
     s = torch.einsum("bqhd,bkhd->bhqk", q, k).float() / math.sqrt(Dh)
-    if causal:
-        Sq, Sk = q.shape[1], k.shape[1]
-        mask = torch.arange(Sk, device=q.device)[None, :] <= torch.arange(Sq, device=q.device)[:, None]
-        s = torch.where(mask, s, -math.inf)
+    if causal or window:
+        kpos = torch.arange(k.shape[1], device=q.device)
+        s = torch.where(_mask(q.shape[1], kpos, causal, window, q_offset, q.device), s, -math.inf)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype), v)
+
+
+def flash_attention_xla(q, k, v, *, causal: bool, window: int = 0, chunk: int = 1024, q_offset: int = 0):
+    """Memory-bounded attention: online softmax over KV chunks of ``chunk``
+    keys, masked with -1e30 (the reference's scan, as a Python loop that
+    autograd differentiates; a last chunk that the reference pads is
+    shorter here, which changes no unmasked term).
+
+    q (B,Sq,H,Dh), k/v (B,Sk,H,Dh) with H already GQA-expanded.
+    """
+    B, Sq, H, Dh = q.shape
+    Sk = k.shape[1]
+    chunk = min(chunk, Sk)
+    qT = q.transpose(1, 2)  # (B,H,Sq,Dh)
+    scale = float(np.float32(1.0) / np.sqrt(np.float32(Dh)))
+    m = torch.full((B, H, Sq), -1e30, dtype=torch.float32, device=q.device)
+    l = torch.zeros((B, H, Sq), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((B, H, Sq, Dh), dtype=torch.float32, device=q.device)
+    for j in range(0, Sk, chunk):
+        k_j, v_j = k[:, j : j + chunk].transpose(1, 2), v[:, j : j + chunk].transpose(1, 2)  # (B,H,C,Dh)
+        s = torch.einsum("bhqd,bhcd->bhqc", qT, k_j).float() * scale
+        if causal or window:
+            kpos = torch.arange(j, j + k_j.shape[2], device=q.device)
+            s = torch.where(_mask(Sq, kpos, causal, window, q_offset, q.device), s, -1e30)
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + torch.einsum("bhqc,bhcd->bhqd", p.to(v_j.dtype), v_j).float()
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.transpose(1, 2).to(q.dtype)  # (B,Sq,H,Dh)
 
 
 def _gqa_partials(q, k_cache, v_cache):

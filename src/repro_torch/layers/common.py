@@ -19,7 +19,8 @@ EPS = 1e-5
 
 class ParamSet(nn.Module):
     """A layer's parameters, named as the reference's parameter dict: every
-    name in ``NAMES`` is a frozen parameter, or None where absent."""
+    name in ``NAMES`` is a parameter, or None where absent.  Parameters are
+    built frozen, for serving; ``requires_grad_()`` turns them on."""
 
     NAMES: tuple = ()
 

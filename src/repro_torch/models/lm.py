@@ -5,11 +5,14 @@ tree, one module per layer where the reference stacks layers on a leading
 axis: ``layers.{l}.attn.wq`` is the reference's ``layers/attn/wq[l]``, so
 ``convert`` is a name map.  The functions mirror the reference's
 (``lm_apply(params, cfg, batch)``, without the sharding rules) and take a
-``plane`` for attention (``kernels.ops.attention_op``).
+``plane`` for attention: a kernel plane (``kernels.ops.attention_op``, for
+serving) or ``TRAIN``, the reference's XLA route that autograd
+differentiates.  Parameters are built frozen, for serving; training turns
+them on with ``LM.requires_grad_()`` (``train.steps`` does) and runs
+``lm_loss``, whose blocks are checkpointed as ``cfg.remat`` says.
 
 Families the port does not run yet raise ``NotImplementedError`` naming
-their ROADMAP.md item; training (``lm_loss``, ``xent_loss``) is ROADMAP.md
-A.12.2.
+their ROADMAP.md item.
 """
 from __future__ import annotations
 
@@ -18,6 +21,7 @@ from typing import Dict, List, Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import prng
@@ -153,6 +157,20 @@ def _block_out(lp: Block, cfg: ArchConfig, x, h, attn_out):
     return x + apply_mlp(lp.mlp, cfg, apply_norm(cfg.norm, lp.norm2, x))
 
 
+TRAIN = "train"  # the attention route of training (``_attention``)
+
+
+def _attention(q, k, v, plane):
+    """Causal attention on ``plane``; ``TRAIN`` takes the reference's route
+    without the Pallas kernel (``repro.models.lm._attn_full``):
+    ``naive_attention`` up to 512 tokens, ``flash_attention_xla`` above."""
+    if plane != TRAIN:
+        return ops.attention_op(q, k, v, causal=True, plane=plane)
+    if q.shape[1] <= 512:
+        return attn_lib.naive_attention(q, k, v, causal=True)
+    return attn_lib.flash_attention_xla(q, k, v, causal=True)
+
+
 def _attn_full(lp: Attention, cfg: ArchConfig, x, positions, *, plane=ops.AUTO, kv_out=None):
     """Causal self-attention over x (B,S,D).  With ``kv_out`` (this layer's
     (B, S_max, KV, Dh) cache views, zeroed) the rotated k and v are written
@@ -166,8 +184,7 @@ def _attn_full(lp: Attention, cfg: ArchConfig, x, positions, *, plane=ops.AUTO, 
         kv_out["v"][:, : x.shape[1]] = v
     k = attn_lib.repeat_kv(k, cfg.n_rep)
     v = attn_lib.repeat_kv(v, cfg.n_rep)
-    out = ops.attention_op(q, k, v, causal=True, plane=plane)
-    return attn_lib._out_proj(lp, out, x.dtype)
+    return attn_lib._out_proj(lp, _attention(q, k, v, plane), x.dtype)
 
 
 def _block_full(lp: Block, cfg: ArchConfig, x, positions, *, plane=ops.AUTO, kv_out=None):
@@ -176,10 +193,37 @@ def _block_full(lp: Block, cfg: ArchConfig, x, positions, *, plane=ops.AUTO, kv_
     return _block_out(lp, cfg, x, h, _attn_full(lp.attn, cfg, h, positions, plane=plane, kv_out=kv_out))
 
 
+def _save_weight_products(ctx, op, *args, **kwargs):
+    """``save_attn``'s policy, the counterpart of JAX's
+    ``checkpoint_dots_with_no_batch_dims``: keep the products with the
+    weights (``x @ W`` folds into one ``mm``), recompute the rest, the
+    attention's batched products among them."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(f, cfg: ArchConfig):
+    """f with ``cfg.remat``'s rematerialisation: ``"none"`` keeps every
+    activation, ``"full"`` keeps the block's input and recomputes the rest
+    in the backward, ``"save_attn"`` also keeps the weight products."""
+    if cfg.remat == "none":
+        return f
+    if cfg.remat == "save_attn":
+        return lambda *a, **kw: checkpoint(
+            f, *a, use_reentrant=False,
+            context_fn=lambda: create_selective_checkpoint_contexts(_save_weight_products), **kw)
+    if cfg.remat == "full":
+        return lambda *a, **kw: checkpoint(f, *a, use_reentrant=False, **kw)
+    raise ValueError(f"remat={cfg.remat!r}: pass 'full', 'save_attn' or 'none'")
+
+
 def _run_stack(params: LM, cfg: ArchConfig, x, positions, *, plane=ops.AUTO):
-    """The decoder stack over x (B,S,D), layer by layer."""
+    """The decoder stack over x (B,S,D), layer by layer; while autograd
+    records, each block runs under ``cfg.remat``."""
+    block = _remat(_block_full, cfg) if torch.is_grad_enabled() else _block_full
     for lp in params.layers:
-        x = _block_full(lp, cfg, x, positions, plane=plane)
+        x = block(lp, cfg, x, positions, plane=plane)
     return x
 
 
@@ -216,3 +260,46 @@ def lm_hidden(params: LM, cfg: ArchConfig, batch, *, plane=ops.AUTO):
 def lm_apply(params: LM, cfg: ArchConfig, batch, *, plane=ops.AUTO):
     """Full forward -> logits (B,S,V). batch: tokens (+positions)."""
     return logits_fn(params, cfg, lm_hidden(params, cfg, batch, plane=plane))
+
+
+def _nll(logits, labels):
+    """Per-token negative log-likelihood in float32: (..., V), (...) -> (...)."""
+    lf = logits.float()
+    m = lf.amax(-1, keepdim=True)
+    lse = torch.log(torch.exp(lf - m).sum(-1)) + m[..., 0]
+    return lse - lf.gather(-1, labels[..., None].long())[..., 0]
+
+
+def xent_loss(logits, labels, mask=None):
+    """Mean cross-entropy over (B, S) tokens in float32, or the mean over
+    the tokens where ``mask`` is 1."""
+    nll = _nll(logits, labels)
+    if mask is None:
+        return nll.mean()
+    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+
+
+def _chunk_nll(params: LM, cfg: ArchConfig, xc, yc):
+    """Summed NLL of one sequence chunk: its logits exist only in here."""
+    return _nll(logits_fn(params, cfg, xc), yc).sum()
+
+
+def lm_loss(params: LM, cfg: ArchConfig, batch, loss_chunk: int = 1024):
+    """Causal LM loss with a sequence-chunked head and cross-entropy: each
+    chunk of ``loss_chunk`` positions is checkpointed, so its (B, chunk, V)
+    logits are recomputed in the backward and the (B, S, V) logits never
+    exist (the reference's ``lm_loss``; its padded last chunk is shorter
+    here)."""
+    labels = batch["labels"]
+    x = lm_hidden(params, cfg, batch, plane=TRAIN)
+    xs, ys = x[:, :-1], labels[:, 1:]
+    B, S1, _ = xs.shape
+    chunk = min(loss_chunk, S1)
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for j in range(0, S1, chunk):
+        xc, yc = xs[:, j : j + chunk], ys[:, j : j + chunk]
+        if torch.is_grad_enabled():
+            total = total + checkpoint(_chunk_nll, params, cfg, xc, yc, use_reentrant=False)
+        else:
+            total = total + _chunk_nll(params, cfg, xc, yc)
+    return total / max(B * S1, 1)

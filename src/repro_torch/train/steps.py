@@ -1,0 +1,72 @@
+"""Step builders (port of ``repro.train.steps``): train (with gradient
+accumulation), prefill, decode."""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models.decode import lm_decode_step, lm_prefill
+from repro_torch.models.lm import LM, check_ported, lm_loss
+from repro_torch.optim import make_optimizer
+
+
+def build_train_step(cfg: ArchConfig, opt_name: Optional[str] = None):
+    """Returns (train_step, optimizer).
+
+    ``train_step(params, opt_state, step, batch) -> (params, opt_state,
+    metrics)``: ``params`` is an :class:`LM` (its parameters turned
+    trainable here), ``opt_state`` the optimizer's state over
+    ``dict(params.named_parameters())``, both updated in place and
+    returned; ``batch`` ``{"tokens", "labels"}`` (B, S), or (n_micro,
+    B_micro, S) for gradient accumulation: float32 for AdamW, bfloat16
+    otherwise, then divided by ``n_micro``.  ``metrics``: ``loss`` and
+    ``grad_norm`` (float32 tensors on the model's device) and ``step + 1``.
+    """
+    check_ported(cfg)
+    name = opt_name or cfg.optimizer
+    optimizer = make_optimizer(name)
+    acc_dtype = torch.float32 if name == "adamw" else torch.bfloat16
+
+    def value_and_grad(params: LM, named, mb):
+        with torch.enable_grad():
+            loss = lm_loss(params, cfg, mb)
+            grads = torch.autograd.grad(loss, list(named.values()))
+        return loss.detach(), dict(zip(named, grads))
+
+    def train_step(params: LM, opt_state, step, batch):
+        params.requires_grad_(True)
+        named = dict(params.named_parameters())
+        tokens = batch["tokens"]
+        if tokens.dim() == 2:
+            loss, grads = value_and_grad(params, named, batch)
+        else:
+            n_micro = tokens.shape[0]
+            g_acc = {n: torch.zeros(p.shape, dtype=acc_dtype, device=p.device) for n, p in named.items()}
+            l_acc = torch.zeros((), dtype=torch.float32, device=tokens.device)
+            for i in range(n_micro):
+                l, g = value_and_grad(params, named, {k: v[i] for k, v in batch.items()})
+                for n in named:
+                    g_acc[n] = g_acc[n] + g[n].to(acc_dtype)
+                l_acc = l_acc + l
+            grads = {n: g / n_micro for n, g in g_acc.items()}
+            loss = l_acc / n_micro
+        _, opt_state, gnorm = optimizer.update(grads, opt_state, named, step)
+        return params, opt_state, {"loss": loss, "grad_norm": gnorm, "step": int(step) + 1}
+
+    return train_step, optimizer
+
+
+def build_prefill(cfg: ArchConfig):
+    def prefill(params, batch):
+        return lm_prefill(params, cfg, batch)
+
+    return prefill
+
+
+def build_decode_step(cfg: ArchConfig):
+    def decode(params, cache, batch):
+        return lm_decode_step(params, cfg, cache, batch)
+
+    return decode

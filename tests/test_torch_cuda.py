@@ -414,3 +414,51 @@ def test_reduced_serve_on_the_card_matches_the_cpu(card):
     assert torch.equal(on_card.prompts.cpu(), on_cpu.prompts)
     torch.testing.assert_close(on_card.logits.cpu(), on_cpu.logits, atol=1e-4, rtol=0)
     assert torch.equal(on_card.tokens.cpu(), on_cpu.tokens)
+
+
+def test_pipeline_tokens_on_the_card_equal_the_cpus(card):
+    """The synthetic pipeline draws on the card bitwise what it draws on the
+    CPU (threefry, XLA's exp and log written out), at full vocabulary."""
+    from repro_torch.data.pipeline import make_pipeline
+
+    on_card, on_cpu = (make_pipeline(100352, 4, 2048, seed=0, device=d) for d in ("cuda", "cpu"))
+    sc, sp = on_card[0](), on_cpu[0]()
+    for _ in range(10):
+        sc, bc = on_card[1](sc)
+        sp, bp = on_cpu[1](sp)
+        assert sc == sp and torch.equal(bc["tokens"].cpu(), bp["tokens"])
+
+
+def test_reduced_train_step_on_the_card_matches_the_cpu(card):
+    """Three AdamW steps at the reduced config, S = 600 (scan-flash attention
+    in every block) and S = 64 (naive attention), from the same seed on the
+    card and on the CPU: losses within 1e-5, grad_norm within 1e-5 relative,
+    parameters within 1e-6 (the CPU tests' tolerances against the
+    reference), and no kernel launched."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.core import prng
+    from repro_torch.data.pipeline import make_pipeline
+    from repro_torch.models.lm import init_lm
+    from repro_torch.train.steps import build_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = reduced_config("stablelm-1.6b")
+    for seq in (600, 64):
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            step, opt = build_train_step(cfg, "adamw")
+            params = init_lm(prng.prng_key(0), cfg, torch.float32, device=dev)
+            state = opt.init(dict(params.named_parameters()))
+            init, nxt = make_pipeline(cfg.vocab_size, 2, seq, seed=0, device=dev)
+            ds, metrics = init(), []
+            n = flash_attention.launches
+            for i in range(3):
+                ds, b = nxt(ds)
+                params, state, m = step(params, state, i, b)
+                metrics.append((float(m["loss"]), float(m["grad_norm"])))
+            assert flash_attention.launches == n
+            runs[dev] = (metrics, {k: v.cpu() for k, v in params.state_dict().items()})
+        for (lc, gc), (lp, gp) in zip(runs["cuda"][0], runs["cpu"][0]):
+            assert abs(lc - lp) <= 1e-5 and abs(gc - gp) <= 1e-5 * gp, (seq, lc, lp, gc, gp)
+        for k, v in runs["cpu"][1].items():
+            torch.testing.assert_close(runs["cuda"][1][k], v, atol=1e-6, rtol=0)

@@ -1,7 +1,8 @@
 """The port stands alone: ``src/repro_torch``, ``chip_smoke.py``,
 ``scripts/torch_kernel_ab.py`` and the card's test file
 ``tests/test_torch_cuda.py`` import neither JAX nor the JAX package, and
-the port loads and runs with both blocked."""
+the port loads and runs with both blocked: it serves, runs an RCC
+experiment and takes two training steps."""
 import ast
 import os
 import subprocess
@@ -51,6 +52,12 @@ def test_port_loads_and_runs_with_jax_and_reference_blocked():
         "r = api.run(api.ExperimentSpec(protocol='nowait', workload='smallbank', configs=[{'hybrid': 63}],\n"
         "    n_nodes=2, coroutines=4, records_per_node=32, ticks=8, warmup=2, device='cpu'))\n"
         "assert r.row['commits'] > 0\n"
+        "import repro_torch.optim.compression, repro_torch.checkpoint, repro_torch.ft.runner\n"
+        "from repro_torch.launch import train\n"
+        "import contextlib, io\n"
+        "with contextlib.redirect_stdout(io.StringIO()):\n"
+        "    out = train.main(['--reduced', '--device', 'cpu', '--steps', '2', '--batch', '2', '--seq', '16'])\n"
+        "assert out['final_step'] == 2 and len(out['losses']) == 2\n"
         "assert not any(m.split('.')[0] in ('jax', 'jaxlib') for m in sys.modules if sys.modules[m] is not None)\n"
         "print('ok')\n"
     )
