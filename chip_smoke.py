@@ -17,12 +17,12 @@ Run from a checkout of the repository on a machine with one CUDA card and
    at each main path's shapes, its device time per call (calls captured in
    a CUDA graph, replayed between CUDA events), its time per call as the
    host issues them eagerly, its bound, the plain version's times and a
-   library call's times (``flash_attention``: SDPA; ``multi_read``: the
-   per-array ``a[keys]`` of the torch plane).  ``multi_read`` and
+   library call's times (``flash_attention``: SDPA, at both serving
+   paths' prefill calls, Dh = 64 and 128, and at kimi-k2's Dh = 112;
+   ``multi_read``: the per-array ``a[keys]`` of the torch plane).  ``multi_read`` and
    ``mvcc_version_select`` are timed as the whole ops-level call
-   (``ops.gather_many``, ``ops.version_read``), which the profiler must see
-   as one launch (a trace that holds no device event is logged and traced
-   again, at most twice), beside the earlier packed-table sequence for the same
+   (``ops.gather_many``, ``ops.version_read``), which must be one launch
+   and no other device operation (read from a CUDA graph of one call), beside the earlier packed-table sequence for the same
    call rebuilt op for op with this tree's kernels; then batched ticks of each
    RCC main path (kernel plane: NOWAIT/SmallBank at G = 1, 4 and 64
    configs, MVCC/YCSB at G = 1 and 4) timed bare and traced with
@@ -61,7 +61,17 @@ Run from a checkout of the repository on a machine with one CUDA card and
    tokens, 32 tokens each) on the ``"kernel"`` plane, whose prefill must
    launch ``flash_attention`` once per layer, and on the ``"torch"`` plane,
    whose prefill logits and decided greedy tokens must agree;
-9. the LM training path, stablelm-1.6b at full width in float32 with TF32
+9. the MoE serving path, llama4-scout-17b-a16e at full width, 6 of its 48
+   layers (14.52 B float32 parameters), TF32 off: ``init_lm`` from seed 0
+   on the card (checked against the reference's weights), the golden-file
+   run on the first two layers of the same model (expert loads and dropped
+   assignments per layer where the reference's router margin allows,
+   logits and greedy tokens within 10x the port's CPU gap), a profiled
+   prefill and decode step with the MoE layer's device time split into
+   router, dispatch, expert products and combine, then the main path
+   ``serve`` (4 x 2048 tokens, 32 each) on both planes, 6
+   ``flash_attention`` launches per prefill, each plane's routing per layer;
+10. the LM training path, stablelm-1.6b at full width in float32 with TF32
    off: 3 AdamW steps at the depth the reference's golden file was cut to
    (its pipeline tokens bitwise, losses, grad_norms and leaf sums within
    10x the port's CPU gap), then the main path at full width and depth,
@@ -160,6 +170,11 @@ FP32_FLOPS_PER_S = 67e12
 # the LM serving main path: stablelm-1.6b at full width, float32
 SERVE = dict(batch=4, prompt_len=2048, gen_len=32, page_size=16)
 SERVE_PATH = "serve/stablelm-1.6b"
+# the MoE serving main path: llama4-scout-17b-a16e at full width, depth cut to MOE_LAYERS of 48 (14.52 B float32
+# parameters, 58.1 GB), the same requests as SERVE
+MOE_ARCH = "llama4-scout-17b-a16e"
+MOE_LAYERS = 6
+MOE_SERVE_PATH = "serve/llama4-scout-17b-a16e"
 # logits tolerance of the serving phase (absolute; logits have std 0.88).  The port
 # on the CPU is within 7.9e-6 of the JAX reference at full width (the golden file's
 # port_cpu_max_abs_logit_gap); 1e-4 leaves 12x that for the card's other summation
@@ -486,43 +501,49 @@ def parent_pick(wh, wl, keys, ch, cl, lh=None, ll=None):
     return mvcc_version_select(*(a.contiguous() for a in args))
 
 
-EMPTY_TRACES = []  # one entry per one_device_op trace that held no device event
-
-
 def one_device_op(fn, kernel, case):
-    """Profile one call of ``fn``: it must issue exactly one device
-    operation, a launch of ``kernel`` (no copy, no fill, no cat).
+    """One call of ``fn`` must put exactly one operation on the device, a
+    launch of ``kernel`` (no copy, no fill, no cat).
 
-    The profiler is warmed up on the call before the trace that counts.
-    A trace that holds no device event at all is logged with its kernel,
-    its case and the kernel's launch count over the traced call (1: the
-    wrapper launched and the trace missed it), kept in EMPTY_TRACES, and
-    traced again, at most twice; a trace with any other content fails at
-    once."""
+    The call is captured in a CUDA graph and the graph's nodes are read
+    from its DOT dump (``cudaGraphDebugDotPrint``): the capture holds every
+    operation the call enqueues, and needs no profiler, whose short traces
+    of one small kernel held no device event now and then.  The wrapper
+    must count the one launch, as it counts a launch on the main path."""
     import importlib
+    import re
+    import tempfile
+    import warnings
 
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     wrapper = getattr(importlib.import_module(f"repro_torch.kernels.{kernel}"), kernel)
-    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # warm-up outside the capture: builds and loads the kernel
+    torch.cuda.current_stream().wait_stream(side)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):  # warm-up: CUPTI set up
+    graph = torch.cuda.CUDAGraph(keep_graph=True)  # kept uninstantiated, for debug_dump
+    before = wrapper.launches
+    with torch.cuda.graph(graph):
         fn()
-        torch.cuda.synchronize()
-    for attempt in range(1, 4):
-        before = wrapper.launches
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        dev = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-        if dev:
-            break
-        entry = {"kernel": kernel, "case": case, "attempt": attempt, "launches": wrapper.launches - before}
-        EMPTY_TRACES.append(entry)
-        log("one_device_op: trace with no device event: " + json.dumps(entry))
-    if len(dev) != 1 or kernel + "_kernel" not in dev[0]:
-        raise AssertionError(f"{case}: one call must be one {kernel} launch, the device ran {dev}")
+    counted = wrapper.launches - before
+    build = os.path.join(ROOT, "build")
+    os.makedirs(build, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as d, warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # debug_dump warns that it dumps
+        graph.debug_dump(os.path.join(d, "call.dot"))
+        with open(os.path.join(d, "call.dot")) as f:
+            dot = f.read()
+    del graph
+    nodes = sorted(set(re.findall(r"graph_\d+_node_\d+", dot)))
+    kinds = sorted(set(re.findall(r"\b(KERNEL|MEMCPY|MEMSET|HOST|EMPTY|EVENT_RECORD|WAIT_EVENT|MEM_ALLOC|MEM_FREE"
+                                  r"|CONDITIONAL|CHILD_GRAPH)\b", dot)))
+    if len(nodes) != 1 or kinds != ["KERNEL"] or kernel + "_kernel" not in dot or counted != 1:
+        raise AssertionError(f"{case}: one call must be one {kernel} launch; its graph holds {len(nodes)} nodes of "
+                             f"kinds {kinds}, {kernel}_kernel {'in' if kernel + '_kernel' in dot else 'not in'} it, "
+                             f"the wrapper counted {counted}:\n{dot}")
 
 
 def phase_multi_read(gen):
@@ -741,18 +762,23 @@ def phase_flash(gen):
     from repro_torch.kernels.ref import flash_attention_ref
 
     tols = {torch.float32: 1e-5, torch.bfloat16: 3e-2}
-    cases = [(2, 3, S, S, Dh, causal, dt, False) for S in (1, 63, 64, 65, 128, 320) for Dh in (32, 64, 128)
+    dhs = (32, 64, 112, 128)
+    cases = [(2, 3, S, S, Dh, causal, dt, False) for S in (1, 63, 64, 65, 128, 320) for Dh in dhs
              for causal in (True, False) for dt in tols]
-    cases += [(1, 2, 2048, 2048, Dh, causal, dt, False) for Dh in (32, 64, 128) for causal in (True, False) for dt in tols]
+    cases += [(1, 2, 2048, 2048, Dh, causal, dt, False) for Dh in dhs for causal in (True, False) for dt in tols]
     cases += [(2, 2, 50, 130, 64, False, dt, False) for dt in tols] + [(1, 2, 300, 77, 128, False, dt, False) for dt in tols]
     cases += [(1, 2, 130, 50, 32, True, torch.float32, False), (1, 2, 50, 130, 64, True, torch.float32, False)]
     cases += [(4, 32, 2048, 2048, 64, True, torch.float32, True), (2, 32, 256, 256, 64, True, torch.float32, True)]
     # the serving shape in bfloat16; Dh = 128 with Sq != Sk, causal; views whose rows are not 16-byte aligned
     cases += [(4, 32, 2048, 2048, 64, True, torch.bfloat16, True)]
-    cases += [(2, 3, Sq, Sk, 128, True, dt, True) for Sq, Sk in ((200, 333), (333, 200)) for dt in tols]
+    cases += [(2, 3, Sq, Sk, Dh, True, dt, True) for Sq, Sk in ((200, 333), (333, 200)) for Dh in (112, 128)
+              for dt in tols]
     cases += [(2, 3, S, S, Dh, causal, dt, "unaligned") for S, Dh, causal in ((130, 64, True), (77, 32, False),
-                                                                              (200, 128, True)) for dt in tols]
+                                                                              (200, 128, True), (150, 112, True))
+              for dt in tols]
     cases += [(1, 2, 70, 0, 64, causal, dt, False) for causal in (True, False) for dt in tols]  # Sk = 0: zeros
+    # llama4-scout's prefill call (B = 4, Dh = 128, H = 40 after the GQA repeat) and kimi-k2's head dim, one batch row
+    cases += [(4, 40, 2048, 2048, 128, True, torch.float32, True), (1, 64, 2048, 2048, 112, True, torch.float32, True)]
     worst = {dt: 0.0 for dt in tols}
     for B, H, Sq, Sk, Dh, causal, dt, bshd in cases:
         q, k, v = attn_inputs(B, H, Sq, Sk, Dh, dt, gen, bshd=bshd)
@@ -765,30 +791,39 @@ def phase_flash(gen):
         if excess > 0 or not bool(torch.isfinite(got).all()):
             raise AssertionError(f"flash_attention disagrees with its plain version at B={B} H={H} Sq={Sq} Sk={Sk} "
                                  f"Dh={Dh} causal={causal} {dt}: max |err| {float(err.max())}")
+        del q, k, v, got, want, err
     log(f"  flash_attention: {len(cases)} cases within tolerance; max |err| float32 {worst[torch.float32]:.3e}, "
         f"bfloat16 {worst[torch.bfloat16]:.3e}")
 
-    B, H, S, Dh = 4, 32, 2048, 64  # the serving prefill's call, as attention_op makes it
-    q, k, v = attn_inputs(B, H, S, S, Dh, torch.float32, gen, bshd=True)
-    qc, kc, vc = (t.contiguous() for t in (q, k, v))
-    fn = lambda: flash_attention(q, k, v, causal=True)  # noqa: E731
-    plain = lambda: flash_attention_ref(q, k, v, causal=True)  # noqa: E731
-    sdpa = lambda: F.scaled_dot_product_attention(qc, kc, vc, is_causal=True)  # noqa: E731
-    t = {"ms": time_graph_ms(fn, reps=10), "plain_ms": time_graph_ms(plain, reps=3),
-         "library_ms": time_graph_ms(sdpa, reps=10), "host_ms": time_ms(fn, reps=10, warm=2),
-         "plain_host_ms": time_ms(plain, reps=3, warm=1), "library_host_ms": time_ms(sdpa, reps=10, warm=2)}
-    sdpa_err = float((sdpa().float() - plain().float()).abs().max())
-    n_bytes, n_flops = attn_work(B, H, S, S, Dh, True, 4)
-    t["bound_ms"], t["bound_by"] = bound_ms(n_bytes, n_flops, FP32_FLOPS_PER_S)
-    log(f"flash_attention ({SERVE_PATH}: B={B}, H={H}, S={S}, Dh={Dh}, causal, float32): {t['ms']:.6f} ms/call "
-        f"on the device ({t['host_ms']:.6f} issued eagerly), plain {t['plain_ms']:.6f} ms ({t['plain_host_ms']:.6f}), "
-        f"SDPA {t['library_ms']:.6f} ms ({t['library_host_ms']:.6f}; max |err| vs plain {sdpa_err:.3e}), "
-        f"bound {t['bound_ms']:.6f} ms ({t['bound_by']}: {n_flops / 1e9:.2f} GFLOP, {n_bytes / 1e6:.1f} MB), "
-        f"{n_flops / t['ms'] / 1e9:.2f} TFLOP/s")
+    def timing(label, B, H, S, Dh):
+        """The kernel at a prefill's call, as attention_op makes it, beside its
+        plain version and SDPA, and its float32 bound."""
+        q, k, v = attn_inputs(B, H, S, S, Dh, torch.float32, gen, bshd=True)
+        qc, kc, vc = (t.contiguous() for t in (q, k, v))
+        fn = lambda: flash_attention(q, k, v, causal=True)  # noqa: E731
+        plain = lambda: flash_attention_ref(q, k, v, causal=True)  # noqa: E731
+        sdpa = lambda: F.scaled_dot_product_attention(qc, kc, vc, is_causal=True)  # noqa: E731
+        t = {"ms": time_graph_ms(fn, reps=10), "plain_ms": time_graph_ms(plain, reps=3),
+             "library_ms": time_graph_ms(sdpa, reps=10), "host_ms": time_ms(fn, reps=10, warm=2),
+             "plain_host_ms": time_ms(plain, reps=3, warm=1), "library_host_ms": time_ms(sdpa, reps=10, warm=2)}
+        sdpa_err = float((sdpa().float() - plain().float()).abs().max())
+        n_bytes, n_flops = attn_work(B, H, S, S, Dh, True, 4)
+        t["bound_ms"], t["bound_by"] = bound_ms(n_bytes, n_flops, FP32_FLOPS_PER_S)
+        log(f"flash_attention ({label}: B={B}, H={H}, S={S}, Dh={Dh}, causal, float32): {t['ms']:.6f} ms/call "
+            f"on the device ({t['host_ms']:.6f} issued eagerly), plain {t['plain_ms']:.6f} ms "
+            f"({t['plain_host_ms']:.6f}), SDPA {t['library_ms']:.6f} ms ({t['library_host_ms']:.6f}; max |err| vs "
+            f"plain {sdpa_err:.3e}), bound {t['bound_ms']:.6f} ms ({t['bound_by']}: {n_flops / 1e9:.2f} GFLOP, "
+            f"{n_bytes / 1e6:.1f} MB), {n_flops / t['ms'] / 1e9:.2f} TFLOP/s")
+        return dict(t, B=B, H=H, S=S, Dh=Dh)
+
+    by_path = {SERVE_PATH: timing(SERVE_PATH, 4, 32, 2048, 64),  # the serving prefill's call
+               MOE_SERVE_PATH: timing(MOE_SERVE_PATH, 4, 40, 2048, 128)}
     return dict(
         name="flash_attention", route="cuda", source="src/repro_torch/kernels/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:70", max_abs_err=worst[torch.float32],
-        max_abs_err_bf16=worst[torch.bfloat16], by_path={SERVE_PATH: dict(t, B=B, H=H, S=S, Dh=Dh)},
+        max_abs_err_bf16=worst[torch.bfloat16], by_path=by_path,
+        # kimi-k2's head dim: not on a main path yet (its full width does not fit the card)
+        dh112=timing("kimi-k2-1t-a32b head dim, not a main path", 1, 64, 2048, 112),
     )
 
 
@@ -904,18 +939,19 @@ def margins(logits):
     return (top2[..., 0] - top2[..., 1]).cpu()
 
 
-def decided_steps(margin_row):
+def decided_steps(margin_row, tol=LOGIT_TOL):
     """Steps 0.. up to and including the first whose margin is below 10x the
     tolerance: those tokens must agree; later ones may follow another token."""
     for s, m in enumerate(margin_row):
-        if m < 10 * LOGIT_TOL:
+        if m < 10 * tol:
             return s + 1
     return len(margin_row)
 
 
 def check_init(params, golden):
-    """The card's init_lm against the reference's weights: samples within
-    2 ulp, sums of |w| within 1e-6 relative."""
+    """The card's init_lm against the reference's weights: samples (a
+    corner of the leaf seen as rows of its last dim) within 2 ulp, sums of
+    |w| within 1e-6 relative."""
     for name, ref in golden["leaves"].items():
         parts = name.split("/")
         t = params
@@ -924,7 +960,8 @@ def check_init(params, golden):
             parts = parts[1:]
         for part in parts:
             t = getattr(t, part)
-        sample = t[:2, :8] if ref["corner"] == "head" else t[-2:, -8:]
+        rows = t.reshape(-1, t.shape[-1])
+        sample = rows[:2, :8] if ref["corner"] == "head" else rows[-2:, -8:]
         d = ulps(sample.cpu().numpy(), ref["sample"])
         total = float(t.double().abs().sum())
         rel = abs(total - ref["abs_sum"]) / ref["abs_sum"]
@@ -933,9 +970,10 @@ def check_init(params, golden):
             raise AssertionError(f"init_lm on the card differs from the reference at {name}")
 
 
-def check_golden(res, golden):
+def check_golden(res, golden, tol=LOGIT_TOL):
     """A kernel-plane serve at the golden file's size against the JAX
-    reference's full-width outputs."""
+    reference's full-width outputs: logits within ``tol``, greedy tokens
+    equal over the decided steps."""
     import torch
 
     if res.prompts.cpu().tolist() != golden["prompts"]:
@@ -943,7 +981,7 @@ def check_golden(res, golden):
     worst = 0.0
     for b in range(golden["batch"]):
         ref_m = [st["top_logits"][b][0] - st["top_logits"][b][1] for st in golden["steps"]]
-        n = decided_steps(ref_m)
+        n = decided_steps(ref_m, tol)
         for s in range(n):
             st = golden["steps"][s]
             lg = res.logits[s, b].double().cpu()
@@ -953,22 +991,24 @@ def check_golden(res, golden):
                     torch.tensor(st["lse"][b])]
             err = max(float((g - w).abs().max()) for g, w in zip(got, want))
             worst = max(worst, err)
-            if err > LOGIT_TOL:
-                raise AssertionError(f"golden: request {b} step {s}: logits off by {err} > {LOGIT_TOL}")
-            if ref_m[s] > 10 * LOGIT_TOL and int(lg.argmax()) != st["top_ids"][b][0]:
+            if err > tol:
+                raise AssertionError(f"golden: request {b} step {s}: logits off by {err} > {tol}")
+            if ref_m[s] > 10 * tol and int(lg.argmax()) != st["top_ids"][b][0]:
                 raise AssertionError(f"golden: request {b} step {s}: top-1 {int(lg.argmax())} != {st['top_ids'][b][0]}")
             if int(res.tokens[b, s]) != golden["tokens"][b][s]:
                 raise AssertionError(f"golden: request {b} step {s}: token {int(res.tokens[b, s])} != "
                                      f"{golden['tokens'][b][s]}")
-        log(f"  golden request {b}: {n} of {golden['gen_len']} steps decided (margin > {10 * LOGIT_TOL}); "
-            f"tokens equal, logits within {LOGIT_TOL}")
+        log(f"  golden request {b}: {n} of {golden['gen_len']} steps decided (margin > {10 * tol}); "
+            f"tokens equal, logits within {tol}")
     return worst
 
 
 def device_busy(fn):
     """Wall ms of one synchronised call, the device's busy ms in it
     (torch.profiler: the sum of the device operations' durations), their
-    count, and the largest kernel families: name -> [launches, ms]."""
+    count, the largest kernel families: name -> [launches, ms], and the
+    MoE steps' launches and ms (``range_split``: empty without a MoE
+    ``Record`` open)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -978,15 +1018,17 @@ def device_busy(fn):
         out = fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    dev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    # the device's operations; a profiler range also shows on the device's timeline (``moe.Record``): not one
+    dev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA and not e.name.startswith("moe:")]
     busy = sum(e.time_range.elapsed_us() for e in dev) / 1e3
     fams = {}
     for e in dev:
-        fam = fams.setdefault(e.name.split("(")[0].strip()[:80], [0, 0.0])
+        name = e.name.replace("(anonymous namespace)::", "").removeprefix("void ")
+        fam = fams.setdefault(name.split("(")[0].strip()[:80], [0, 0.0])
         fam[0] += 1
         fam[1] += e.time_range.elapsed_us() / 1e3
     top = dict(sorted(fams.items(), key=lambda kv: -kv[1][1])[:8])
-    return out, wall, busy, len(dev), top
+    return out, wall, busy, len(dev), top, range_split(prof.events())
 
 
 def phase_serve(counted):
@@ -999,7 +1041,6 @@ def phase_serve(counted):
 
     from repro_torch.configs import get_config
     from repro_torch.core import prng
-    from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.launch.serve import serve
     from repro_torch.models.decode import lm_decode_step, lm_prefill
     from repro_torch.models.lm import init_lm
@@ -1031,11 +1072,11 @@ def phase_serve(counted):
         prompts = prng.randint(prng.prng_key(1, "cuda"), (SERVE["batch"], SERVE["prompt_len"]), 0, cfg.vocab_size)
         pad = SERVE["prompt_len"] + SERVE["gen_len"]
         lm_prefill(params, cfg, {"tokens": prompts[:, :64]}, pad_to=96, plane="kernel")  # warm-up
-        (logits, cache), p_wall, p_busy, p_ops, p_top = device_busy(
+        (logits, cache), p_wall, p_busy, p_ops, p_top, _ = device_busy(
             lambda: lm_prefill(params, cfg, {"tokens": prompts}, pad_to=pad, plane="kernel"))
         tok = logits.argmax(-1)
         lm_decode_step(params, cfg, cache, {"token": tok})  # warm-up: writes slot S, which the next call rewrites
-        _, d_wall, d_busy, d_ops, d_top = device_busy(lambda: lm_decode_step(params, cfg, cache, {"token": tok}))
+        _, d_wall, d_busy, d_ops, d_top, _ = device_busy(lambda: lm_decode_step(params, cfg, cache, {"token": tok}))
         del cache, logits
     prof = {"prefill_wall_ms": p_wall, "prefill_device_busy_ms": p_busy, "prefill_idle_share": 1 - p_busy / p_wall,
             "prefill_device_ops": p_ops, "decode_step_wall_ms": d_wall, "decode_step_device_busy_ms": d_busy,
@@ -1056,8 +1097,6 @@ def phase_serve(counted):
     expect["flash_attention"] = cfg.n_layers
     if got != expect:
         raise AssertionError(f"{SERVE_PATH}: kernel launches {got} != {expect} (one flash_attention per prefill layer)")
-    if flash_attention.launches != cfg.n_layers:
-        raise AssertionError("flash_attention: launch count")
 
     t = serve(cfg, **SERVE, seed=0, device="cuda", plane="torch", params=params)
     log(f"main path {SERVE_PATH} (torch plane): prefill {t.prefill_ms:.3f} ms, decode {t.decode_ms_per_step:.3f} "
@@ -1074,6 +1113,204 @@ def phase_serve(counted):
             f"({int((k.tokens[b] == t.tokens[b]).sum())} equal in all)")
     log(f"{SERVE_PATH}: prefill logits of the planes within {gap:.3e} (tolerance {LOGIT_TOL}); "
         f"logits std {float(k.logits[0].std()):.3f}")
+    return got
+
+
+MOE_STEPS = ("router", "dispatch", "expert products", "combine")  # moe.Record's profiler ranges
+
+
+def range_split(events, prefix="moe:"):
+    """Device ms and kernel launches under each profiler range whose name
+    starts with ``prefix``: {name: [launches, ms]} (a range's kernels are
+    those of the operations it encloses)."""
+    def kernels(e):
+        return list(e.kernels) + [k for ch in e.cpu_children for k in kernels(ch)]
+
+    import torch
+
+    out = {}
+    for e in events:
+        if e.name.startswith(prefix) and e.device_type == torch.autograd.DeviceType.CPU:
+            ks = kernels(e)
+            row = out.setdefault(e.name[len(prefix):], [0, 0.0])
+            row[0] += len(ks)
+            row[1] += sum(k.duration for k in ks) / 1e3
+    return out
+
+
+def moe_serve_work(cfg, B, S, kept, n_rows):
+    """(flops, bytes) a float32 prefill of B x S tokens needs on the MoE
+    model, and the bytes of one decode step.  Operations: 2 per weight per
+    token for the projections and the router, 2 per expert weight per
+    filled capacity slot (``kept``: the assignments each layer kept in this
+    run's prefill; an empty slot needs no work), 4 Dh per causal (query,
+    key) pair and head, the head on the last token only.  Bytes: every
+    weight read once, of the embedding only the rows the tokens read
+    (``n_rows`` distinct rows in prefill, B in a decode step, whose experts
+    all run on their C = 4 slots), the KV cache written once (prefill) or
+    read once (decode)."""
+    D, H, KV, Dh, F, E, V = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_ff, cfg.n_experts,
+                             cfg.vocab_size)
+    T = B * S
+    attn_w = D * H * Dh + 2 * D * KV * Dh + H * Dh * D
+    per_layer = 2 * T * (attn_w + D * E) + 4 * Dh * H * B * S * (S + 1) // 2
+    flops = cfg.n_layers * per_layer + sum(2 * n * 3 * D * F for n in kept) + 2 * B * D * V
+    weights = 4 * (cfg.param_count() + D - V * D)  # all but the embedding (not tied to the head)
+    kv = 4 * 2 * cfg.n_layers * B * S * KV * Dh
+    return flops, weights + 4 * n_rows * D + kv, weights + 4 * B * D + kv
+
+
+def prefill_route(rec, cfg, layer, n_tokens):
+    """``route_stats`` of layer ``layer``'s call in the prefill a
+    ``moe.Record`` holds first (one call per layer, of all ``n_tokens``)."""
+    from repro_torch.layers.moe import route_stats
+
+    call = rec.calls[layer]
+    if call["logits"].shape[0] != n_tokens:
+        raise AssertionError(f"moe.Record: call {layer} routed {call['logits'].shape[0]} tokens, not {n_tokens}")
+    return route_stats(cfg, call)
+
+
+def phase_serve_moe(counted):
+    """The MoE serving path at full width on the card: llama4-scout-17b-a16e
+    cut to MOE_LAYERS layers, init_lm from seed 0 (checked against the
+    reference's weights), the golden-file run on the first two layers of the
+    same model (routing per layer, logits and greedy tokens), a profiled
+    prefill and decode step with the MoE layer's time split by step, then
+    the main path: serve() at SERVE on the kernel plane, launches counted
+    from 0, and the same requests on the torch plane.  Returns the kernel
+    plane's launches by kernel."""
+    import dataclasses
+    import gc
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import prng
+    from repro_torch.launch.serve import serve
+    from repro_torch.layers import moe
+    from repro_torch.models.decode import lm_decode_step, lm_prefill
+    from repro_torch.models.lm import LM, init_lm
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(get_config(MOE_ARCH)[0], n_layers=MOE_LAYERS)
+    with open(os.path.join(ROOT, "src", "repro_torch", "data", "golden_serve_llama4_scout.json")) as f:
+        golden = json.load(f)
+    tol, router_gap = golden["tolerance"]["logits"], golden["port_cpu_gap"]["router_logits"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = init_lm(prng.prng_key(0), cfg, torch.float32, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    log(f"serve moe: init_lm({cfg.name}, {cfg.n_layers} of 48 layers, seed 0) on the card: {n_params:,} parameters "
+        f"in {time.perf_counter() - t0:.3f} s, {torch.cuda.memory_allocated() / 1e9:.3f} GB")
+    # the config's analytic count takes one d_model vector per rmsnorm; the final norm is not counted
+    if n_params != cfg.param_count() + cfg.d_model:
+        raise AssertionError(f"init_lm: {n_params} parameters, config {cfg.param_count()} + the final norm")
+    check_init(params, golden)
+
+    # the golden run: the first layers of the same model (layer l's key does not depend on the depth)
+    cfg2 = dataclasses.replace(cfg, n_layers=golden["n_layers"])
+    two = LM(cfg2, params.embed, params.final_norm, params.lm_head, list(params.layers[: cfg2.n_layers]))
+    with moe.Record() as rec:
+        g = serve(cfg2, batch=golden["batch"], prompt_len=golden["prompt_len"], gen_len=golden["gen_len"],
+                  page_size=16, seed=golden["seed"], device="cuda", plane="kernel", params=two)
+    for layer, ref in enumerate(golden["routing"]):
+        mine = prefill_route(rec, cfg2, layer, golden["batch"] * golden["prompt_len"])
+        held = ref["margin"] > 10 * router_gap
+        same = (mine["loads"], mine["dropped"]) == (ref["loads"], ref["dropped"])
+        log(f"  golden routing layer {layer}: dropped {mine['dropped']} of {sum(mine['loads'])} (reference "
+            f"{ref['dropped']}), loads {'equal' if mine['loads'] == ref['loads'] else mine['loads']}, reference "
+            f"margin {ref['margin']:.3e} {'>' if held else '<='} 10x the CPU router-logit gap {router_gap:.3e}"
+            + ("" if held else ": not held"))
+        if held and not same:
+            raise AssertionError(f"golden: layer {layer} routes {mine} where the reference routes {ref}")
+    err = check_golden(g, golden, tol)
+    log(f"serve moe golden ({golden['batch']} x {golden['prompt_len']}, {golden['gen_len']} steps, "
+        f"{cfg2.n_layers} layers, kernel plane): logits within {err:.3e} of the JAX reference (tolerance {tol}), "
+        f"tokens {g.tokens.tolist()}")
+    del two, g, rec
+
+    # where the time goes: one prefill and one decode step at the main path's shape, profiled, the MoE by step
+    B, S, G = SERVE["batch"], SERVE["prompt_len"], SERVE["gen_len"]
+    with torch.inference_mode():
+        prompts = prng.randint(prng.prng_key(1, "cuda"), (B, S), 0, cfg.vocab_size)
+        lm_prefill(params, cfg, {"tokens": prompts[:, :64]}, pad_to=96, plane="kernel")  # warm-up
+        with moe.Record() as rec:
+            (logits, cache), p_wall, p_busy, p_ops, p_top, p_split = device_busy(
+                lambda: lm_prefill(params, cfg, {"tokens": prompts}, pad_to=S + G, plane="kernel"))
+            tok = logits.argmax(-1)
+            lm_decode_step(params, cfg, cache, {"token": tok})  # warm-up: writes slot S, which the next call rewrites
+            _, d_wall, d_busy, d_ops, d_top, d_split = device_busy(
+                lambda: lm_decode_step(params, cfg, cache, {"token": tok}))
+        n_rows = int(prompts.unique().numel())
+        del cache, logits
+    if set(p_split) != set(MOE_STEPS) or set(d_split) != set(MOE_STEPS):
+        raise AssertionError(f"moe.Record: the trace holds the ranges {sorted(p_split)}, {sorted(d_split)}")
+    # the profiled prefill's routing: the expert work its filled slots need
+    kept = [sum(r["loads"]) - r["dropped"] for r in (prefill_route(rec, cfg, i, B * S) for i in range(cfg.n_layers))]
+    del rec
+    flops, p_bytes, d_bytes = moe_serve_work(cfg, B, S, kept, n_rows)
+    p_bound = max(flops / FP32_FLOPS_PER_S, p_bytes / HBM_BYTES_PER_S) * 1e3
+    d_bound = d_bytes / HBM_BYTES_PER_S * 1e3
+    prof = {"prefill_wall_ms": p_wall, "prefill_device_busy_ms": p_busy, "prefill_idle_share": 1 - p_busy / p_wall,
+            "prefill_device_ops": p_ops, "prefill_bound_ms": p_bound, "prefill_tflop": flops / 1e12,
+            "prefill_kept_assignments_per_layer": kept,
+            "prefill_moe_launches_and_ms_by_step": p_split,
+            "decode_step_wall_ms": d_wall, "decode_step_device_busy_ms": d_busy,
+            "decode_step_idle_share": 1 - d_busy / d_wall, "decode_step_device_ops": d_ops,
+            "decode_step_bound_ms": d_bound, "decode_step_moe_launches_and_ms_by_step": d_split,
+            "prefill_top_launches_and_ms": p_top, "decode_step_top_launches_and_ms": d_top}
+    log("serve moe profile: " + json.dumps(prof))
+
+    # the main path: counts from 0, then read
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counted:
+        fn.launches = 0
+    with moe.Record() as rk:
+        k = serve(cfg, **SERVE, seed=0, device="cuda", plane="kernel", params=params)
+    got = {fn.__name__: fn.launches for fn in counted}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    log(f"main path {MOE_SERVE_PATH} (kernel plane, {cfg.n_layers} layers, B={B}, prompt {S}, {G} tokens each, "
+        f"float32): prefill {k.prefill_ms:.3f} ms, decode {k.decode_ms_per_step:.3f} ms/step, {k.tokens_per_s:.1f} "
+        f"tok/s, peak {peak:.3f} GB allocated, page table {k.pages_used}/{k.pages_total} used, "
+        f"{k.pages_used_after_release} after release, launches {got}")
+    expect = {fn.__name__: 0 for fn in counted}
+    expect["flash_attention"] = cfg.n_layers
+    if got != expect:
+        raise AssertionError(f"{MOE_SERVE_PATH}: kernel launches {got} != {expect} (one flash_attention per prefill "
+                             "layer)")
+
+    with moe.Record() as rt:
+        t = serve(cfg, **SERVE, seed=0, device="cuda", plane="torch", params=params)
+    log(f"main path {MOE_SERVE_PATH} (torch plane): prefill {t.prefill_ms:.3f} ms, decode "
+        f"{t.decode_ms_per_step:.3f} ms/step, {t.tokens_per_s:.1f} tok/s")
+    # what each plane's prefill routed, layer by layer
+    for layer in range(cfg.n_layers):
+        a, b = prefill_route(rk, cfg, layer, B * S), prefill_route(rt, cfg, layer, B * S)
+        gap = float((rk.calls[layer]["logits"] - rt.calls[layer]["logits"]).abs().max())
+        log(f"  {MOE_SERVE_PATH} layer {layer}: dropped {a['dropped']} of {sum(a['loads'])} (capacity "
+            f"{a['capacity']}), loads {a['loads']}, smallest router margin {a['margin']:.3e}; planes' router logits "
+            f"within {gap:.3e}, routing {'equal' if (a['loads'], a['dropped']) == (b['loads'], b['dropped']) else b}")
+        if a["margin"] > 10 * gap and (a["loads"], a["dropped"]) != (b["loads"], b["dropped"]):
+            raise AssertionError(f"{MOE_SERVE_PATH}: layer {layer}: the planes route differently: {a} vs {b}")
+    gap = float((k.logits[0] - t.logits[0]).abs().max())
+    if gap > tol:
+        raise AssertionError(f"{MOE_SERVE_PATH}: prefill logits of the planes differ by {gap} > {tol}")
+    m = margins(t.logits)
+    for b in range(B):
+        n = decided_steps(m[:, b].tolist(), tol)
+        if k.tokens[b, :n].tolist() != t.tokens[b, :n].tolist():
+            raise AssertionError(f"{MOE_SERVE_PATH}: request {b}: greedy tokens differ within the first {n} steps")
+        log(f"  request {b}: tokens equal over the {n} decided steps of {G} "
+            f"({int((k.tokens[b] == t.tokens[b]).sum())} equal in all)")
+    log(f"{MOE_SERVE_PATH}: prefill logits of the planes within {gap:.3e} (tolerance {tol}); "
+        f"logits std {float(k.logits[0].std()):.3f}; prefill {k.prefill_ms / p_bound:.2f}x its bound "
+        f"{p_bound:.3f} ms, decode {k.decode_ms_per_step / d_bound:.2f}x its bound {d_bound:.3f} ms")
+    del params, k, t, rk, rt
+    gc.collect()
+    torch.cuda.empty_cache()
     return got
 
 
@@ -1177,7 +1414,7 @@ def phase_train(counted):
         step_ms.append((time.perf_counter() - t0) * 1e3)
     got = {fn.__name__: fn.launches for fn in counted}
     peak = torch.cuda.max_memory_allocated() / 1e9
-    _, p_wall, p_busy, p_ops, p_top = device_busy(
+    _, p_wall, p_busy, p_ops, p_top, _ = device_busy(
         lambda: step_fn(params, state, TRAIN["steps"], batches[TRAIN["steps"]]))
     bound, bound_by, flops = train_bound_ms(full, params, B, S)
     ms = sum(step_ms[1:]) / (len(step_ms) - 1)
@@ -1339,7 +1576,7 @@ def phase_calvin(counted):
     gs = GridSpec(protocol="calvin", workload="smallbank", kernel_plane="kernel", device="cuda")
     ec, cm, wl = engine_config(gs, make_knobs("smallbank", [{"hybrid": c} for c in CODES]))
     n_epochs = 4
-    _, wall, busy, n_ops, top = device_busy(lambda: calvin.run_epochs(ec, cm, wl, n_epochs))
+    _, wall, busy, n_ops, top, _ = device_busy(lambda: calvin.run_epochs(ec, cm, wl, n_epochs))
     log("calvin profile: " + json.dumps({
         "path": "calvin/smallbank", "configs": len(CODES), "epoch_wall_ms": wall / n_epochs,
         "device_busy_ms_per_epoch": busy / n_epochs, "device_idle_share": 1 - busy / wall,
@@ -1724,6 +1961,10 @@ def main() -> int:
     for name, n in phase_serve(counted).items():
         launches[name][SERVE_PATH] = n
 
+    # the MoE serving path (llama4-scout-17b-a16e at full width, 6 layers)
+    for name, n in phase_serve_moe(counted).items():
+        launches[name][MOE_SERVE_PATH] = n
+
     # phase 8: the LM training path (stablelm-1.6b at full width and depth)
     for name, n in phase_train(counted).items():
         launches[name][TRAIN_PATH] = n
@@ -1739,7 +1980,6 @@ def main() -> int:
         lib = [(n, r) for n, r in weighted if r.get("library_ms") is not None]
         k.update({key: mix(lib)[key] if lib else None for key in ("library_ms", "library_host_ms")})
         k["ms_library_paths"] = mix(lib)["ms"] if lib else None
-    log(f"one_device_op: {len(EMPTY_TRACES)} traces with no device event: {json.dumps(EMPTY_TRACES)}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

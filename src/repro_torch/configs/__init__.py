@@ -1,8 +1,9 @@
 """Architecture config registry (``--arch <id>``), port of ``repro.configs``.
 
 Only the architectures whose families the port runs are listed: the dense
-decoder stablelm-1.6b.  The other configs wait for their families
-(ROADMAP.md A.12).
+decoder stablelm-1.6b and the MoE decoders llama4-scout-17b-a16e and
+kimi-k2-1t-a32b.  The other configs wait for their families (ROADMAP.md
+A.12).
 """
 from __future__ import annotations
 
@@ -14,6 +15,8 @@ from repro_torch.configs.base import SHAPES, ArchConfig, ShapeSpec, cell_support
 
 ARCH_MODULES = {
     "stablelm-1.6b": "stablelm_1_6b",
+    "llama4-scout-17b-a16e": "llama4_scout_17b_a16e",
+    "kimi-k2-1t-a32b": "kimi_k2_1t_a32b",
 }
 
 ARCH_IDS = tuple(ARCH_MODULES)

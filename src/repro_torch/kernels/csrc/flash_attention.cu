@@ -10,7 +10,8 @@
 //   s[r, c] = -1e30 where c >= Sk, or causal and c > r   (top-left aligned)
 //   o[r]    = sum_c softmax_c(s[r])_c * v[c]     online softmax: float32 m, l, acc
 // with p cast to v's dtype before the PV product (as the reference does) and
-// the output cast to q's dtype.  Types: float32 and bfloat16; Dh 32, 64, 128.
+// the output cast to q's dtype.  Types: float32 and bfloat16; Dh 32, 64, 112
+// (kimi-k2's head dim), 128.
 //
 // What bounds it on this card: the operations.  At the serving shape (B = 4,
 // H = 32, S = 2048, Dh = 64, causal, float32) the two products are
@@ -27,12 +28,14 @@
 // loop over 64-key K/V tiles that stops at the causal diagonal.  Thread
 // (ty, tx) = (tid / 16, tid % 16) owns q rows ty + 16i (i < 8), keys
 // tx + 16j (j < 4) of the 128 x 64 score tile, and the same 8 rows of the
-// output at Dh/16 dims.  Per 4 steps of d the score loop loads 4 K quads and
-// 8 q quads (float4, or 4 bf16 converted at use) for 128 FMAs; the PV loop
-// loads 4 V quads and 8 P quads per 4 keys for 128 FMAs.  Within a warp the
-// q and P loads are broadcasts to each half-warp and the K and V loads touch
-// 16 distinct rows, so each load costs one or two wavefronts: about 8 FMAs a
-// wavefront, twice what the FMA rate needs.  A row's 64 keys belong to the 16
+// output at Dh/16 dims (in groups of W adjacent dims: W = 4 where Dh/16 is a
+// multiple of 4, 2 where it is even; Dh = 112 gives 7 dims and W = 1, scalar
+// V loads, 16 lanes on 16 consecutive floats).  Per 4 steps of d the score
+// loop loads 4 K quads and 8 q quads (float4, or 4 bf16 converted at use)
+// for 128 FMAs; the PV loop loads 4 V quads and 8 P quads per 4 keys for 128
+// FMAs.  Within a warp the q and P loads are broadcasts to each half-warp and
+// the K and V loads touch 16 distinct rows, so each load costs one or two
+// wavefronts: about 8 FMAs a wavefront, twice what the FMA rate needs.  A row's 64 keys belong to the 16
 // lanes of one half-warp, so its max is four xor-shuffles; its sum stays a
 // per-thread partial until the end; P goes through shared memory only within
 // that half-warp.  Rows are padded by 16 bytes (K, V, q: consecutive rows on
@@ -90,15 +93,17 @@ constexpr size_t smem_bytes() {
          static_cast<size_t>(kBQ) * kPS * sizeof(float);
 }
 
-// W consecutive elements of shared memory as floats (W = 2 or 4)
+// W consecutive elements of shared memory as floats (W = 1, 2 or 4)
 template <int W>
 __device__ __forceinline__ void lds(const float* p, float* x) {
   if constexpr (W == 4) {
     const float4 t = *reinterpret_cast<const float4*>(p);
     x[0] = t.x, x[1] = t.y, x[2] = t.z, x[3] = t.w;
-  } else {
+  } else if constexpr (W == 2) {
     const float2 t = *reinterpret_cast<const float2*>(p);
     x[0] = t.x, x[1] = t.y;
+  } else {
+    x[0] = *p;
   }
 }
 
@@ -109,9 +114,11 @@ __device__ __forceinline__ void lds(const __nv_bfloat16* p, float* x) {
     const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&t.x));
     const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&t.y));
     x[0] = a.x, x[1] = a.y, x[2] = b.x, x[3] = b.y;
-  } else {
+  } else if constexpr (W == 2) {
     const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
     x[0] = a.x, x[1] = a.y;
+  } else {
+    x[0] = __bfloat162float(*p);
   }
 }
 
@@ -176,7 +183,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const T
                        float scale_log2, int causal, int aligned_in, int aligned_out) {
   constexpr int RS = row_stride<T, DH>();
   constexpr int NE = DH / 16;  // output dims per thread
-  constexpr int W = NE < 4 ? NE : 4;
+  constexpr int W = NE % 4 == 0 ? 4 : NE % 2 == 0 ? 2 : 1;
   constexpr int NG = NE / W;   // groups of W adjacent dims, 16 * W apart
   extern __shared__ float4 smem4[];
   T* Qs = reinterpret_cast<T*>(smem4);
@@ -345,6 +352,7 @@ int dispatch_dh(int Dh, const void* q, const void* k, const void* v, void* o, in
   switch (Dh) {
     case 32: return launch<T, 32>(q, k, v, o, B, H, Sq, Sk, sq, sk, sv, so, scale, causal, al_in, al_out, stream);
     case 64: return launch<T, 64>(q, k, v, o, B, H, Sq, Sk, sq, sk, sv, so, scale, causal, al_in, al_out, stream);
+    case 112: return launch<T, 112>(q, k, v, o, B, H, Sq, Sk, sq, sk, sv, so, scale, causal, al_in, al_out, stream);
     case 128: return launch<T, 128>(q, k, v, o, B, H, Sq, Sk, sq, sk, sv, so, scale, causal, al_in, al_out, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -17,7 +17,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ref import flash_attention_ref
 
 DTYPES = (torch.float32, torch.bfloat16)
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 112, 128)
 
 
 def _check(q, k, v):

@@ -1,5 +1,5 @@
 """Prefill + single-token decode with a KV cache (port of
-``repro.models.decode``, dense attention stacks only).
+``repro.models.decode``, attention stacks: dense MLP or MoE FFN).
 
 Cache layout, as the reference's: ``{"len": int, "layers": {"k": (L,B,S,KV,Dh),
 "v": ...}}``, with ``len`` the number of tokens already in the cache (a
@@ -75,7 +75,8 @@ def lm_decode_step(params: LM, cfg: ArchConfig, cache, batch):
     Returns (logits (B,V), new cache); the new cache shares the given
     cache's arrays, which this step has written in place (every layer is an
     attention block: the reference's ``_block_step`` dispatch has one kind
-    here)."""
+    here).  An MoE layer sees the step's B tokens as one call, as the
+    reference's does, so its capacity is that of T = B."""
     pos = int(cache["len"])
     x = embed_tokens(params, cfg, batch["token"][:, None])
     ks, vs = cache["layers"]["k"], cache["layers"]["v"]

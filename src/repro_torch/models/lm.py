@@ -1,4 +1,5 @@
-"""The dense decoder LM (port of ``repro.models.lm``, dense attention stacks).
+"""The decoder LM (port of ``repro.models.lm``, attention stacks with a
+dense MLP or an MoE FFN).
 
 Parameters are ``nn.Module``s whose names follow the reference's parameter
 tree, one module per layer where the reference stacks layers on a leading
@@ -30,6 +31,7 @@ from repro_torch.layers import attention as attn_lib
 from repro_torch.layers.attention import Attention
 from repro_torch.layers.common import Norm, apply_norm, apply_rope, init_norm
 from repro_torch.layers.mlp import MLP, apply_mlp, init_mlp
+from repro_torch.layers.moe import MoE, apply_moe, init_moe
 from repro_torch.sharding import dense_init, name_key
 
 
@@ -46,8 +48,6 @@ def resolve_device(device) -> torch.device:
 
 def check_ported(cfg: ArchConfig) -> None:
     """Raise for the families whose blocks are not ported yet."""
-    if cfg.is_moe:
-        raise NotImplementedError(f"{cfg.name}: MoE blocks are not ported yet (ROADMAP.md A.12.3)")
     if cfg.is_ssm:
         raise NotImplementedError(f"{cfg.name}: SSM blocks are not ported yet (ROADMAP.md A.12.4)")
     if cfg.is_hybrid:
@@ -59,8 +59,9 @@ def check_ported(cfg: ArchConfig) -> None:
 
 
 class Block(nn.Module):
-    """One decoder layer: ``norm1``, ``attn``, ``norm2``, ``mlp`` (a parallel
-    block has one ``norm``)."""
+    """One decoder layer: ``norm1``, ``attn``, ``norm2`` and the FFN under
+    the reference's name, ``moe`` for an MoE config and ``mlp`` otherwise (a
+    parallel block has one ``norm``)."""
 
     def __init__(self, parts: Dict[str, nn.Module]):
         super().__init__()
@@ -86,15 +87,20 @@ class LM(nn.Module):
 # ---------------------------------------------------------------------------
 
 
-def _block(cfg: ArchConfig, norms: List[Norm], attn: Attention, mlp: MLP) -> Block:
+def _ffn_name(cfg: ArchConfig) -> str:
+    return "moe" if cfg.is_moe else "mlp"
+
+
+def _block(cfg: ArchConfig, norms: List[Norm], attn: Attention, ffn: nn.Module) -> Block:
     if cfg.parallel_block:
-        return Block({"norm": norms[0], "attn": attn, "mlp": mlp})
-    return Block({"norm1": norms[0], "attn": attn, "norm2": norms[1], "mlp": mlp})
+        return Block({"norm": norms[0], "attn": attn, _ffn_name(cfg): ffn})
+    return Block({"norm1": norms[0], "attn": attn, "norm2": norms[1], _ffn_name(cfg): ffn})
 
 
 def _init_layer(key, cfg: ArchConfig, dtype) -> Block:
     norms = [init_norm(cfg.norm, cfg.d_model, dtype, key.device) for _ in range(1 if cfg.parallel_block else 2)]
-    return _block(cfg, norms, attn_lib.init_attn(key, cfg, dtype), init_mlp(key, cfg, dtype))
+    ffn = init_moe(key, cfg, dtype) if cfg.is_moe else init_mlp(key, cfg, dtype)
+    return _block(cfg, norms, attn_lib.init_attn(key, cfg, dtype), ffn)
 
 
 def init_lm(key, cfg: ArchConfig, dtype=torch.float32, *, device="cuda") -> LM:
@@ -129,7 +135,8 @@ def lm_from_state(cfg: ArchConfig, state: Dict[str, torch.Tensor]) -> LM:
     for i in range(cfg.n_layers):
         p = f"layers.{i}."
         names = ("norm",) if cfg.parallel_block else ("norm1", "norm2")
-        layers.append(_block(cfg, [norm(p + n + ".") for n in names], Attention(sub(p + "attn.")), MLP(sub(p + "mlp."))))
+        ffn = (MoE if cfg.is_moe else MLP)(sub(p + _ffn_name(cfg) + "."))
+        layers.append(_block(cfg, [norm(p + n + ".") for n in names], Attention(sub(p + "attn.")), ffn))
     return LM(cfg, state["embed"], norm("final_norm."), state.get("lm_head"), layers)
 
 
@@ -147,14 +154,21 @@ def _attn_in(lp: Block, cfg: ArchConfig, x):
     return apply_norm(cfg.norm, lp.norm if cfg.parallel_block else lp.norm1, x)
 
 
+def _ffn(lp: Block, cfg: ArchConfig, x):
+    """The block's FFN: the MoE for an MoE config, the MLP otherwise."""
+    if cfg.is_moe:
+        return apply_moe(lp.moe, cfg, x)
+    return apply_mlp(lp.mlp, cfg, x)
+
+
 def _block_out(lp: Block, cfg: ArchConfig, x, h, attn_out):
     """The block's output from its input x, the normed h and the attention's
-    output: a parallel block adds the MLP of h, a sequential one the MLP of
+    output: a parallel block adds the FFN of h, a sequential one the FFN of
     its second norm after the attention's residual."""
     if cfg.parallel_block:
-        return x + attn_out + apply_mlp(lp.mlp, cfg, h)
+        return x + attn_out + _ffn(lp, cfg, h)
     x = x + attn_out
-    return x + apply_mlp(lp.mlp, cfg, apply_norm(cfg.norm, lp.norm2, x))
+    return x + _ffn(lp, cfg, apply_norm(cfg.norm, lp.norm2, x))
 
 
 TRAIN = "train"  # the attention route of training (``_attention``)
@@ -196,8 +210,9 @@ def _block_full(lp: Block, cfg: ArchConfig, x, positions, *, plane=ops.AUTO, kv_
 def _save_weight_products(ctx, op, *args, **kwargs):
     """``save_attn``'s policy, the counterpart of JAX's
     ``checkpoint_dots_with_no_batch_dims``: keep the products with the
-    weights (``x @ W`` folds into one ``mm``), recompute the rest, the
-    attention's batched products among them."""
+    weights (``x @ W`` folds into one ``mm``, the MoE router's too),
+    recompute the rest, the attention's and the experts' batched products
+    (``bmm``) among them."""
     if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
         return CheckpointPolicy.MUST_SAVE
     return CheckpointPolicy.PREFER_RECOMPUTE

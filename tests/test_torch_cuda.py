@@ -353,7 +353,8 @@ def test_kernel_plane_matches_torch_plane_on_the_card(card, protocol, workload):
 @pytest.mark.parametrize(
     "B,H,Sq,Sk,Dh,causal",
     [(2, 3, 128, 128, 64, True), (1, 2, 65, 65, 32, False), (1, 1, 1, 1, 128, True), (2, 2, 50, 130, 64, False),
-     (1, 4, 320, 320, 128, True), (1, 2, 70, 40, 32, True), (1, 2, 70, 0, 64, True)],
+     (1, 4, 320, 320, 128, True), (1, 2, 70, 40, 32, True), (1, 2, 70, 0, 64, True), (2, 3, 190, 190, 112, True),
+     (1, 2, 65, 130, 112, False)],
 )
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 3e-2)])
 def test_flash_attention_cuda_matches_plain(card, B, H, Sq, Sk, Dh, causal, dtype, tol):
@@ -373,6 +374,10 @@ def test_flash_attention_cuda_matches_plain(card, B, H, Sq, Sk, Dh, causal, dtyp
     [("serving shape, (B, S, H, Dh) views", 4, 32, 2048, 2048, 64, True, torch.float32, 1e-5),
      ("Dh 128, Sq < Sk", 2, 3, 200, 333, 128, True, torch.float32, 1e-5),
      ("Dh 128, Sq > Sk", 2, 3, 333, 200, 128, True, torch.bfloat16, 3e-2),
+     ("llama4-scout's prefill head, (B, S, H, Dh) views", 1, 40, 2048, 2048, 128, True, torch.float32, 1e-5),
+     ("kimi-k2's head dim, (B, S, H, Dh) views", 1, 64, 2048, 2048, 112, True, torch.float32, 1e-5),
+     ("kimi-k2's head dim, Sq < Sk", 2, 3, 200, 333, 112, True, torch.bfloat16, 3e-2),
+     ("rows not 16-byte aligned", 2, 3, 130, 130, 112, True, torch.float32, 1e-5),
      ("rows not 16-byte aligned", 2, 3, 130, 130, 64, True, torch.float32, 1e-5),
      ("rows not 16-byte aligned", 2, 3, 77, 90, 32, False, torch.bfloat16, 3e-2)],
 )
@@ -413,6 +418,27 @@ def test_reduced_serve_on_the_card_matches_the_cpu(card):
     on_cpu = serve(cfg, device="cpu", plane="torch", **kw)
     assert torch.equal(on_card.prompts.cpu(), on_cpu.prompts)
     torch.testing.assert_close(on_card.logits.cpu(), on_cpu.logits, atol=1e-4, rtol=0)
+    assert torch.equal(on_card.tokens.cpu(), on_cpu.tokens)
+
+
+@pytest.mark.parametrize("arch", ["llama4-scout-17b-a16e", "kimi-k2-1t-a32b"])
+def test_reduced_moe_serve_on_the_card_matches_the_cpu(card, arch):
+    """The MoE serving path at the reduced config: the kernel plane on the
+    card against the torch plane on the CPU, same seed (5e-4 on logits, the
+    CPU tests' 5e-5 against the reference with 10x for the card's summation
+    order; tokens equal), one flash_attention launch per prefill layer."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.launch.serve import serve
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = reduced_config(arch)
+    kw = dict(batch=3, prompt_len=40, gen_len=8, page_size=16, seed=0)
+    n = flash_attention.launches
+    on_card = serve(cfg, device="cuda", plane="kernel", **kw)
+    assert flash_attention.launches == n + cfg.n_layers
+    on_cpu = serve(cfg, device="cpu", plane="torch", **kw)
+    assert torch.equal(on_card.prompts.cpu(), on_cpu.prompts)
+    torch.testing.assert_close(on_card.logits.cpu(), on_cpu.logits, atol=5e-4, rtol=0)
     assert torch.equal(on_card.tokens.cpu(), on_cpu.tokens)
 
 

@@ -343,6 +343,8 @@ FLASH_CASES = [  # (B, H, Sq, Sk, Dh, causal): the reference test's grid, ragged
 ] + [
     (1, 2, 65, 65, 64, True), (2, 1, 100, 100, 32, False), (1, 1, 1, 1, 64, True), (1, 2, 1, 1, 128, False),
     (1, 2, 50, 130, 64, False), (2, 1, 130, 50, 32, False), (1, 1, 40, 70, 64, True), (1, 1, 70, 40, 32, True),
+    # kimi-k2's head dim
+    (1, 2, 130, 130, 112, True), (1, 1, 70, 90, 112, False),
 ]
 
 

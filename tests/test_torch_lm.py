@@ -250,7 +250,7 @@ def test_dense_variants_match_reference(variant):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(n_experts=4, top_k=2), "A.12.3"), (dict(ssm_state=8), "A.12.4"),
+    (dict(ssm_state=8), "A.12.4"),
     (dict(block_pattern=("attn", "rglru"), local_window=16), "A.12.5"),
     (dict(encoder_decoder=True, n_enc_layers=2), "A.12.6"), (dict(mrope_sections=(4, 6, 6)), "A.12.7"),
 ])
@@ -277,12 +277,14 @@ def test_entry_points_default_to_cuda_and_refuse_without_it():
 def test_only_ported_configs_are_listed():
     from repro_torch.configs import ARCH_IDS
 
-    assert ARCH_IDS == (ARCH,)
-    cfg, _ = get_config(ARCH)
-    jcfg, _ = jget_config(ARCH)
-    assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
-    assert dataclasses.asdict(reduced_config(ARCH)) == dataclasses.asdict(jreduced_config(ARCH))
-    assert cfg.param_count() == 1_644_265_472
+    assert ARCH_IDS == (ARCH, "llama4-scout-17b-a16e", "kimi-k2-1t-a32b")
+    for arch in ARCH_IDS:
+        cfg, over = get_config(arch)
+        jcfg, jover = jget_config(arch)
+        assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg) and over == jover, arch
+        assert dataclasses.asdict(reduced_config(arch)) == dataclasses.asdict(jreduced_config(arch)), arch
+        assert cfg.param_count() == jcfg.param_count() and cfg.active_param_count() == jcfg.active_param_count()
+    assert get_config(ARCH)[0].param_count() == 1_644_265_472
     with pytest.raises(KeyError, match="A.12"):
         get_config("qwen2.5-32b")
 
