@@ -71,7 +71,16 @@ Run from a checkout of the repository on a machine with one CUDA card and
    router, dispatch, expert products and combine, then the main path
    ``serve`` (4 x 2048 tokens, 32 each) on both planes, 6
    ``flash_attention`` launches per prefill, each plane's routing per layer;
-10. the LM training path, stablelm-1.6b at full width in float32 with TF32
+10. the SSM serving path, falcon-mamba-7b at full width and all 64 layers
+   (7.27 B float32 parameters), TF32 off: ``init_lm`` from seed 0 on the
+   card (checked against the reference's weights), the golden-file run on
+   the first two layers of the same model (one 2048-token prompt, 8 greedy
+   tokens, logits within 10x the port's CPU gap), a profiled prefill and
+   decode step with the SSM layer's device time split into in_proj, conv,
+   x_proj/dt, scan and out_proj, then the main path ``serve`` (4 x 2048
+   tokens, 32 each) beside its float32 bound; it launches no hand-written
+   kernel, and without attention both planes compute the same thing;
+11. the LM training path, stablelm-1.6b at full width in float32 with TF32
    off: 3 AdamW steps at the depth the reference's golden file was cut to
    (its pipeline tokens bitwise, losses, grad_norms and leaf sums within
    10x the port's CPU gap), then the main path at full width and depth,
@@ -175,6 +184,11 @@ SERVE_PATH = "serve/stablelm-1.6b"
 MOE_ARCH = "llama4-scout-17b-a16e"
 MOE_LAYERS = 6
 MOE_SERVE_PATH = "serve/llama4-scout-17b-a16e"
+# the SSM serving main path: falcon-mamba-7b at full width and all 64 layers (7.27 B float32 parameters,
+# 29.1 GB), the same requests as SERVE
+SSM_ARCH = "falcon-mamba-7b"
+SSM_SERVE_PATH = "serve/falcon-mamba-7b"
+SSM_STEPS = ("in_proj", "conv", "x_proj/dt", "scan", "out_proj")  # ssm.Record's profiler ranges
 # logits tolerance of the serving phase (absolute; logits have std 0.88).  The port
 # on the CPU is within 7.9e-6 of the JAX reference at full width (the golden file's
 # port_cpu_max_abs_logit_gap); 1e-4 leaves 12x that for the card's other summation
@@ -1003,12 +1017,12 @@ def check_golden(res, golden, tol=LOGIT_TOL):
     return worst
 
 
-def device_busy(fn):
+def device_busy(fn, prefix="moe:"):
     """Wall ms of one synchronised call, the device's busy ms in it
     (torch.profiler: the sum of the device operations' durations), their
     count, the largest kernel families: name -> [launches, ms], and the
-    MoE steps' launches and ms (``range_split``: empty without a MoE
-    ``Record`` open)."""
+    launches and ms of the layer steps named ``prefix``* (``range_split``:
+    empty without the layer's ``Record`` open: ``moe:`` or ``ssm:``)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1018,8 +1032,9 @@ def device_busy(fn):
         out = fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    # the device's operations; a profiler range also shows on the device's timeline (``moe.Record``): not one
-    dev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA and not e.name.startswith("moe:")]
+    # the device's operations; a profiler range also shows on the device's timeline: not one
+    dev = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA and not e.name.startswith(RANGE_PREFIXES)]
     busy = sum(e.time_range.elapsed_us() for e in dev) / 1e3
     fams = {}
     for e in dev:
@@ -1028,7 +1043,7 @@ def device_busy(fn):
         fam[0] += 1
         fam[1] += e.time_range.elapsed_us() / 1e3
     top = dict(sorted(fams.items(), key=lambda kv: -kv[1][1])[:8])
-    return out, wall, busy, len(dev), top, range_split(prof.events())
+    return out, wall, busy, len(dev), top, range_split(prof.events(), prefix)
 
 
 def phase_serve(counted):
@@ -1117,24 +1132,32 @@ def phase_serve(counted):
 
 
 MOE_STEPS = ("router", "dispatch", "expert products", "combine")  # moe.Record's profiler ranges
+RANGE_PREFIXES = ("moe:", "ssm:")  # the profiler ranges of moe.Record and ssm.Record
 
 
 def range_split(events, prefix="moe:"):
-    """Device ms and kernel launches under each profiler range whose name
-    starts with ``prefix``: {name: [launches, ms]} (a range's kernels are
-    those of the operations it encloses)."""
-    def kernels(e):
-        return list(e.kernels) + [k for ch in e.cpu_children for k in kernels(ch)]
+    """Device ms and launches under each profiler range whose name starts
+    with ``prefix``: {name: [launches, ms]}, the device operations that
+    start inside the range's span on the device's timeline (the profiler
+    draws a range there from its first kernel's start to its last's end;
+    one stream, so the spans do not overlap).  The kernels correlated to a
+    range's CPU operations are not read: at tens of thousands of device
+    operations they were over-counted (a full-depth SSM prefill)."""
+    import bisect
 
     import torch
 
+    cuda = torch.autograd.DeviceType.CUDA
+    ops = sorted((e.time_range.start, e.time_range.elapsed_us()) for e in events
+                 if e.device_type == cuda and not e.name.startswith(RANGE_PREFIXES))
+    starts = [t for t, _ in ops]
     out = {}
     for e in events:
-        if e.name.startswith(prefix) and e.device_type == torch.autograd.DeviceType.CPU:
-            ks = kernels(e)
+        if e.device_type == cuda and e.name.startswith(prefix):
+            lo, hi = bisect.bisect_left(starts, e.time_range.start), bisect.bisect_left(starts, e.time_range.end)
             row = out.setdefault(e.name[len(prefix):], [0, 0.0])
-            row[0] += len(ks)
-            row[1] += sum(k.duration for k in ks) / 1e3
+            row[0] += hi - lo
+            row[1] += sum(d for _, d in ops[lo:hi]) / 1e3
     return out
 
 
@@ -1309,6 +1332,141 @@ def phase_serve_moe(counted):
         f"logits std {float(k.logits[0].std()):.3f}; prefill {k.prefill_ms / p_bound:.2f}x its bound "
         f"{p_bound:.3f} ms, decode {k.decode_ms_per_step / d_bound:.2f}x its bound {d_bound:.3f} ms")
     del params, k, t, rk, rt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return got
+
+
+def ssm_serve_work(cfg, n_params, B, S):
+    """(flops, bytes) a float32 prefill of B x S tokens needs on the SSM
+    model, and the bytes of one decode step.  Operations: 2 per weight per
+    token for the weight products (in_proj, x_proj, dt_proj, out_proj), the
+    head on the last token only; the elementwise work (the conv, the
+    step sizes, the scan's about 6 operations per state element and
+    token) is not counted, under 2 % of the products.  Bytes: every weight
+    read once, of the embedding only the rows the tokens read (B in a
+    decode step, ``S * B`` at most in prefill), the state h and the conv
+    tail written once (prefill) or read and written once (decode);
+    ``n_params`` is the model's parameter count."""
+    D, di, N, R, K, V = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_dt_rank, cfg.ssm_conv, cfg.vocab_size
+    per_token = D * 2 * di + di * (R + 2 * N) + R * di + di * D
+    flops = 2 * B * S * per_token * cfg.n_layers + 2 * B * D * V
+    weights = 4 * (n_params - V * D)  # all but the embedding (not tied to the head)
+    state = 4 * cfg.n_layers * B * (di * N + (K - 1) * di)
+    return flops, weights + 4 * B * S * D + state, weights + 4 * B * D + 2 * state
+
+
+def phase_serve_ssm(counted):
+    """The SSM serving path at full width and depth on the card:
+    falcon-mamba-7b's 64 layers, init_lm from seed 0 (checked against the
+    reference's weights), the golden-file run on the first two layers of the
+    same model, a profiled prefill and decode step with the SSM layer's
+    device time split by step, then the main path: serve() at SERVE,
+    launches counted from 0 (none: the path reaches no hand-written kernel;
+    without attention the kernel and torch planes compute the same thing).
+    Returns the launches by kernel."""
+    import dataclasses
+    import gc
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import prng
+    from repro_torch.launch.serve import serve
+    from repro_torch.layers import ssm
+    from repro_torch.models.decode import lm_decode_step, lm_prefill
+    from repro_torch.models.lm import LM, init_lm
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg, _ = get_config(SSM_ARCH)
+    with open(os.path.join(ROOT, "src", "repro_torch", "data", "golden_serve_falcon_mamba.json")) as f:
+        golden = json.load(f)
+    tol = golden["tolerance"]["logits"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = init_lm(prng.prng_key(0), cfg, torch.float32, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    log(f"serve ssm: init_lm({cfg.name}, all {cfg.n_layers} layers, seed 0) on the card: {n_params:,} parameters "
+        f"in {time.perf_counter() - t0:.3f} s, {torch.cuda.memory_allocated() / 1e9:.3f} GB")
+    # an SSM block holds norm (D), in_proj (D x 2 di), conv_w (K x di), conv_b (di), x_proj (di x (R + 2N)),
+    # dt_proj (R x di), dt_bias (di), A_log (di x N), Dp (di) and out_proj (di x D): 105,312,256 parameters at
+    # falcon-mamba's widths.  The config's analytic count (the reference's formula) takes two d_model norms a
+    # block, as an attention block has (norm1, norm2), and no conv_b: d_inner - d_model short a block; it
+    # leaves out the final norm too
+    D, di, N, R, K = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_dt_rank, cfg.ssm_conv
+    block = D + 2 * D * di + K * di + di + di * (R + 2 * N) + R * di + di + di * N + di + di * D
+    if (sum(p.numel() for p in params.layers[0].parameters()) != block
+            or n_params != cfg.param_count() + cfg.n_layers * (di - D) + D):
+        raise AssertionError(f"init_lm: {n_params} parameters, a block {block}; config {cfg.param_count()} + "
+                             "(d_inner - d_model) a block + the final norm")
+    check_init(params, golden)
+
+    # the golden run: the first layers of the same model (layer l's key does not depend on the depth)
+    cfg2 = dataclasses.replace(cfg, n_layers=golden["n_layers"])
+    two = LM(cfg2, params.embed, params.final_norm, params.lm_head, list(params.layers[: cfg2.n_layers]))
+    g = serve(cfg2, batch=golden["batch"], prompt_len=golden["prompt_len"], gen_len=golden["gen_len"],
+              page_size=16, seed=golden["seed"], device="cuda", plane="kernel", params=two)
+    err = check_golden(g, golden, tol)
+    log(f"serve ssm golden ({golden['batch']} x {golden['prompt_len']}, {golden['gen_len']} steps, "
+        f"{cfg2.n_layers} layers): logits within {err:.3e} of the JAX reference (tolerance {tol}, 10x the port's "
+        f"CPU gap {golden['port_cpu_gap']['logits']:.3e}), tokens {g.tokens.tolist()}")
+    del two, g
+
+    # where the time goes: one prefill and one decode step at the main path's shape, profiled, the SSM by step
+    B, S, G = SERVE["batch"], SERVE["prompt_len"], SERVE["gen_len"]
+    flops, p_bytes, d_bytes = ssm_serve_work(cfg, n_params, B, S)
+    p_bound = max(flops / FP32_FLOPS_PER_S, p_bytes / HBM_BYTES_PER_S) * 1e3
+    d_bound = d_bytes / HBM_BYTES_PER_S * 1e3
+    with torch.inference_mode():
+        prompts = prng.randint(prng.prng_key(1, "cuda"), (B, S), 0, cfg.vocab_size)
+        lm_prefill(params, cfg, {"tokens": prompts[:, :64]})  # warm-up
+        with ssm.Record():
+            (logits, cache), p_wall, p_busy, p_ops, p_top, p_split = device_busy(
+                lambda: lm_prefill(params, cfg, {"tokens": prompts}), "ssm:")
+            tok = logits.argmax(-1)
+            lm_decode_step(params, cfg, cache, {"token": tok})  # warm-up: the profiled step decodes the next position
+            _, d_wall, d_busy, d_ops, d_top, d_split = device_busy(
+                lambda: lm_decode_step(params, cfg, cache, {"token": tok}), "ssm:")
+        prof_logits = logits.float()
+        del cache, logits
+    if set(p_split) != set(SSM_STEPS) or set(d_split) != set(SSM_STEPS):
+        raise AssertionError(f"ssm.Record: the trace holds the ranges {sorted(p_split)}, {sorted(d_split)}")
+    prof = {"prefill_wall_ms": p_wall, "prefill_device_busy_ms": p_busy, "prefill_idle_share": 1 - p_busy / p_wall,
+            "prefill_device_ops": p_ops, "prefill_bound_ms": p_bound, "prefill_tflop": flops / 1e12,
+            "prefill_ssm_launches_and_ms_by_step": p_split,
+            "prefill_scan_share_of_busy": p_split["scan"][1] / p_busy,
+            "decode_step_wall_ms": d_wall, "decode_step_device_busy_ms": d_busy,
+            "decode_step_idle_share": 1 - d_busy / d_wall, "decode_step_device_ops": d_ops,
+            "decode_step_bound_ms": d_bound, "decode_step_ssm_launches_and_ms_by_step": d_split,
+            "decode_step_scan_share_of_busy": d_split["scan"][1] / d_busy,
+            "prefill_top_launches_and_ms": p_top, "decode_step_top_launches_and_ms": d_top}
+    log("serve ssm profile: " + json.dumps(prof))
+
+    # the main path: counts from 0, then read
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counted:
+        fn.launches = 0
+    k = serve(cfg, **SERVE, seed=0, device="cuda", plane="kernel", params=params)
+    got = {fn.__name__: fn.launches for fn in counted}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    log(f"main path {SSM_SERVE_PATH} (all {cfg.n_layers} layers, B={B}, prompt {S}, {G} tokens each, float32): "
+        f"prefill {k.prefill_ms:.3f} ms ({k.prefill_ms / p_bound:.2f}x its bound {p_bound:.3f} ms: "
+        f"{flops / 1e12:.2f} TFLOP at {FP32_FLOPS_PER_S / 1e12:.0f} TFLOP/s), decode {k.decode_ms_per_step:.3f} "
+        f"ms/step ({k.decode_ms_per_step / d_bound:.2f}x its bound {d_bound:.3f} ms: {d_bytes / 1e9:.2f} GB at "
+        f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s), {k.tokens_per_s:.1f} tok/s, peak {peak:.3f} GB allocated, page table "
+        f"{k.pages_used}/{k.pages_total} used, {k.pages_used_after_release} after release, launches {got}")
+    if any(got.values()):
+        raise AssertionError(f"{SSM_SERVE_PATH}: launched {got}; the SSM path runs no hand-written kernel")
+    if not torch.equal(k.prompts, prompts):
+        raise AssertionError(f"{SSM_SERVE_PATH}: serve's prompts are not randint(PRNGKey(1))")
+    gap = float((k.logits[0] - prof_logits).abs().max())
+    if gap > tol:
+        raise AssertionError(f"{SSM_SERVE_PATH}: prefill logits {gap} from the profiled prefill's > {tol}")
+    log(f"{SSM_SERVE_PATH}: prefill logits within {gap:.3e} of the profiled prefill's (tolerance {tol}); logits std "
+        f"{float(k.logits[0].std()):.3f}; tokens {k.tokens.tolist()}")
+    del params, k, prof_logits
     gc.collect()
     torch.cuda.empty_cache()
     return got
@@ -1862,6 +2020,7 @@ def phase_node(counted):
 def main() -> int:
     import torch
 
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke runs on an NVIDIA card", file=sys.stderr)
         return 1
@@ -1965,6 +2124,10 @@ def main() -> int:
     for name, n in phase_serve_moe(counted).items():
         launches[name][MOE_SERVE_PATH] = n
 
+    # the SSM serving path (falcon-mamba-7b at full width and depth)
+    for name, n in phase_serve_ssm(counted).items():
+        launches[name][SSM_SERVE_PATH] = n
+
     # phase 8: the LM training path (stablelm-1.6b at full width and depth)
     for name, n in phase_train(counted).items():
         launches[name][TRAIN_PATH] = n
@@ -1980,6 +2143,7 @@ def main() -> int:
         lib = [(n, r) for n, r in weighted if r.get("library_ms") is not None]
         k.update({key: mix(lib)[key] if lib else None for key in ("library_ms", "library_host_ms")})
         k["ms_library_paths"] = mix(lib)["ms"] if lib else None
+    log(f"smoke wall: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

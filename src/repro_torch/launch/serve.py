@@ -11,6 +11,11 @@ Weights come from ``init_lm`` at the seed and prompts from
 ``randint(PRNGKey(seed + 1))``, the reference's draws (seed 0 gives its
 ``PRNGKey(0)`` weights and ``PRNGKey(1)`` prompts).  Runs on ``"cuda"``
 unless ``device="cpu"`` is given.
+
+An SSM model (``--arch falcon-mamba-7b``) has no attention, so the
+``"kernel"`` and ``"torch"`` planes compute the same thing for it, and its
+cache is a per-layer state, not KV pages: admission claims the pages as
+for any model, and they never reach the model, as in the reference.
 """
 from __future__ import annotations
 

@@ -1,5 +1,5 @@
-"""The decoder LM (port of ``repro.models.lm``, attention stacks with a
-dense MLP or an MoE FFN).
+"""The decoder LM (port of ``repro.models.lm``: attention stacks with a
+dense MLP or an MoE FFN, and Mamba-1 SSM stacks).
 
 Parameters are ``nn.Module``s whose names follow the reference's parameter
 tree, one module per layer where the reference stacks layers on a leading
@@ -32,6 +32,7 @@ from repro_torch.layers.attention import Attention
 from repro_torch.layers.common import Norm, apply_norm, apply_rope, init_norm
 from repro_torch.layers.mlp import MLP, apply_mlp, init_mlp
 from repro_torch.layers.moe import MoE, apply_moe, init_moe
+from repro_torch.layers.ssm import SSM, apply_ssm, init_ssm
 from repro_torch.sharding import dense_init, name_key
 
 
@@ -48,8 +49,6 @@ def resolve_device(device) -> torch.device:
 
 def check_ported(cfg: ArchConfig) -> None:
     """Raise for the families whose blocks are not ported yet."""
-    if cfg.is_ssm:
-        raise NotImplementedError(f"{cfg.name}: SSM blocks are not ported yet (ROADMAP.md A.12.4)")
     if cfg.is_hybrid:
         raise NotImplementedError(f"{cfg.name}: hybrid (RG-LRU, local attention) is not ported yet (ROADMAP.md A.12.5)")
     if cfg.encoder_decoder:
@@ -61,7 +60,7 @@ def check_ported(cfg: ArchConfig) -> None:
 class Block(nn.Module):
     """One decoder layer: ``norm1``, ``attn``, ``norm2`` and the FFN under
     the reference's name, ``moe`` for an MoE config and ``mlp`` otherwise (a
-    parallel block has one ``norm``)."""
+    parallel block has one ``norm``); an SSM layer is ``norm`` and ``ssm``."""
 
     def __init__(self, parts: Dict[str, nn.Module]):
         super().__init__()
@@ -97,7 +96,9 @@ def _block(cfg: ArchConfig, norms: List[Norm], attn: Attention, ffn: nn.Module) 
     return Block({"norm1": norms[0], "attn": attn, "norm2": norms[1], _ffn_name(cfg): ffn})
 
 
-def _init_layer(key, cfg: ArchConfig, dtype) -> Block:
+def _init_layer(key, cfg: ArchConfig, kind: str, dtype) -> Block:
+    if kind == "ssm":
+        return Block({"norm": init_norm(cfg.norm, cfg.d_model, dtype, key.device), "ssm": init_ssm(key, cfg, dtype)})
     norms = [init_norm(cfg.norm, cfg.d_model, dtype, key.device) for _ in range(1 if cfg.parallel_block else 2)]
     ffn = init_moe(key, cfg, dtype) if cfg.is_moe else init_mlp(key, cfg, dtype)
     return _block(cfg, norms, attn_lib.init_attn(key, cfg, dtype), ffn)
@@ -116,7 +117,7 @@ def init_lm(key, cfg: ArchConfig, dtype=torch.float32, *, device="cuda") -> LM:
     final_norm = init_norm(cfg.norm, D, dtype, dev)
     lm_head = None if cfg.tie_embeddings else dense_init(key, "lm_head", (D, V), dtype)
     keys = prng.split(name_key(key, "layers"), cfg.n_layers)
-    layers = [_init_layer(keys[i], cfg, dtype) for i in range(cfg.n_layers)]
+    layers = [_init_layer(keys[i], cfg, kind, dtype) for i, kind in enumerate(cfg.layer_kinds())]
     return LM(cfg, embed, final_norm, lm_head, layers)
 
 
@@ -132,8 +133,11 @@ def lm_from_state(cfg: ArchConfig, state: Dict[str, torch.Tensor]) -> LM:
         return Norm(cfg.norm, sub(prefix))
 
     layers = []
-    for i in range(cfg.n_layers):
+    for i, kind in enumerate(cfg.layer_kinds()):
         p = f"layers.{i}."
+        if kind == "ssm":
+            layers.append(Block({"norm": norm(p + "norm."), "ssm": SSM(sub(p + "ssm."))}))
+            continue
         names = ("norm",) if cfg.parallel_block else ("norm1", "norm2")
         ffn = (MoE if cfg.is_moe else MLP)(sub(p + _ffn_name(cfg) + "."))
         layers.append(_block(cfg, [norm(p + n + ".") for n in names], Attention(sub(p + "attn.")), ffn))
@@ -185,34 +189,48 @@ def _attention(q, k, v, plane):
     return attn_lib.flash_attention_xla(q, k, v, causal=True)
 
 
-def _attn_full(lp: Attention, cfg: ArchConfig, x, positions, *, plane=ops.AUTO, kv_out=None):
-    """Causal self-attention over x (B,S,D).  With ``kv_out`` (this layer's
+def _attn_full(lp: Attention, cfg: ArchConfig, x, positions, *, plane=ops.AUTO, cache_out=None):
+    """Causal self-attention over x (B,S,D).  With ``cache_out`` (this layer's
     (B, S_max, KV, Dh) cache views, zeroed) the rotated k and v are written
     into its first S slots: that is prefill's cache entry (the reference
     pads each layer's entry and stacks them; ``_pad_entry``)."""
     q, k, v = attn_lib._project_qkv(lp, cfg, x)
     q = _rope(cfg, q, positions)
     k = _rope(cfg, k, positions)
-    if kv_out is not None:
-        kv_out["k"][:, : x.shape[1]] = k
-        kv_out["v"][:, : x.shape[1]] = v
+    if cache_out is not None:
+        cache_out["k"][:, : x.shape[1]] = k
+        cache_out["v"][:, : x.shape[1]] = v
     k = attn_lib.repeat_kv(k, cfg.n_rep)
     v = attn_lib.repeat_kv(v, cfg.n_rep)
     return attn_lib._out_proj(lp, _attention(q, k, v, plane), x.dtype)
 
 
-def _block_full(lp: Block, cfg: ArchConfig, x, positions, *, plane=ops.AUTO, kv_out=None):
-    """One decoder block over a full sequence. x (B,S,D)."""
+def _block_full(lp: Block, cfg: ArchConfig, kind: str, x, positions, *, plane=ops.AUTO, cache_out=None):
+    """One decoder block of ``kind`` (``cfg.layer_kinds()``) over a full
+    sequence. x (B,S,D).  With ``cache_out``, this layer's cache views, the
+    block also writes its prefill cache entry: an attention block its k/v
+    (``_attn_full``), an SSM block its final state h and conv tail (the
+    reference's ``_attn_block_prefill``).  An SSM block computes the same
+    on every plane and takes no positions."""
+    if kind == "ssm":
+        h = apply_norm(cfg.norm, lp.norm, x)
+        if cache_out is None:
+            return x + apply_ssm(lp.ssm, cfg, h)
+        y, st = apply_ssm(lp.ssm, cfg, h, return_state=True)
+        cache_out["h"].copy_(st["h"])
+        cache_out["conv"].copy_(st["conv"])
+        return x + y
     h = _attn_in(lp, cfg, x)
-    return _block_out(lp, cfg, x, h, _attn_full(lp.attn, cfg, h, positions, plane=plane, kv_out=kv_out))
+    return _block_out(lp, cfg, x, h, _attn_full(lp.attn, cfg, h, positions, plane=plane, cache_out=cache_out))
 
 
 def _save_weight_products(ctx, op, *args, **kwargs):
     """``save_attn``'s policy, the counterpart of JAX's
     ``checkpoint_dots_with_no_batch_dims``: keep the products with the
     weights (``x @ W`` folds into one ``mm``, the MoE router's too),
-    recompute the rest, the attention's and the experts' batched products
-    (``bmm``) among them."""
+    recompute the rest: the attention's and the experts' batched products
+    (``bmm``), and the SSM's scan and readout (a product and a sum, as JAX
+    recomputes that batched einsum)."""
     if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
         return CheckpointPolicy.MUST_SAVE
     return CheckpointPolicy.PREFER_RECOMPUTE
@@ -237,8 +255,8 @@ def _run_stack(params: LM, cfg: ArchConfig, x, positions, *, plane=ops.AUTO):
     """The decoder stack over x (B,S,D), layer by layer; while autograd
     records, each block runs under ``cfg.remat``."""
     block = _remat(_block_full, cfg) if torch.is_grad_enabled() else _block_full
-    for lp in params.layers:
-        x = block(lp, cfg, x, positions, plane=plane)
+    for lp, kind in zip(params.layers, cfg.layer_kinds()):
+        x = block(lp, cfg, kind, x, positions, plane=plane)
     return x
 
 

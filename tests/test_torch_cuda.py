@@ -488,3 +488,52 @@ def test_reduced_train_step_on_the_card_matches_the_cpu(card):
             assert abs(lc - lp) <= 1e-5 and abs(gc - gp) <= 1e-5 * gp, (seq, lc, lp, gc, gp)
         for k, v in runs["cpu"][1].items():
             torch.testing.assert_close(runs["cuda"][1][k], v, atol=1e-6, rtol=0)
+
+
+def test_ssm_layer_on_the_card_matches_the_cpu(card):
+    """The SSM layer at falcon-mamba's reduced config: the seed's weights
+    drawn on the card bitwise those drawn on the CPU, then ``apply_ssm``
+    with its state and five chained ``apply_ssm_step`` calls, card against
+    CPU within 1e-5 of each output's largest |value| (the CPU tests'
+    tolerance against the reference)."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.core import prng
+    from repro_torch.layers import ssm
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = reduced_config("falcon-mamba-7b")
+    layers = {d: ssm.init_ssm(prng.fold_in(prng.prng_key(0, d), 3), cfg) for d in ("cpu", "cuda")}
+    for name in ssm.SSM.NAMES:
+        assert torch.equal(getattr(layers["cuda"], name).cpu(), getattr(layers["cpu"], name)), name
+    x = torch.tensor(np.random.default_rng(0).standard_normal((3, 300, cfg.d_model)).astype(np.float32))
+
+    def close(got, want, name):
+        gap = float((got.cpu() - want).abs().max())
+        assert gap <= 1e-5 * float(want.abs().max()), (name, gap)
+
+    with torch.inference_mode():
+        out = {d: ssm.apply_ssm(layers[d], cfg, x[:, :295].to(d), return_state=True) for d in ("cpu", "cuda")}
+        close(out["cuda"][0], out["cpu"][0], "y")
+        for t in range(295, 300):
+            ys = {d: ssm.apply_ssm_step(layers[d], cfg, x[:, t : t + 1].to(d), out[d][1])[0] for d in ("cpu", "cuda")}
+            close(ys["cuda"], ys["cpu"], f"step {t}")
+            close(out["cuda"][1]["h"], out["cpu"][1]["h"], f"h {t}")
+
+
+def test_reduced_ssm_serve_on_the_card_matches_the_cpu(card):
+    """The SSM serving path at falcon-mamba's reduced config: the card
+    against the CPU, same seed (1e-4 on logits, 10x the CPU tests' 1e-5
+    against the reference; tokens equal); no hand-written kernel launches."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.launch.serve import serve
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = reduced_config("falcon-mamba-7b")
+    kw = dict(batch=3, prompt_len=40, gen_len=8, page_size=16, seed=0)
+    n = flash_attention.launches
+    on_card = serve(cfg, device="cuda", plane="kernel", **kw)
+    assert flash_attention.launches == n
+    on_cpu = serve(cfg, device="cpu", plane="torch", **kw)
+    assert torch.equal(on_card.prompts.cpu(), on_cpu.prompts)
+    torch.testing.assert_close(on_card.logits.cpu(), on_cpu.logits, atol=1e-4, rtol=0)
+    assert torch.equal(on_card.tokens.cpu(), on_cpu.tokens)

@@ -250,7 +250,6 @@ def test_dense_variants_match_reference(variant):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(ssm_state=8), "A.12.4"),
     (dict(block_pattern=("attn", "rglru"), local_window=16), "A.12.5"),
     (dict(encoder_decoder=True, n_enc_layers=2), "A.12.6"), (dict(mrope_sections=(4, 6, 6)), "A.12.7"),
 ])
@@ -277,7 +276,7 @@ def test_entry_points_default_to_cuda_and_refuse_without_it():
 def test_only_ported_configs_are_listed():
     from repro_torch.configs import ARCH_IDS
 
-    assert ARCH_IDS == (ARCH, "llama4-scout-17b-a16e", "kimi-k2-1t-a32b")
+    assert ARCH_IDS == (ARCH, "llama4-scout-17b-a16e", "kimi-k2-1t-a32b", "falcon-mamba-7b")
     for arch in ARCH_IDS:
         cfg, over = get_config(arch)
         jcfg, jover = jget_config(arch)
