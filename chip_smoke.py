@@ -80,7 +80,18 @@ Run from a checkout of the repository on a machine with one CUDA card and
    x_proj/dt, scan and out_proj, then the main path ``serve`` (4 x 2048
    tokens, 32 each) beside its float32 bound; it launches no hand-written
    kernel, and without attention both planes compute the same thing;
-11. the LM training path, stablelm-1.6b at full width in float32 with TF32
+11. the hybrid serving path, recurrentgemma-2b at full width and all 26
+   layers (3.31 B float32 parameters), TF32 off: ``init_lm`` from seed 0
+   on the card (3,314,096,640 parameters, checked against the reference's
+   weights, ``lam`` among them), the golden-file run on the first group of
+   three layers (one 2048-token prompt, 8 greedy tokens, logits within 10x
+   the port's CPU gap, every token equal), a profiled prefill and decode
+   step with the RG-LRU layer's device time split into in/gate proj,
+   conv, gates, scan and out_proj, then the main path ``serve`` (4 x 2048
+   tokens, 32 each: the window's ring wraps) beside its float32 bound; it
+   launches no hand-written kernel (local attention takes the reference's
+   XLA route), and a torch-plane prefill gives its logits bitwise;
+12. the LM training path, stablelm-1.6b at full width in float32 with TF32
    off: 3 AdamW steps at the depth the reference's golden file was cut to
    (its pipeline tokens bitwise, losses, grad_norms and leaf sums within
    10x the port's CPU gap), then the main path at full width and depth,
@@ -189,6 +200,12 @@ MOE_SERVE_PATH = "serve/llama4-scout-17b-a16e"
 SSM_ARCH = "falcon-mamba-7b"
 SSM_SERVE_PATH = "serve/falcon-mamba-7b"
 SSM_STEPS = ("in_proj", "conv", "x_proj/dt", "scan", "out_proj")  # ssm.Record's profiler ranges
+# the hybrid serving main path: recurrentgemma-2b at full width and all 26 layers (3.31 B float32 parameters,
+# 13.3 GB), the same requests as SERVE: the prompt fills the 2048-token window, so decode wraps the ring
+HYBRID_ARCH = "recurrentgemma-2b"
+HYBRID_SERVE_PATH = "serve/recurrentgemma-2b"
+HYBRID_STEPS = ("in/gate proj", "conv", "gates", "scan", "out_proj")  # rglru.Record's profiler ranges
+HYBRID_PARAMS = 3_314_096_640
 # logits tolerance of the serving phase (absolute; logits have std 0.88).  The port
 # on the CPU is within 7.9e-6 of the JAX reference at full width (the golden file's
 # port_cpu_max_abs_logit_gap); 1e-4 leaves 12x that for the card's other summation
@@ -967,7 +984,7 @@ def check_init(params, golden):
     corner of the leaf seen as rows of its last dim) within 2 ulp, sums of
     |w| within 1e-6 relative."""
     for name, ref in golden["leaves"].items():
-        parts = name.split("/")
+        parts = name.split("@")[0].split("/")  # a file may name a leaf once per layer, as name@layer
         t = params
         if ref["layer"] is not None:
             t = t.layers[ref["layer"]]
@@ -1022,7 +1039,8 @@ def device_busy(fn, prefix="moe:"):
     (torch.profiler: the sum of the device operations' durations), their
     count, the largest kernel families: name -> [launches, ms], and the
     launches and ms of the layer steps named ``prefix``* (``range_split``:
-    empty without the layer's ``Record`` open: ``moe:`` or ``ssm:``)."""
+    empty without the layer's ``Record`` open: ``moe:``, ``ssm:`` or
+    ``rglru:``)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1132,7 +1150,7 @@ def phase_serve(counted):
 
 
 MOE_STEPS = ("router", "dispatch", "expert products", "combine")  # moe.Record's profiler ranges
-RANGE_PREFIXES = ("moe:", "ssm:")  # the profiler ranges of moe.Record and ssm.Record
+RANGE_PREFIXES = ("moe:", "ssm:", "rglru:")  # the profiler ranges of moe.Record, ssm.Record and rglru.Record
 
 
 def range_split(events, prefix="moe:"):
@@ -1467,6 +1485,155 @@ def phase_serve_ssm(counted):
     log(f"{SSM_SERVE_PATH}: prefill logits within {gap:.3e} of the profiled prefill's (tolerance {tol}); logits std "
         f"{float(k.logits[0].std()):.3f}; tokens {k.tokens.tolist()}")
     del params, k, prof_logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    return got
+
+
+def hybrid_serve_work(cfg, n_params, B, S):
+    """(flops, bytes) a float32 prefill of B x S tokens needs on the hybrid
+    model, and the bytes of one decode step.  Operations: 2 per weight of a
+    layer's matrices per token (the RG-LRU's in, gate and out projections,
+    the attention's q, k, v and o, the GeGLU MLP's three), 4 Dh per unmasked
+    (query, key) pair and head of an attention layer (keys within the
+    window), the head on the last token only; the elementwise work (the
+    conv, the gates, the scan, some 30 operations per channel and token) is
+    not counted, under 1 % of the products.  Bytes: every weight read once,
+    of the embedding only the rows the tokens read (B in a decode step,
+    ``S * B`` at most in prefill), the window's rings and the RG-LRU states
+    written once (prefill), or the rings read once and the states read and
+    written (decode)."""
+    D, F, Wr, H, KV, Dh, V, K, Win = (cfg.d_model, cfg.d_ff, cfg.rnn_width, cfg.n_heads, cfg.n_kv_heads,
+                                      cfg.head_dim, cfg.vocab_size, cfg.ssm_conv, cfg.local_window)
+    kinds = cfg.layer_kinds()
+    n_attn, n_rec = kinds.count("attn"), kinds.count("rglru")
+    mats = n_rec * (3 * D * Wr + 3 * D * F) + n_attn * (2 * D * H * Dh + 2 * D * KV * Dh + 3 * D * F)
+    pairs = B * H * sum(min(q + 1, Win) for q in range(S))
+    flops = 2 * B * S * mats + n_attn * 4 * Dh * pairs + 2 * B * D * V
+    weights = 4 * (n_params - V * D)  # all but the embedding (not tied to the head)
+    rings = 4 * n_attn * B * min(Win, S) * KV * Dh * 2
+    states = 4 * n_rec * B * (Wr + (K - 1) * Wr)
+    return flops, weights + 4 * B * S * D + rings + states, weights + 4 * B * D + rings + 2 * states
+
+
+def phase_serve_hybrid(counted):
+    """The hybrid serving path at full width and depth on the card:
+    recurrentgemma-2b's 26 layers, init_lm from seed 0 (checked against the
+    reference's weights), the golden-file run on the first group of the
+    same model, a profiled prefill and decode step with the RG-LRU layer's
+    device time split by step, then the main path: serve() at SERVE,
+    launches counted from 0 (none: local attention takes the reference's
+    XLA route on both planes, and the path reaches no hand-written kernel),
+    and a torch-plane prefill of the same prompts, bitwise the kernel
+    plane's.  Returns the launches by kernel."""
+    import dataclasses
+    import gc
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import prng
+    from repro_torch.launch.serve import serve
+    from repro_torch.layers import rglru
+    from repro_torch.models.decode import lm_decode_step, lm_prefill
+    from repro_torch.models.lm import LM, init_lm
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg, _ = get_config(HYBRID_ARCH)
+    with open(os.path.join(ROOT, "src", "repro_torch", "data", "golden_serve_recurrentgemma.json")) as f:
+        golden = json.load(f)
+    tol = golden["tolerance"]["logits"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = init_lm(prng.prng_key(0), cfg, torch.float32, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in params.parameters())
+    log(f"serve hybrid: init_lm({cfg.name}, all {cfg.n_layers} layers, seed 0) on the card: {n_params:,} "
+        f"parameters in {init_s:.3f} s, {torch.cuda.memory_allocated() / 1e9:.3f} GB")
+    # the model's count (the reference's init_lm tree).  The config's analytic count (the reference's formula)
+    # is 511 M short: it takes two matrices for the geglu MLP, whose init_mlp builds three (gate, up, down), so
+    # D x F a layer; and 2W for the RG-LRU's vectors (conv_b, wa, ba, wx, bx, lam: 6W) and no final norm
+    D, F, Wr = cfg.d_model, cfg.d_ff, cfg.rnn_width
+    if n_params != HYBRID_PARAMS or n_params != (cfg.param_count() + cfg.n_layers * D * F
+                                                 + cfg.layer_kinds().count("rglru") * 4 * Wr + D):
+        raise AssertionError(f"init_lm: {n_params} parameters, not {HYBRID_PARAMS} (config {cfg.param_count()} + "
+                             "D x F a layer + 4W an RG-LRU layer + the final norm)")
+    check_init(params, golden)
+
+    # the golden run: the first group of the same model (a first-group layer's key does not depend on the depth)
+    cfg3 = dataclasses.replace(cfg, n_layers=golden["n_layers"])
+    three = LM(cfg3, params.embed, params.final_norm, params.lm_head, list(params.layers[: cfg3.n_layers]))
+    g = serve(cfg3, batch=golden["batch"], prompt_len=golden["prompt_len"], gen_len=golden["gen_len"],
+              page_size=16, seed=golden["seed"], device="cuda", plane="kernel", params=three)
+    err = check_golden(g, golden, tol)
+    log(f"serve hybrid golden ({golden['batch']} x {golden['prompt_len']}, {golden['gen_len']} steps, "
+        f"{cfg3.n_layers} layers): logits within {err:.3e} of the JAX reference (tolerance {tol}, 10x the port's "
+        f"CPU gap {golden['port_cpu_gap']['logits']:.3e}), tokens {g.tokens.tolist()}")
+    if g.tokens.tolist() != golden["tokens"]:
+        raise AssertionError(f"serve hybrid golden: tokens {g.tokens.tolist()} != {golden['tokens']}")
+    del three, g
+
+    # where the time goes: one prefill and one decode step at the main path's shape, profiled, the RG-LRU by step
+    B, S, G = SERVE["batch"], SERVE["prompt_len"], SERVE["gen_len"]
+    flops, p_bytes, d_bytes = hybrid_serve_work(cfg, n_params, B, S)
+    p_bound = max(flops / FP32_FLOPS_PER_S, p_bytes / HBM_BYTES_PER_S) * 1e3
+    d_bound = d_bytes / HBM_BYTES_PER_S * 1e3
+    with torch.inference_mode():
+        prompts = prng.randint(prng.prng_key(1, "cuda"), (B, S), 0, cfg.vocab_size)
+        lm_prefill(params, cfg, {"tokens": prompts[:, :64]})  # warm-up
+        with rglru.Record():
+            (logits, cache), p_wall, p_busy, p_ops, p_top, p_split = device_busy(
+                lambda: lm_prefill(params, cfg, {"tokens": prompts}, pad_to=S + G), "rglru:")
+            tok = logits.argmax(-1)
+            lm_decode_step(params, cfg, cache, {"token": tok})  # warm-up: the profiled step decodes the next position
+            _, d_wall, d_busy, d_ops, d_top, d_split = device_busy(
+                lambda: lm_decode_step(params, cfg, cache, {"token": tok}), "rglru:")
+        prof_logits = logits.float()
+        del cache, logits
+    if set(p_split) != set(HYBRID_STEPS) or set(d_split) != set(HYBRID_STEPS):
+        raise AssertionError(f"rglru.Record: the trace holds the ranges {sorted(p_split)}, {sorted(d_split)}")
+    rec_ms = lambda split: sum(ms for _, ms in split.values())  # noqa: E731
+    prof = {"prefill_wall_ms": p_wall, "prefill_device_busy_ms": p_busy, "prefill_idle_share": 1 - p_busy / p_wall,
+            "prefill_device_ops": p_ops, "prefill_bound_ms": p_bound, "prefill_tflop": flops / 1e12,
+            "prefill_rglru_launches_and_ms_by_step": p_split, "prefill_rglru_share_of_busy": rec_ms(p_split) / p_busy,
+            "decode_step_wall_ms": d_wall, "decode_step_device_busy_ms": d_busy,
+            "decode_step_idle_share": 1 - d_busy / d_wall, "decode_step_device_ops": d_ops,
+            "decode_step_bound_ms": d_bound, "decode_step_rglru_launches_and_ms_by_step": d_split,
+            "decode_step_rglru_share_of_busy": rec_ms(d_split) / d_busy,
+            "prefill_top_launches_and_ms": p_top, "decode_step_top_launches_and_ms": d_top}
+    log("serve hybrid profile: " + json.dumps(prof))
+
+    # the main path: counts from 0, then read
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counted:
+        fn.launches = 0
+    k = serve(cfg, **SERVE, seed=0, device="cuda", plane="kernel", params=params)
+    got = {fn.__name__: fn.launches for fn in counted}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    log(f"main path {HYBRID_SERVE_PATH} (all {cfg.n_layers} layers, B={B}, prompt {S}, {G} tokens each, float32): "
+        f"prefill {k.prefill_ms:.3f} ms ({k.prefill_ms / p_bound:.2f}x its bound {p_bound:.3f} ms: "
+        f"{flops / 1e12:.2f} TFLOP at {FP32_FLOPS_PER_S / 1e12:.0f} TFLOP/s), decode {k.decode_ms_per_step:.3f} "
+        f"ms/step ({k.decode_ms_per_step / d_bound:.2f}x its bound {d_bound:.3f} ms: {d_bytes / 1e9:.2f} GB at "
+        f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s), {k.tokens_per_s:.1f} tok/s, peak {peak:.3f} GB allocated, page table "
+        f"{k.pages_used}/{k.pages_total} used, {k.pages_used_after_release} after release, launches {got}")
+    if any(got.values()):
+        raise AssertionError(f"{HYBRID_SERVE_PATH}: launched {got}; the hybrid path runs no hand-written kernel")
+    if not torch.equal(k.prompts, prompts):
+        raise AssertionError(f"{HYBRID_SERVE_PATH}: serve's prompts are not randint(PRNGKey(1))")
+    gap = float((k.logits[0] - prof_logits).abs().max())
+    if gap > tol:
+        raise AssertionError(f"{HYBRID_SERVE_PATH}: prefill logits {gap} from the profiled prefill's > {tol}")
+    with torch.inference_mode():
+        t_logits, _ = lm_prefill(params, cfg, {"tokens": prompts}, pad_to=S + G, plane="torch")
+    if not torch.equal(t_logits.float(), k.logits[0]):
+        raise AssertionError(f"{HYBRID_SERVE_PATH}: the torch plane's prefill logits differ from the kernel plane's "
+                             f"by {float((t_logits.float() - k.logits[0]).abs().max())}")
+    log(f"{HYBRID_SERVE_PATH}: the torch plane's prefill logits equal the kernel plane's bitwise; within "
+        f"{gap:.3e} of the profiled prefill's (tolerance {tol}); logits std {float(k.logits[0].std()):.3f}; "
+        f"tokens {k.tokens.tolist()}")
+    del params, k, prof_logits, t_logits
     gc.collect()
     torch.cuda.empty_cache()
     return got
@@ -2128,6 +2295,10 @@ def main() -> int:
     for name, n in phase_serve_ssm(counted).items():
         launches[name][SSM_SERVE_PATH] = n
 
+    # the hybrid serving path (recurrentgemma-2b at full width and depth)
+    for name, n in phase_serve_hybrid(counted).items():
+        launches[name][HYBRID_SERVE_PATH] = n
+
     # phase 8: the LM training path (stablelm-1.6b at full width and depth)
     for name, n in phase_train(counted).items():
         launches[name][TRAIN_PATH] = n
@@ -2143,6 +2314,7 @@ def main() -> int:
         lib = [(n, r) for n, r in weighted if r.get("library_ms") is not None]
         k.update({key: mix(lib)[key] if lib else None for key in ("library_ms", "library_host_ms")})
         k["ms_library_paths"] = mix(lib)["ms"] if lib else None
+    log(card)  # again, so that the card and its power limit stand beside the numbers in a tail of the output
     log(f"smoke wall: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

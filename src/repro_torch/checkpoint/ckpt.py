@@ -8,8 +8,9 @@ Layout: <dir>/step_<N:08d>/
   leaf_<i:05d>.npy   one whole array per leaf, numbered in JAX's leaf
                      order (dict keys sorted at every level)
 
-A tree is nested dicts of tensors or arrays; ``convert.bundle_to_tree``
-gives the training runner's, layers stacked as the reference stacks them.
+A tree is nested dicts and lists of tensors or arrays (a list entry's path
+is its index, ``['tail'][0]``); ``convert.bundle_to_tree`` gives the
+training runner's, layers stacked as the reference stacks them.
 bfloat16 leaves are stored as their raw bytes (uint8) with the logical
 dtype in the manifest, as the reference stores every ``ml_dtypes`` type;
 the port reads and writes them through ``Tensor.view``.  A save writes a
@@ -36,31 +37,49 @@ _TORCH_DTYPES = {"bfloat16": torch.bfloat16, "float64": torch.float64, "float32"
                  "int8": torch.int8, "uint8": torch.uint8, "bool": torch.bool}
 
 
+def _items(tree):
+    """(key, value) in JAX's order: a dict's keys sorted, a list's in order."""
+    return list(enumerate(tree)) if isinstance(tree, list) else [(k, tree[k]) for k in sorted(tree)]
+
+
 def _flatten(tree, prefix=""):
-    """[(keystr path, leaf)] in JAX's leaf order: dict keys sorted."""
+    """[(keystr path, leaf)] in JAX's leaf order."""
     out = []
-    for k in sorted(tree):
+    for k, v in _items(tree):
         path = f"{prefix}[{k!r}]"
-        v = tree[k]
-        out += _flatten(v, path) if isinstance(v, dict) else [(path, v)]
+        out += _flatten(v, path) if isinstance(v, (dict, list)) else [(path, v)]
     return out
 
 
 def _unflatten(proto, leaves, prefix=""):
-    return {k: _unflatten(v, leaves, f"{prefix}[{k!r}]") if isinstance(v, dict) else leaves[f"{prefix}[{k!r}]"]
-            for k, v in proto.items()}
+    def one(k, v):
+        path = f"{prefix}[{k!r}]"
+        return _unflatten(v, leaves, path) if isinstance(v, (dict, list)) else leaves[path]
+
+    if isinstance(proto, list):
+        return [one(k, v) for k, v in enumerate(proto)]
+    return {k: one(k, v) for k, v in proto.items()}
+
+
+def _lists(node):
+    """A structure whose int-keyed dicts become lists."""
+    if not isinstance(node, dict):
+        return node
+    if node and all(isinstance(k, int) for k in node):
+        return [_lists(node[i]) for i in range(len(node))]
+    return {k: _lists(v) for k, v in node.items()}
 
 
 def _structure(paths):
-    """The nested dict of a list of keystr paths (leaves None)."""
+    """The nested dicts and lists of a list of keystr paths (leaves None)."""
     tree = {}
     for path in paths:
-        keys = re.findall(r"\['([^']*)'\]", path)
+        keys = [k if k else int(i) for k, i in re.findall(r"\['([^']*)'\]|\[(\d+)\]", path)]
         node = tree
         for k in keys[:-1]:
             node = node.setdefault(k, {})
         node[keys[-1]] = None
-    return tree
+    return _lists(tree)
 
 
 def _to_npy(leaf):

@@ -2,8 +2,9 @@
 
 Only the architectures whose families the port runs are listed: the dense
 decoder stablelm-1.6b, the MoE decoders llama4-scout-17b-a16e and
-kimi-k2-1t-a32b, and the Mamba-1 SSM falcon-mamba-7b.  The other configs
-wait for their families (ROADMAP.md A.12).
+kimi-k2-1t-a32b, the Mamba-1 SSM falcon-mamba-7b and the RG-LRU +
+local-attention hybrid recurrentgemma-2b.  The other configs wait for
+their families (ROADMAP.md A.12).
 """
 from __future__ import annotations
 
@@ -18,6 +19,7 @@ ARCH_MODULES = {
     "llama4-scout-17b-a16e": "llama4_scout_17b_a16e",
     "kimi-k2-1t-a32b": "kimi_k2_1t_a32b",
     "falcon-mamba-7b": "falcon_mamba_7b",
+    "recurrentgemma-2b": "recurrentgemma_2b",
 }
 
 ARCH_IDS = tuple(ARCH_MODULES)

@@ -8,7 +8,10 @@ JAX mid-run state and to compare the two key by key.
 ``lm_params_from_numpy`` builds the port's LM from the reference's parameter
 tree (nested dicts of arrays, layers stacked on a leading axis), and
 ``lm_params_to_numpy`` gives that tree back: the two are a name map
-(``layers/attn/wq[l]`` is ``layers.{l}.attn.wq``).  ``stack_named`` and
+(``layers/attn/wq[l]`` is ``layers.{l}.attn.wq``; a hybrid's
+``groups/g{j}_{kind}/…[l]`` is ``layers.{P l + j}.…`` for a pattern of
+length P over n_full groups, and its ``tail[i]/…``, a list entry with no
+layer axis, is ``layers.{P n_full + i}.…``).  ``stack_named`` and
 ``unstack_tree`` are that map for any flat name -> tensor dict (gradients,
 an optimizer's ``m``), ``opt_state_{to,from}_tree`` carry a whole
 optimizer state, and ``bundle_{to,from}_tree`` the training runner's
@@ -19,7 +22,7 @@ numpy dtype without ``ml_dtypes``).
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -38,8 +41,9 @@ def to_numpy(d: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
 
 
 def _leaves(tree, prefix=()):
-    for k, v in tree.items():
-        if isinstance(v, dict):
+    """(path, leaf) of a tree of dicts and lists (a list entry's key is its index)."""
+    for k, v in (enumerate(tree) if isinstance(tree, list) else tree.items()):
+        if isinstance(v, (dict, list)):
             yield from _leaves(v, prefix + (k,))
         else:
             yield prefix + (k,), v
@@ -52,40 +56,68 @@ def _tensor(a, dev) -> torch.Tensor:
     return torch.tensor(np.asarray(a), device=dev)
 
 
+def _name(layer: int, path) -> str:
+    return ".".join(("layers", str(layer)) + tuple(path))
+
+
 def unstack_tree(tree: Dict, n_layers: int, device=None) -> Dict[str, torch.Tensor]:
-    """A reference tree (layers stacked) -> the port's flat name map."""
+    """A reference tree (layers stacked, or a hybrid's groups and tail) ->
+    the port's flat name map."""
     out = {}
+    P = len(tree.get("groups", {}))
+    n_full = (n_layers - len(tree.get("tail", []))) // max(P, 1)
     for path, arr in _leaves(tree):
-        if path[0] == "layers":
-            if arr.shape[0] != n_layers:
-                raise ValueError(f"{'/'.join(path)}: {arr.shape[0]} layers, config has {n_layers}")
-            for i in range(n_layers):
-                out[".".join(("layers", str(i)) + path[1:])] = _tensor(arr[i], device)
+        if path[0] in ("layers", "groups"):
+            stacked = n_layers if path[0] == "layers" else n_full
+            if arr.shape[0] != stacked:
+                raise ValueError(f"{'/'.join(map(str, path))}: {arr.shape[0]} layers, config has {n_layers}")
+            for i in range(stacked):
+                if path[0] == "layers":
+                    out[_name(i, path[1:])] = _tensor(arr[i], device)
+                else:  # groups/g{j}_{kind}/...
+                    out[_name(P * i + int(path[1][1:].split("_")[0]), path[2:])] = _tensor(arr[i], device)
+        elif path[0] == "tail":
+            out[_name(P * n_full + path[1], path[2:])] = _tensor(arr, device)
         else:
             out[".".join(path)] = _tensor(arr, device)
     return out
 
 
-def stack_named(named: Dict[str, torch.Tensor]) -> Dict:
-    """The port's flat name map -> the reference's tree (layers stacked),
-    detached tensors on the map's devices."""
+def _put(tree: Dict, path, value):
+    node = tree
+    for p in path[:-1]:
+        node = node.setdefault(p, {})
+    node[path[-1]] = value
+
+
+def stack_named(named: Dict[str, torch.Tensor], cfg: Optional[ArchConfig] = None) -> Dict:
+    """The port's flat name map -> the reference's tree (layers stacked; a
+    hybrid ``cfg``'s in groups and a tail), detached tensors on the map's
+    devices."""
     tree: Dict = {}
-    per_layer: Dict = {}
-
-    def put(path, value):
-        node = tree
-        for p in path[:-1]:
-            node = node.setdefault(p, {})
-        node[path[-1]] = value
-
+    layers: Dict[int, Dict] = {}  # layer -> {path below it: tensor}
     for name, t in named.items():
         parts = name.split(".")
         if parts[0] == "layers":
-            per_layer.setdefault(tuple(parts[2:]), {})[int(parts[1])] = t.detach()
+            layers.setdefault(int(parts[1]), {})[tuple(parts[2:])] = t.detach()
         else:
-            put(parts, t.detach())
-    for path, by_layer in per_layer.items():
-        put(("layers",) + path, torch.stack([by_layer[i] for i in range(len(by_layer))]))
+            _put(tree, parts, t.detach())
+    if not layers:
+        return tree
+    if cfg is None or not cfg.is_hybrid:
+        for path in layers[0]:
+            _put(tree, ("layers",) + path, torch.stack([layers[i][path] for i in range(len(layers))]))
+        return tree
+    pat = cfg.block_pattern
+    n_full = cfg.n_layers // len(pat)
+    for j, kind in enumerate(pat):
+        for path in layers[j]:
+            _put(tree, ("groups", f"g{j}_{kind}") + path,
+                 torch.stack([layers[len(pat) * l + j][path] for l in range(n_full)]))
+    tree["tail"] = [{} for _ in range(cfg.n_layers - len(pat) * n_full)]
+    for i, node in enumerate(tree["tail"]):
+        for path, t in layers[len(pat) * n_full + i].items():
+            _put(node, path, t)
     return tree
 
 
@@ -96,12 +128,14 @@ def lm_params_from_numpy(tree: Dict, cfg: ArchConfig, device="cuda") -> LM:
 
 def lm_params_to_numpy(model: LM) -> Dict:
     """The reference's parameter tree (numpy, layers stacked) of an LM."""
-    return map_tree(lambda t: t.cpu().numpy(), stack_named(model.state_dict()))
+    return map_tree(lambda t: t.cpu().numpy(), stack_named(model.state_dict(), model.cfg))
 
 
 def map_tree(fn, tree):
-    """``fn`` applied to every leaf of a nested dict."""
-    return {k: map_tree(fn, v) if isinstance(v, dict) else fn(v) for k, v in tree.items()}
+    """``fn`` applied to every leaf of a tree of dicts and lists."""
+    if isinstance(tree, list):
+        return [map_tree(fn, v) for v in tree]
+    return {k: map_tree(fn, v) if isinstance(v, (dict, list)) else fn(v) for k, v in tree.items()}
 
 
 # an optimizer state's keys: those that hold one tensor per parameter, and
@@ -124,10 +158,10 @@ def _map_opt_state(fn, state: Dict) -> Dict:
     return out
 
 
-def opt_state_to_tree(state: Dict) -> Dict:
+def opt_state_to_tree(state: Dict, cfg: Optional[ArchConfig] = None) -> Dict:
     """An optimizer state (``{"m": {name: t}, ...}``, wrappers nested) ->
-    the reference's state tree: every name map stacked."""
-    return _map_opt_state(stack_named, state)
+    the reference's state tree: every name map stacked (``stack_named``)."""
+    return _map_opt_state(lambda named: stack_named(named, cfg), state)
 
 
 def opt_state_from_tree(tree: Dict, cfg: ArchConfig, device="cuda") -> Dict:
@@ -143,8 +177,8 @@ def bundle_to_tree(params: LM, opt_state: Dict, data_state: DataState, step: int
     i32 = lambda x: torch.tensor(int(x), dtype=torch.int32)  # noqa: E731
     cpu = lambda t: t.detach().cpu()  # noqa: E731
     return {
-        "params": stack_named(map_tree(cpu, params.state_dict())),
-        "opt": opt_state_to_tree(map_tree(cpu, opt_state)),
+        "params": stack_named(map_tree(cpu, params.state_dict()), params.cfg),
+        "opt": opt_state_to_tree(map_tree(cpu, opt_state), params.cfg),
         "data": {"step": i32(data_state.step), "seed": i32(data_state.seed)},
         "step": i32(step),
     }

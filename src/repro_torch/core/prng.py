@@ -10,7 +10,7 @@ mode (``jax/_src/prng.py``: ``threefry2x32`` lowering, ``threefry_seed``,
 ``iota_2x32_shape``, ``_threefry_split_foldlike``, ``_threefry_fold_in``,
 ``_threefry_random_bits_partitionable``; ``jax/_src/random.py``:
 ``_uniform``, ``_randint``, ``_truncated_normal``; XLA's float32
-``erf_inv``, ``log`` and ``exp``).  The legacy mode (flag ``False``) is not
+``erf_inv``, ``log``, ``exp`` and ``pow``).  The legacy mode (flag ``False``) is not
 implemented.
 
 A key is an int64 tensor ``(..., 2)`` holding two uint32 words; every
@@ -218,6 +218,68 @@ def exp(x: torch.Tensor) -> torch.Tensor:
     y = _fma(y, r * r, r) + 1.0
     two_n = ((n.to(torch.int32) + 127) << 23).view(torch.float32)
     return torch.maximum(y * two_n, x)
+
+
+# XLA's CPU float32 ``pow`` calls the C library's ``powf``; glibc's (2.28 on,
+# from Arm's optimized-routines) is log2 from a 16-entry table of (1/c, log2 c)
+# and a degree-5 polynomial, then exp2 from a 32-entry table of 2**(i/32)
+# (its bits less i << 47) and a cubic, all in float64, rounded to float32 once
+_POWF_LOG2_TAB = tuple((float.fromhex(a), float.fromhex(b)) for a, b in (
+    ("0x1.661ec79f8f3bep+0", "-0x1.efec65b963019p-2"), ("0x1.571ed4aaf883dp+0", "-0x1.b0b6832d4fca4p-2"),
+    ("0x1.49539f0f010bp+0", "-0x1.7418b0a1fb77bp-2"), ("0x1.3c995b0b80385p+0", "-0x1.39de91a6dcf7bp-2"),
+    ("0x1.30d190c8864a5p+0", "-0x1.01d9bf3f2b631p-2"), ("0x1.25e227b0b8eap+0", "-0x1.97c1d1b3b7afp-3"),
+    ("0x1.1bb4a4a1a343fp+0", "-0x1.2f9e393af3c9fp-3"), ("0x1.12358f08ae5bap+0", "-0x1.960cbbf788d5cp-4"),
+    ("0x1.0953f419900a7p+0", "-0x1.a6f9db6475fcep-5"), ("0x1p+0", "0x0p+0"),
+    ("0x1.e608cfd9a47acp-1", "0x1.338ca9f24f53dp-4"), ("0x1.ca4b31f026aap-1", "0x1.476a9543891bap-3"),
+    ("0x1.b2036576afce6p-1", "0x1.e840b4ac4e4d2p-3"), ("0x1.9c2d163a1aa2dp-1", "0x1.40645f0c6651cp-2"),
+    ("0x1.886e6037841edp-1", "0x1.88e9c2c1b9ff8p-2"), ("0x1.767dcf5534862p-1", "0x1.ce0a44eb17bccp-2")))
+_POWF_LOG2_POLY = tuple(float.fromhex(c) for c in (
+    "0x1.27616c9496e0bp-2", "-0x1.71969a075c67ap-2", "0x1.ec70a6ca7baddp-2", "-0x1.7154748bef6c8p-1",
+    "0x1.71547652ab82bp+0"))
+_EXP2F_TAB = (
+    0x3FF0000000000000, 0x3FEFD9B0D3158574, 0x3FEFB5586CF9890F, 0x3FEF9301D0125B51, 0x3FEF72B83C7D517B,
+    0x3FEF54873168B9AA, 0x3FEF387A6E756238, 0x3FEF1E9DF51FDEE1, 0x3FEF06FE0A31B715, 0x3FEEF1A7373AA9CB,
+    0x3FEEDEA64C123422, 0x3FEECE086061892D, 0x3FEEBFDAD5362A27, 0x3FEEB42B569D4F82, 0x3FEEAB07DD485429,
+    0x3FEEA47EB03A5585, 0x3FEEA09E667F3BCD, 0x3FEE9F75E8EC5F74, 0x3FEEA11473EB0187, 0x3FEEA589994CCE13,
+    0x3FEEACE5422AA0DB, 0x3FEEB737B0CDC5E5, 0x3FEEC49182A3F090, 0x3FEED503B23E255D, 0x3FEEE89F995AD3AD,
+    0x3FEEFF76F2FB5E47, 0x3FEF199BDD85529C, 0x3FEF3720DCEF9069, 0x3FEF5818DCFBA487, 0x3FEF7C97337B9B5F,
+    0x3FEFA4AFA2A490DA, 0x3FEFD0765B6E4540)
+_EXP2F_POLY = tuple(float.fromhex(c) for c in ("0x1.c6af84b912394p-5", "0x1.ebfce50fac4f3p-3", "0x1.62e42ff0c52d6p-1"))
+_EXP2F_SHIFT = float.fromhex("0x1.8p+47")  # 0x1.8p52 / 32: adding it rounds to a multiple of 1/32
+_EXP2F_SHIFT_BITS = int(np.float64(_EXP2F_SHIFT).view(np.int64))
+
+
+def powf(x: torch.Tensor, y: float) -> torch.Tensor:
+    """XLA's CPU float32 ``x ** y`` for positive normal float32 ``x`` and a
+    float32 exponent ``y`` whose ``y * log2(x)`` stays within (-126, 126):
+    glibc's ``powf``, step for step.  A float64 ``pow`` rounded to float32
+    differs from it (its error reaches 0.82 ulp) on 3 of recurrentgemma's
+    2560 RG-LRU ``lam`` draws."""
+    dev = x.device
+    ix = x.contiguous().view(torch.int32).to(torch.int64)
+    tmp = ix - 0x3F330000
+    i = (tmp >> 19) & 15
+    top = tmp & 0xFF800000
+    e = torch.where(top >= 2**31, top - 2**32, top) >> 23  # (int32_t) top >> 23: x = z 2**e, z in [0.7, 1.4)
+    tab = torch.tensor(_POWF_LOG2_TAB, dtype=torch.float64, device=dev)
+    invc, logc = tab[i, 0], tab[i, 1]
+    z = ((ix - top) & _M).to(torch.int32).view(torch.float32).double()
+    A = _POWF_LOG2_POLY
+    r = z * invc - 1.0
+    y0 = logc + e.double()
+    r2 = r * r
+    p = A[0] * r + A[1]
+    q = A[2] * r + A[3]
+    r4 = r2 * r2
+    q = q * r2 + (A[4] * r + y0)
+    xd = (p * r4 + q) * float(np.float32(y))
+    # exp2(xd) = 2**(k/32) * 2**r, r in [-1/64, 1/64]
+    kd = xd + _EXP2F_SHIFT
+    r = xd - (kd - _EXP2F_SHIFT)
+    k = kd.view(torch.int64) - _EXP2F_SHIFT_BITS  # round(32 xd), in the low bits of kd
+    s = (torch.tensor(_EXP2F_TAB, dtype=torch.int64, device=dev)[k & 31] + k * 2**47).view(torch.float64)
+    C = _EXP2F_POLY
+    return (((C[0] * r + C[1]) * (r * r) + (C[2] * r + 1.0)) * s).float()
 
 
 def _xla_log1p(x: torch.Tensor) -> torch.Tensor:

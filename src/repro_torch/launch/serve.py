@@ -15,7 +15,11 @@ unless ``device="cpu"`` is given.
 An SSM model (``--arch falcon-mamba-7b``) has no attention, so the
 ``"kernel"`` and ``"torch"`` planes compute the same thing for it, and its
 cache is a per-layer state, not KV pages: admission claims the pages as
-for any model, and they never reach the model, as in the reference.
+for any model, and they never reach the model, as in the reference.  So
+for the hybrid (``--arch recurrentgemma-2b``): its attention is local,
+which no kernel takes, so both planes compute the same thing too, and its
+cache holds each RG-LRU layer's state and each attention layer's ring of
+its window's W slots, token p at slot p mod W.
 """
 from __future__ import annotations
 

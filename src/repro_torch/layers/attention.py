@@ -1,5 +1,7 @@
 """GQA attention: projections, the O(S^2) reference, the scan-flash
-online softmax and cached decode attention, port of ``repro.layers.attention``.
+online softmax, chunked local (sliding-window) attention and cached decode
+attention over a prefix or a window's ring, port of
+``repro.layers.attention``.
 
 Serving's prefill attention runs through ``kernels.ops.attention_op`` (the
 ``flash_attention`` kernel on the ``"kernel"`` plane, ``naive_attention``
@@ -7,8 +9,10 @@ on the ``"torch"`` plane).  Training takes the reference's XLA route,
 ``naive_attention`` up to 512 tokens and ``flash_attention_xla`` above,
 which autograd differentiates (the kernel has no backward).  Decode
 attention is plain PyTorch, as in the reference, which has no decode
-kernel.  The sequence-sharded decode branch, ``local_attention_xla`` and the
-cross-attention paths wait (ROADMAP.md A.12).
+kernel.  Local attention takes the reference's XLA route on every plane
+(``models.lm._attention``): no kernel takes a window.  The
+sequence-sharded decode branch and the cross-attention paths wait
+(ROADMAP.md A.12).
 """
 from __future__ import annotations
 
@@ -16,6 +20,7 @@ import math
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.layers.common import ParamSet
@@ -133,6 +138,36 @@ def flash_attention_xla(q, k, v, *, causal: bool, window: int = 0, chunk: int = 
     return out.transpose(1, 2).to(q.dtype)  # (B,Sq,H,Dh)
 
 
+def local_attention_xla(q, k, v, *, window: int, causal: bool = True):
+    """Chunked sliding-window attention. q/k/v (B,S,H,Dh), H pre-expanded.
+
+    Each chunk of W = ``window`` queries attends to [the previous chunk,
+    its own chunk], masked to the exact window (keys less than W positions
+    back): O(S * 2W) memory and work.  A sequence of S <= W is
+    ``naive_attention`` masked to the window.
+    """
+    B, S, H, Dh = q.shape
+    W = window
+    if S <= W:
+        return naive_attention(q, k, v, causal=causal, window=W)
+    n = -(-S // W)
+    pad = (0, 0, 0, 0, 0, n * W - S)
+    qc, kc, vc = (F.pad(t, pad).reshape(B, n, W, H, Dh) for t in (q, k, v))
+    # [the previous chunk (zeros before the first), own chunk]: (B,n,2W,H,Dh)
+    k2, v2 = (torch.cat([torch.cat([torch.zeros_like(c[:, :1]), c[:, :-1]], dim=1), c], dim=2) for c in (kc, vc))
+    s = torch.einsum("bnqhd,bnkhd->bnhqk", qc, k2).float() / math.sqrt(Dh)
+    qpos = torch.arange(W, device=q.device)[:, None] + W  # position within the [previous, own] frame
+    kpos = torch.arange(2 * W, device=q.device)[None, :]
+    mask = (kpos <= qpos) if causal else torch.ones((W, 2 * W), dtype=torch.bool, device=q.device)
+    mask = mask & (kpos > qpos - W)
+    first = torch.arange(n, device=q.device)[:, None, None] > 0  # the first chunk has no previous one
+    mask_n = mask[None] & (first | (kpos[None] >= W))  # (n, W, 2W)
+    s = torch.where(mask_n[None, :, None], s, -1e30)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bnhqk,bnkhd->bnqhd", p.to(v2.dtype), v2)
+    return out.reshape(B, n * W, H, Dh)[:, :S]
+
+
 def _gqa_partials(q, k_cache, v_cache):
     """GQA partial attention without head expansion, over every cache entry
     given.
@@ -149,19 +184,20 @@ def _gqa_partials(q, k_cache, v_cache):
     return num, den, m
 
 
-def decode_attn_cached(q, k_new, v_new, k_cache, v_cache, cache_len: int):
+def decode_attn_cached(q, k_new, v_new, k_cache, v_cache, cache_len: int, *, ring: bool = False):
     """One-token attention against an unsharded KV cache.
 
     q (B,H,Dh) with rope applied; k_new/v_new (B,KV,Dh); k/v_cache
-    (B,S,KV,Dh); ``cache_len`` the number of valid entries before this step
-    (a Python int).  Writes (k_new, v_new) at ``cache_len`` **in place**,
-    saving the reference's copy of the cache, and attends over the valid
-    prefix (the entries the reference leaves unmasked).  Returns
-    (out (B,H,Dh), k_cache, v_cache).
+    (B,S,KV,Dh); ``cache_len`` the number of tokens before this one (a
+    Python int).  Writes (k_new, v_new) at slot ``cache_len`` (``cache_len
+    mod S`` for a window's ``ring``) **in place**, saving the reference's
+    copy of the cache, and attends over the valid entries, the first
+    ``min(cache_len + 1, S)`` (those the reference leaves unmasked).
+    Returns (out (B,H,Dh), k_cache, v_cache).
     """
     B, S, KV, Dh = k_cache.shape
     H = q.shape[1]
-    slot = min(max(cache_len, 0), S - 1)
+    slot = cache_len % S if ring else min(max(cache_len, 0), S - 1)
     k_cache[:, slot] = k_new
     v_cache[:, slot] = v_new
     n_valid = min(cache_len + 1, S)

@@ -44,16 +44,16 @@ class Record:
     profiler ranges ``ssm:<step>`` (``in_proj``, ``conv``, ``x_proj/dt``,
     ``scan``, ``out_proj``), which split its device time in a trace."""
 
-    current = None  # the open record, if any
+    current = None  # the open record, if any (one per class: ``rglru.Record`` is another)
 
     def __enter__(self):
-        if Record.current is not None:
+        if type(self).current is not None:
             raise RuntimeError("a Record is already open")
-        Record.current = self
+        type(self).current = self
         return self
 
     def __exit__(self, *exc):
-        Record.current = None
+        type(self).current = None
 
 
 def _step(name):
@@ -93,7 +93,7 @@ def softplus(x: torch.Tensor) -> torch.Tensor:
     return torch.clamp_min(x, 0.0) + torch.log1p(torch.exp(-x.abs()))
 
 
-def _causal_conv(x, w, b):
+def causal_conv(x, w, b):
     """Depthwise causal conv. x (B,S,di), w (K,di) -> (B,S,di): the sum
     over the K taps in the reference's order, then the bias."""
     K, S = w.shape[0], x.shape[1]
@@ -161,7 +161,7 @@ def apply_ssm(params: SSM, cfg: ArchConfig, x: torch.Tensor, return_state: bool 
         xz = x @ params.in_proj.to(dt)
         x_in, z = xz.chunk(2, dim=-1)
     with _step("conv"):
-        x_c = F.silu(_causal_conv(x_in, params.conv_w.to(dt), params.conv_b.to(dt)))
+        x_c = F.silu(causal_conv(x_in, params.conv_w.to(dt), params.conv_b.to(dt)))
     with _step("x_proj/dt"):
         xdb = x_c @ params.x_proj.to(dt)
         dt_r, B_ssm, C_ssm = xdb.split([R, N, N], dim=-1)

@@ -1,11 +1,18 @@
-"""Prefill + single-token decode with a KV or SSM-state cache (port of
-``repro.models.decode``: attention stacks with a dense MLP or MoE FFN, and
-Mamba-1 SSM stacks).
+"""Prefill + single-token decode with a KV, SSM-state or hybrid cache (port
+of ``repro.models.decode``: attention stacks with a dense MLP or MoE FFN,
+Mamba-1 SSM stacks, and the hybrid's RG-LRU and local-attention cycle).
 
 Cache layout, as the reference's: ``{"len": int, "layers": {...}}`` with
 ``len`` the number of tokens already in the cache (a Python int here, a
 traced scalar there) and ``layers`` either ``{"k": (L,B,S,KV,Dh), "v": ...}``
 (attention) or ``{"h": (L,B,di,N) float32, "conv": (L,B,K-1,di)}`` (SSM).
+A hybrid's is ``{"len", "groups": {f"g{j}_{kind}": ...}, "tail": [...]}``:
+group j stacks the n_full layers P l + j of the pattern's kind j (P its
+length), tail entry i holds layer P n_full + i on a leading axis of 1.  An
+attention layer's entry there is a ring of min(W, s_max) slots for its
+window W: decode writes token p at slot p mod W, and prefill leaves the
+window's last tokens where decode expects them (``lm.write_kv``); an RG-LRU
+layer's is ``{"h": (B, rnn_width) float32, "conv": (B, K-1, rnn_width)}``.
 Unlike the reference, which is functional, the port writes into the cache's
 arrays **in place**: prefill fills a cache allocated once at its padded
 size (no per-layer pad and no stack copy), and each decode step writes its
@@ -14,7 +21,7 @@ was given (no copy of the cache per step); the returned cache shares them.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import torch
 
@@ -22,27 +29,55 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops
 from repro_torch.layers import attention as attn_lib
 from repro_torch.layers.common import apply_norm
+from repro_torch.layers.mlp import apply_mlp
+from repro_torch.layers.rglru import apply_rglru_step
 from repro_torch.layers.ssm import apply_ssm_step
 from repro_torch.models.lm import (
-    LM, _attn_in, _block_full, _block_out, _rope, check_ported, default_positions, embed_tokens, logits_fn,
+    LM, _attn_in, _block_full, _block_out, _rope, attn_window, check_ported, default_positions, embed_tokens,
+    logits_fn,
 )
+
+
+def _entry(cfg: ArchConfig, kind: str, n: int, batch: int, slots: int, dtype, device) -> Dict[str, torch.Tensor]:
+    """Zeros for n stacked layers of ``kind``: k/v (n, batch, slots, KV, Dh),
+    or the recurrent state h (float32) and conv tail of an SSM or RG-LRU."""
+    K = cfg.ssm_conv
+    if kind == "attn":
+        shape = (n, batch, slots, cfg.n_kv_heads, cfg.head_dim)
+        return {"k": torch.zeros(shape, dtype=dtype, device=device), "v": torch.zeros(shape, dtype=dtype, device=device)}
+    h, width = ((cfg.d_inner, cfg.ssm_state), cfg.d_inner) if kind == "ssm" else ((cfg.rnn_width,), cfg.rnn_width)
+    return {"h": torch.zeros((n, batch) + h, dtype=torch.float32, device=device),
+            "conv": torch.zeros((n, batch, K - 1, width), dtype=dtype, device=device)}
 
 
 def init_cache(cfg: ArchConfig, batch: int, s_max: int, dtype=torch.float32, device=None) -> Dict:
     """An empty cache, len 0: zeros (L, batch, s_max, KV, Dh) for k and v,
     or for an SSM stack zeros h (L, batch, di, N) float32 and conv
-    (L, batch, K-1, di) (``s_max`` unused)."""
+    (L, batch, K-1, di) (``s_max`` unused); for a hybrid the reference's
+    groups and tail (the module's docstring), each attention layer a ring
+    of min(W, s_max) slots."""
     check_ported(cfg)
-    L = cfg.n_layers
-    if cfg.is_ssm:
-        di, N, K = cfg.d_inner, cfg.ssm_state, cfg.ssm_conv
-        layers = {"h": torch.zeros((L, batch, di, N), dtype=torch.float32, device=device),
-                  "conv": torch.zeros((L, batch, K - 1, di), dtype=dtype, device=device)}
-    else:
-        shape = (L, batch, s_max, cfg.n_kv_heads, cfg.head_dim)
-        layers = {"k": torch.zeros(shape, dtype=dtype, device=device),
-                  "v": torch.zeros(shape, dtype=dtype, device=device)}
-    return {"len": 0, "layers": layers}
+    if not cfg.is_hybrid:
+        kind = "ssm" if cfg.is_ssm else "attn"
+        return {"len": 0, "layers": _entry(cfg, kind, cfg.n_layers, batch, s_max, dtype, device)}
+    pat = cfg.block_pattern
+    n_full, rem = divmod(cfg.n_layers, len(pat))
+    slots = min(cfg.local_window or s_max, s_max)
+    return {"len": 0,
+            "groups": {f"g{j}_{kind}": _entry(cfg, kind, n_full, batch, slots, dtype, device)
+                       for j, kind in enumerate(pat)},
+            "tail": [_entry(cfg, pat[i], 1, batch, slots, dtype, device) for i in range(rem)]}
+
+
+def layer_caches(cfg: ArchConfig, cache: Dict) -> List[Dict[str, torch.Tensor]]:
+    """Each layer's views into the cache's arrays, in layer order."""
+    if not cfg.is_hybrid:
+        return [{name: t[i] for name, t in cache["layers"].items()} for i in range(cfg.n_layers)]
+    pat = cfg.block_pattern
+    groups = [cache["groups"][f"g{j}_{kind}"] for j, kind in enumerate(pat)]
+    n_full = cfg.n_layers // len(pat)
+    out = [{name: t[l] for name, t in groups[j].items()} for l in range(n_full) for j in range(len(pat))]
+    return out + [{name: t[0] for name, t in entry.items()} for entry in cache["tail"]]
 
 
 def lm_prefill(params: LM, cfg: ArchConfig, batch, pad_to: Optional[int] = None, *, plane=ops.AUTO):
@@ -50,11 +85,13 @@ def lm_prefill(params: LM, cfg: ArchConfig, batch, pad_to: Optional[int] = None,
 
     pad_to: cache headroom — an attention cache holds max(S, pad_to) slots
     so decode can continue past the prompt (an SSM cache has no sequence
-    axis).  Each layer is the forward's block, which writes its cache entry
-    (the reference's ``_attn_block_prefill``): attention runs through
-    ``ops.attention_op`` (the ``flash_attention`` kernel on the ``"kernel"``
-    plane: one launch per layer); an SSM stack computes the same on both
-    planes.
+    axis; a hybrid's window ring holds W slots, as the reference's prefill
+    pads it to its window).  Each layer is the forward's block, which
+    writes its cache entry (the reference's ``_attn_block_prefill``):
+    attention runs through ``ops.attention_op`` (the ``flash_attention``
+    kernel on the ``"kernel"`` plane: one launch per layer); an SSM stack,
+    and a hybrid, whose local attention no kernel takes, compute the same
+    on both planes.
     """
     tokens = batch["tokens"]
     B, S = tokens.shape
@@ -62,22 +99,22 @@ def lm_prefill(params: LM, cfg: ArchConfig, batch, pad_to: Optional[int] = None,
     if positions is None:
         positions = default_positions(tokens)
     x = embed_tokens(params, cfg, tokens)
-    cache = init_cache(cfg, B, max(S, pad_to or 0), x.dtype, x.device)
-    c = cache["layers"]
-    for i, (lp, kind) in enumerate(zip(params.layers, cfg.layer_kinds())):
-        x = _block_full(lp, cfg, kind, x, positions, plane=plane, cache_out={name: t[i] for name, t in c.items()})
+    cache = init_cache(cfg, B, max(S, pad_to or 0, attn_window(cfg)), x.dtype, x.device)
+    for lp, kind, cl in zip(params.layers, cfg.layer_kinds(), layer_caches(cfg, cache)):
+        x = _block_full(lp, cfg, kind, x, positions, plane=plane, cache_out=cl)
     cache["len"] = S
     logits = logits_fn(params, cfg, x[:, -1:])
     return logits[:, 0], cache
 
 
 def _attn_block_step(lp, cfg: ArchConfig, x, kc, vc, pos: int):
-    """x (B,1,D); kc/vc (B,S,KV,Dh), written in place at ``pos``. Returns x'."""
+    """x (B,1,D); kc/vc (B,S,KV,Dh), written in place at ``pos`` (at
+    ``pos mod S`` in a hybrid's window ring). Returns x'."""
     h = _attn_in(lp, cfg, x)
     q, k, v = attn_lib._project_qkv(lp.attn, cfg, h)
     pos_ids = torch.full((x.shape[0], 1), pos, dtype=torch.int32, device=x.device)
     q, k = _rope(cfg, q, pos_ids), _rope(cfg, k, pos_ids)
-    out, _, _ = attn_lib.decode_attn_cached(q[:, 0], k[:, 0], v[:, 0], kc, vc, pos)
+    out, _, _ = attn_lib.decode_attn_cached(q[:, 0], k[:, 0], v[:, 0], kc, vc, pos, ring=cfg.is_hybrid)
     return _block_out(lp, cfg, x, h, attn_lib._out_proj(lp.attn, out[:, None], x.dtype))
 
 
@@ -87,6 +124,10 @@ def _block_step(lp, cfg: ArchConfig, kind: str, x, cl: Dict, pos: int):
     if kind == "ssm":
         y, _ = apply_ssm_step(lp.ssm, cfg, apply_norm(cfg.norm, lp.norm, x), cl)
         return x + y
+    if kind == "rglru":
+        y, _ = apply_rglru_step(lp.rglru, cfg, apply_norm(cfg.norm, lp.norm1, x), cl)
+        x = x + y
+        return x + apply_mlp(lp.mlp, cfg, apply_norm(cfg.norm, lp.norm2, x))
     return _attn_block_step(lp, cfg, x, cl["k"], cl["v"], pos)
 
 
@@ -99,9 +140,8 @@ def lm_decode_step(params: LM, cfg: ArchConfig, cache, batch):
     capacity is that of T = B."""
     pos = int(cache["len"])
     x = embed_tokens(params, cfg, batch["token"][:, None])
-    c = cache["layers"]
-    for i, (lp, kind) in enumerate(zip(params.layers, cfg.layer_kinds())):
-        x = _block_step(lp, cfg, kind, x, {name: t[i] for name, t in c.items()}, pos)
+    for lp, kind, cl in zip(params.layers, cfg.layer_kinds(), layer_caches(cfg, cache)):
+        x = _block_step(lp, cfg, kind, x, cl, pos)
     new_cache = dict(cache)
     new_cache["len"] = pos + 1
     logits = logits_fn(params, cfg, x)

@@ -1,10 +1,13 @@
 """The decoder LM (port of ``repro.models.lm``: attention stacks with a
-dense MLP or an MoE FFN, and Mamba-1 SSM stacks).
+dense MLP or an MoE FFN, Mamba-1 SSM stacks, and the hybrid's cycle of
+RG-LRU and local-attention blocks).
 
 Parameters are ``nn.Module``s whose names follow the reference's parameter
 tree, one module per layer where the reference stacks layers on a leading
-axis: ``layers.{l}.attn.wq`` is the reference's ``layers/attn/wq[l]``, so
-``convert`` is a name map.  The functions mirror the reference's
+axis: ``layers.{l}.attn.wq`` is the reference's ``layers/attn/wq[l]`` (a
+hybrid's layer P l + j is its ``groups/g{j}_{kind}/…[l]`` for a pattern of
+length P, and its tail layers follow the groups), so ``convert`` is a name
+map.  The functions mirror the reference's
 (``lm_apply(params, cfg, batch)``, without the sharding rules) and take a
 ``plane`` for attention: a kernel plane (``kernels.ops.attention_op``, for
 serving) or ``TRAIN``, the reference's XLA route that autograd
@@ -32,6 +35,7 @@ from repro_torch.layers.attention import Attention
 from repro_torch.layers.common import Norm, apply_norm, apply_rope, init_norm
 from repro_torch.layers.mlp import MLP, apply_mlp, init_mlp
 from repro_torch.layers.moe import MoE, apply_moe, init_moe
+from repro_torch.layers.rglru import RGLRU, apply_rglru, init_rglru
 from repro_torch.layers.ssm import SSM, apply_ssm, init_ssm
 from repro_torch.sharding import dense_init, name_key
 
@@ -47,10 +51,14 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+HYBRID_KINDS = ("attn", "rglru")  # the block kinds a hybrid's pattern may cycle through
+
+
 def check_ported(cfg: ArchConfig) -> None:
     """Raise for the families whose blocks are not ported yet."""
-    if cfg.is_hybrid:
-        raise NotImplementedError(f"{cfg.name}: hybrid (RG-LRU, local attention) is not ported yet (ROADMAP.md A.12.5)")
+    if cfg.is_hybrid and not set(cfg.block_pattern) <= set(HYBRID_KINDS):
+        raise NotImplementedError(f"{cfg.name}: a hybrid pattern {cfg.block_pattern} of other kinds than "
+                                  f"{HYBRID_KINDS} is not ported")
     if cfg.encoder_decoder:
         raise NotImplementedError(f"{cfg.name}: encoder-decoder is not ported yet (ROADMAP.md A.12.6)")
     if cfg.mrope_sections is not None or cfg.vision_stub:
@@ -60,7 +68,8 @@ def check_ported(cfg: ArchConfig) -> None:
 class Block(nn.Module):
     """One decoder layer: ``norm1``, ``attn``, ``norm2`` and the FFN under
     the reference's name, ``moe`` for an MoE config and ``mlp`` otherwise (a
-    parallel block has one ``norm``); an SSM layer is ``norm`` and ``ssm``."""
+    parallel block has one ``norm``); an SSM layer is ``norm`` and ``ssm``;
+    an RG-LRU layer ``norm1``, ``rglru``, ``norm2`` and ``mlp``."""
 
     def __init__(self, parts: Dict[str, nn.Module]):
         super().__init__()
@@ -99,16 +108,34 @@ def _block(cfg: ArchConfig, norms: List[Norm], attn: Attention, ffn: nn.Module) 
 def _init_layer(key, cfg: ArchConfig, kind: str, dtype) -> Block:
     if kind == "ssm":
         return Block({"norm": init_norm(cfg.norm, cfg.d_model, dtype, key.device), "ssm": init_ssm(key, cfg, dtype)})
+    if kind == "rglru":
+        norm = lambda: init_norm(cfg.norm, cfg.d_model, dtype, key.device)  # noqa: E731
+        return Block({"norm1": norm(), "rglru": init_rglru(key, cfg, dtype), "norm2": norm(),
+                      "mlp": init_mlp(key, cfg, dtype)})
     norms = [init_norm(cfg.norm, cfg.d_model, dtype, key.device) for _ in range(1 if cfg.parallel_block else 2)]
     ffn = init_moe(key, cfg, dtype) if cfg.is_moe else init_mlp(key, cfg, dtype)
     return _block(cfg, norms, attn_lib.init_attn(key, cfg, dtype), ffn)
 
 
+def layer_keys(key, cfg: ArchConfig) -> torch.Tensor:
+    """(L, 2): each layer's init key, as the reference's ``_stack_init``
+    vmaps them: layer l's is ``split(name_key(key, "layers"), L)[l]``; a
+    hybrid's layer P l + j (P the pattern's length) is
+    ``split(name_key(key, f"grp{j}"), n_full)[l]`` and its tail layer i's
+    ``name_key(key, f"tail{i}")``."""
+    if not cfg.is_hybrid:
+        return prng.split(name_key(key, "layers"), cfg.n_layers)
+    P = len(cfg.block_pattern)
+    n_full, rem = divmod(cfg.n_layers, P)
+    groups = torch.stack([prng.split(name_key(key, f"grp{j}"), n_full) for j in range(P)], dim=1)  # (n_full, P, 2)
+    tail = [name_key(key, f"tail{i}") for i in range(rem)]
+    return torch.cat([groups.reshape(n_full * P, 2)] + [t[None] for t in tail])
+
+
 def init_lm(key, cfg: ArchConfig, dtype=torch.float32, *, device="cuda") -> LM:
     """The reference's ``init_lm`` from a ``prng.prng_key``: every tensor is
-    drawn on ``device`` from the same per-name keys (layer l's key is
-    ``split(name_key(key, "layers"), L)[l]``, as ``_stack_init`` vmaps
-    them), so a seed gives the reference's weights (``prng.truncated_normal``)."""
+    drawn on ``device`` from the same per-name keys (``layer_keys``), so a
+    seed gives the reference's weights (``prng.truncated_normal``)."""
     check_ported(cfg)
     dev = resolve_device(device)
     key = key.to(dev)
@@ -116,7 +143,7 @@ def init_lm(key, cfg: ArchConfig, dtype=torch.float32, *, device="cuda") -> LM:
     embed = dense_init(key, "embed", (V, D), dtype, scale=0.02)
     final_norm = init_norm(cfg.norm, D, dtype, dev)
     lm_head = None if cfg.tie_embeddings else dense_init(key, "lm_head", (D, V), dtype)
-    keys = prng.split(name_key(key, "layers"), cfg.n_layers)
+    keys = layer_keys(key, cfg)
     layers = [_init_layer(keys[i], cfg, kind, dtype) for i, kind in enumerate(cfg.layer_kinds())]
     return LM(cfg, embed, final_norm, lm_head, layers)
 
@@ -137,6 +164,10 @@ def lm_from_state(cfg: ArchConfig, state: Dict[str, torch.Tensor]) -> LM:
         p = f"layers.{i}."
         if kind == "ssm":
             layers.append(Block({"norm": norm(p + "norm."), "ssm": SSM(sub(p + "ssm."))}))
+            continue
+        if kind == "rglru":
+            layers.append(Block({"norm1": norm(p + "norm1."), "rglru": RGLRU(sub(p + "rglru.")),
+                                 "norm2": norm(p + "norm2."), "mlp": MLP(sub(p + "mlp."))}))
             continue
         names = ("norm",) if cfg.parallel_block else ("norm1", "norm2")
         ffn = (MoE if cfg.is_moe else MLP)(sub(p + _ffn_name(cfg) + "."))
@@ -178,50 +209,81 @@ def _block_out(lp: Block, cfg: ArchConfig, x, h, attn_out):
 TRAIN = "train"  # the attention route of training (``_attention``)
 
 
-def _attention(q, k, v, plane):
+def _attention(q, k, v, plane, window: int = 0):
     """Causal attention on ``plane``; ``TRAIN`` takes the reference's route
     without the Pallas kernel (``repro.models.lm._attn_full``):
-    ``naive_attention`` up to 512 tokens, ``flash_attention_xla`` above."""
-    if plane != TRAIN:
+    ``naive_attention`` up to 512 tokens, ``flash_attention_xla`` above.
+    Local attention (``window``) takes the reference's route on every plane,
+    as its kernel takes no window: ``local_attention_xla`` past the window,
+    else ``naive_attention`` or ``flash_attention_xla`` masked to it."""
+    S = q.shape[1]
+    if window and S > window:
+        return attn_lib.local_attention_xla(q, k, v, window=window)
+    if plane != TRAIN and not window:
         return ops.attention_op(q, k, v, causal=True, plane=plane)
-    if q.shape[1] <= 512:
-        return attn_lib.naive_attention(q, k, v, causal=True)
-    return attn_lib.flash_attention_xla(q, k, v, causal=True)
+    if S <= 512:
+        return attn_lib.naive_attention(q, k, v, causal=True, window=window)
+    return attn_lib.flash_attention_xla(q, k, v, causal=True, window=window)
 
 
-def _attn_full(lp: Attention, cfg: ArchConfig, x, positions, *, plane=ops.AUTO, cache_out=None):
-    """Causal self-attention over x (B,S,D).  With ``cache_out`` (this layer's
-    (B, S_max, KV, Dh) cache views, zeroed) the rotated k and v are written
-    into its first S slots: that is prefill's cache entry (the reference
-    pads each layer's entry and stacks them; ``_pad_entry``)."""
+def write_kv(cache_out, k, v):
+    """Prefill's cache entry: token p's k and v at slot p mod n of the
+    (B, n, KV, Dh) views ``cache_out``, so the first S slots for S <= n,
+    and for a window's ring of n < S slots the last n tokens where decode
+    expects them (the reference keeps ``k[:, S - n:]`` in slots 0.., which
+    its decode then overwrites out of order: ROADMAP.md C.12)."""
+    S, n = k.shape[1], cache_out["k"].shape[1]
+    r = S % n if S > n else 0
+    for name, t in (("k", k), ("v", v)):
+        last = t[:, max(S - n, 0):]
+        cache_out[name][:, r : r + last.shape[1]] = last[:, : last.shape[1] - r]
+        cache_out[name][:, :r] = last[:, last.shape[1] - r :]
+
+
+def _attn_full(lp: Attention, cfg: ArchConfig, x, positions, *, plane=ops.AUTO, window: int = 0, cache_out=None):
+    """Causal self-attention over x (B,S,D), within ``window`` positions
+    when it is set.  With ``cache_out`` (this layer's (B, n, KV, Dh) cache
+    views, zeroed) the rotated k and v are written as ``write_kv`` places
+    them: that is prefill's cache entry (the reference pads each layer's
+    entry and stacks them; ``_pad_entry``)."""
     q, k, v = attn_lib._project_qkv(lp, cfg, x)
     q = _rope(cfg, q, positions)
     k = _rope(cfg, k, positions)
     if cache_out is not None:
-        cache_out["k"][:, : x.shape[1]] = k
-        cache_out["v"][:, : x.shape[1]] = v
+        write_kv(cache_out, k, v)
     k = attn_lib.repeat_kv(k, cfg.n_rep)
     v = attn_lib.repeat_kv(v, cfg.n_rep)
-    return attn_lib._out_proj(lp, _attention(q, k, v, plane), x.dtype)
+    return attn_lib._out_proj(lp, _attention(q, k, v, plane, window), x.dtype)
+
+
+def attn_window(cfg: ArchConfig) -> int:
+    """The window of the config's attention layers: a hybrid's local
+    window, 0 (the whole causal prefix) otherwise."""
+    return cfg.local_window if cfg.is_hybrid else 0
 
 
 def _block_full(lp: Block, cfg: ArchConfig, kind: str, x, positions, *, plane=ops.AUTO, cache_out=None):
     """One decoder block of ``kind`` (``cfg.layer_kinds()``) over a full
     sequence. x (B,S,D).  With ``cache_out``, this layer's cache views, the
     block also writes its prefill cache entry: an attention block its k/v
-    (``_attn_full``), an SSM block its final state h and conv tail (the
-    reference's ``_attn_block_prefill``).  An SSM block computes the same
-    on every plane and takes no positions."""
-    if kind == "ssm":
-        h = apply_norm(cfg.norm, lp.norm, x)
+    (``_attn_full``), an SSM or RG-LRU block its final state h and conv
+    tail (the reference's ``_attn_block_prefill``).  The recurrent blocks
+    compute the same on every plane and take no positions."""
+    if kind in ("ssm", "rglru"):
+        ssm = kind == "ssm"
+        apply, params = (apply_ssm, lp.ssm) if ssm else (apply_rglru, lp.rglru)
+        h = apply_norm(cfg.norm, lp.norm if ssm else lp.norm1, x)
         if cache_out is None:
-            return x + apply_ssm(lp.ssm, cfg, h)
-        y, st = apply_ssm(lp.ssm, cfg, h, return_state=True)
-        cache_out["h"].copy_(st["h"])
-        cache_out["conv"].copy_(st["conv"])
-        return x + y
+            y = apply(params, cfg, h)
+        else:
+            y, st = apply(params, cfg, h, return_state=True)
+            cache_out["h"].copy_(st["h"])
+            cache_out["conv"].copy_(st["conv"])
+        x = x + y
+        return x if ssm else x + apply_mlp(lp.mlp, cfg, apply_norm(cfg.norm, lp.norm2, x))
     h = _attn_in(lp, cfg, x)
-    return _block_out(lp, cfg, x, h, _attn_full(lp.attn, cfg, h, positions, plane=plane, cache_out=cache_out))
+    attn_out = _attn_full(lp.attn, cfg, h, positions, plane=plane, window=attn_window(cfg), cache_out=cache_out)
+    return _block_out(lp, cfg, x, h, attn_out)
 
 
 def _save_weight_products(ctx, op, *args, **kwargs):

@@ -92,6 +92,6 @@ def port_run(golden: Dict, device="cuda") -> Tuple[Dict, List]:
         losses.append(float(m["loss"]))
         gnorms.append(float(m["grad_norm"]))
     names = sorted({k.split("/", 1)[1] for k in golden["leaf_sums"]})
-    record = train_record(losses, gnorms, convert.stack_named(params.state_dict()),
-                          convert.opt_state_to_tree(state), names)
+    record = train_record(losses, gnorms, convert.stack_named(params.state_dict(), cfg),
+                          convert.opt_state_to_tree(state, cfg), names)
     return record, tokens

@@ -51,6 +51,17 @@ TOL = 1e-5  # float32, both planes (see the module docstring)
 PLANES = (ops.TORCH, ops.KERNEL)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The port's CPU ops on one thread while this file runs: tier-1 runs
+    several test workers on one machine's cores, where a thread pool per
+    worker loses far more to contention than it gains at these sizes."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _ulp(a, b):
     """Elementwise distance in float32 ulp (same-sign values)."""
     a = np.asarray(a, np.float32).view(np.int32).astype(np.int64)
@@ -249,9 +260,9 @@ def test_dense_variants_match_reference(variant):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("kw,item", [
-    (dict(block_pattern=("attn", "rglru"), local_window=16), "A.12.5"),
-    (dict(encoder_decoder=True, n_enc_layers=2), "A.12.6"), (dict(mrope_sections=(4, 6, 6)), "A.12.7"),
+@pytest.mark.parametrize("kw,item", [  # the cases keep their ids (test_attn_rglru_pattern_matches_reference was kw0)
+    pytest.param(dict(encoder_decoder=True, n_enc_layers=2), "A.12.6", id="kw1-A.12.6"),
+    pytest.param(dict(mrope_sections=(4, 6, 6)), "A.12.7", id="kw2-A.12.7"),
 ])
 def test_unported_families_raise(kw, item):
     cfg = dataclasses.replace(reduced_config(ARCH), **kw)
@@ -259,6 +270,44 @@ def test_unported_families_raise(kw, item):
         check_ported(cfg)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         init_lm(prng.prng_key(0), cfg, device="cpu")
+
+
+def test_attn_rglru_pattern_matches_reference():
+    """A hybrid of another pattern than recurrentgemma's: (attn, rglru) over
+    stablelm's reduced widths (layernorm, swiglu, partial rotary), window
+    16, two full groups and no tail.  Init leaf by leaf; the forward over 20
+    tokens (local attention past the window), a 16-token prefill and 4
+    decode steps past the ring's wrap, on both planes."""
+    kw = dict(block_pattern=("attn", "rglru"), local_window=16)
+    cfg = dataclasses.replace(reduced_config(ARCH), **kw)
+    jcfg = dataclasses.replace(jreduced_config(ARCH), **kw)
+    check_ported(cfg)
+    jparams = _jax_params(jcfg, seed=5)
+    assert jparams["tail"] == [] and sorted(jparams["groups"]) == ["g0_attn", "g1_rglru"]
+    want_tree = {k: v for k, v in jparams.items() if k != "tail"}
+    mine = convert.lm_params_to_numpy(init_lm(prng.prng_key(5), cfg, device="cpu"))
+    assert mine.pop("tail") == []
+    mine = dict(_leaves(mine))
+    assert sorted(mine) == sorted(k for k, _ in _leaves(want_tree))
+    for name, w in _leaves(want_tree):
+        assert _ulp(mine[name], w).max() <= 2, name  # measured: bitwise equal
+    model = convert.lm_params_from_numpy(jparams, cfg, device="cpu")
+    toks = _tokens(cfg, 2, 20, 4)
+    want = np.asarray(jax.jit(lambda p, t: jlm.lm_apply(p, jcfg, SHD, {"tokens": t}))(jparams, toks))
+    jl, jc = jax.jit(lambda p, t: jdecode.lm_prefill(p, jcfg, SHD, {"tokens": t}, pad_to=20))(jparams, toks[:, :16])
+    jstep = jax.jit(lambda p, c, t: jdecode.lm_decode_step(p, jcfg, SHD, c, {"token": t}))
+    jsteps = []
+    for t in range(16, 20):
+        jl2, jc = jstep(jparams, jc, toks[:, t])
+        jsteps.append(np.asarray(jl2))
+    for plane in PLANES:
+        got = lm_apply(model, cfg, {"tokens": torch.tensor(toks)}, plane=plane).numpy()
+        np.testing.assert_allclose(got, want, atol=TOL, rtol=0)
+        tl, tc = lm_prefill(model, cfg, {"tokens": torch.tensor(toks[:, :16])}, pad_to=20, plane=plane)
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=TOL, rtol=0)
+        for i, t in enumerate(range(16, 20)):
+            tl, tc = lm_decode_step(model, cfg, tc, {"token": torch.tensor(toks[:, t])})
+            np.testing.assert_allclose(tl.numpy(), jsteps[i], atol=TOL, rtol=0, err_msg=f"{plane} step {i}")
 
 
 def test_entry_points_default_to_cuda_and_refuse_without_it():
@@ -276,7 +325,7 @@ def test_entry_points_default_to_cuda_and_refuse_without_it():
 def test_only_ported_configs_are_listed():
     from repro_torch.configs import ARCH_IDS
 
-    assert ARCH_IDS == (ARCH, "llama4-scout-17b-a16e", "kimi-k2-1t-a32b", "falcon-mamba-7b")
+    assert ARCH_IDS == (ARCH, "llama4-scout-17b-a16e", "kimi-k2-1t-a32b", "falcon-mamba-7b", "recurrentgemma-2b")
     for arch in ARCH_IDS:
         cfg, over = get_config(arch)
         jcfg, jover = jget_config(arch)

@@ -87,6 +87,17 @@ GOLDEN_LEAVES = (("embed", None, "head"), ("lm_head", None, "head"), ("layers/at
                  ("layers/moe/wu", 1, "tail"), ("layers/moe/wd", 1, "tail"))
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The port's CPU ops on one thread while this file runs: tier-1 runs
+    several test workers on one machine's cores, where a thread pool per
+    worker loses far more to contention than it gains at these sizes."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _ulp(a, b):
     a = np.asarray(a, np.float32).view(np.int32).astype(np.int64)
     b = np.asarray(b, np.float32).view(np.int32).astype(np.int64)

@@ -34,6 +34,18 @@ EXACT = ("commits", "aborts", "abort_rate", "throughput_mtps", "avg_round_trips"
 LATENCY = ("avg_latency_us", "stage_us_per_commit")
 RTOL = 1e-5
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The port's CPU ops on one thread while this file runs: tier-1 runs
+    several test workers on one machine's cores, where a thread pool per
+    worker loses far more to contention than it gains at these sizes."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 GOLDEN = os.path.join(
     os.path.dirname(__file__), "..", "src", "repro_torch", "data", "golden_nowait_smallbank.json"
 )

@@ -44,6 +44,17 @@ GOLDEN4 = os.path.join(DATA, "golden_nowait_smallbank.json")
 GOLDEN64 = os.path.join(DATA, "golden_nowait_smallbank_sweep64.json")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The port's CPU ops on one thread while this file runs: tier-1 runs
+    several test workers on one machine's cores, where a thread pool per
+    worker loses far more to contention than it gains at these sizes."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 _JROWS = {}
 
 

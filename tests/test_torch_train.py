@@ -80,6 +80,17 @@ GOLDEN_LAYERS = 4
 GOLDEN_RUN = dict(seed=0, batch=1, seq=2048, steps=3, optimizer="adamw")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The port's CPU ops on one thread while this file runs: tier-1 runs
+    several test workers on one machine's cores, where a thread pool per
+    worker loses far more to contention than it gains at these sizes."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _leaves(tree, prefix=""):
     for k, v in tree.items():
         if isinstance(v, dict):
