@@ -18,7 +18,9 @@ Run from a checkout of the repository on a machine with one CUDA card and
    a CUDA graph, replayed between CUDA events), its time per call as the
    host issues them eagerly, its bound, the plain version's times and a
    library call's times (``flash_attention``: SDPA, at both serving
-   paths' prefill calls, Dh = 64 and 128, and at kimi-k2's Dh = 112;
+   paths' prefill calls, Dh = 64 and 128, at whisper-small's two (the
+   encoder's, not causal over 1500 frames, and the decoder's over a
+   224-token prompt) and at kimi-k2's Dh = 112;
    ``multi_read``: the per-array ``a[keys]`` of the torch plane).  ``multi_read`` and
    ``mvcc_version_select`` are timed as the whole ops-level call
    (``ops.gather_many``, ``ops.version_read``), which must be one launch
@@ -91,7 +93,18 @@ Run from a checkout of the repository on a machine with one CUDA card and
    tokens, 32 each: the window's ring wraps) beside its float32 bound; it
    launches no hand-written kernel (local attention takes the reference's
    XLA route), and a torch-plane prefill gives its logits bitwise;
-12. the LM training path, stablelm-1.6b at full width in float32 with TF32
+12. the encoder-decoder serving path, whisper-small at full width and depth
+   (12 encoder and 12 decoder layers, 278,143,488 float32 parameters), TF32
+   off: ``init_lm`` from seed 0 on the card (checked against the reference's
+   weights, a cross-attention leaf among them, and the frames'
+   ``normal(PRNGKey(1))`` draw), the golden-file run on the whole model (one
+   request of 1500 frames and a 224-token prompt, 8 greedy tokens, logits
+   within 10x the port's CPU gap, every token equal), a profiled prefill
+   and decode step (``flash_attention`` launched 24 times in the prefill,
+   not causal in the encoder, and never in decode), then the main path
+   ``serve`` (4 x 1500 frames x 224 + 224 tokens) on both planes beside its
+   float32 bounds;
+13. the LM training path, stablelm-1.6b at full width in float32 with TF32
    off: 3 AdamW steps at the depth the reference's golden file was cut to
    (its pipeline tokens bitwise, losses, grad_norms and leaf sums within
    10x the port's CPU gap), then the main path at full width and depth,
@@ -103,7 +116,8 @@ Run from a checkout of the repository on a machine with one CUDA card and
    stream of the run without it, bitwise.
 
 Every path's kernel launches are counted from 0 just before it runs and
-read just after.  It prints a JSON line of kernel measurements (each
+read just after.  It prints each phase's wall seconds (``phase walls``),
+then a JSON line of kernel measurements (each
 kernel's times are the mean over its main-path launches; ``by_path`` holds
 them per main path; ``library_ms`` is the mean over the paths that have a
 library call, and ``ms_library_paths`` the kernel's own over those paths),
@@ -206,6 +220,13 @@ HYBRID_ARCH = "recurrentgemma-2b"
 HYBRID_SERVE_PATH = "serve/recurrentgemma-2b"
 HYBRID_STEPS = ("in/gate proj", "conv", "gates", "scan", "out_proj")  # rglru.Record's profiler ranges
 HYBRID_PARAMS = 3_314_096_640
+# the encoder-decoder serving main path: whisper-small at full width and depth (12 encoder and 12 decoder layers,
+# 278,143,488 float32 parameters, 1.11 GB): 4 requests of one 30-second audio window (1500 frame embeddings), a
+# 224-token prompt and 224 greedy tokens each, the 448 of Whisper's text context
+WHISPER_ARCH = "whisper-small"
+WHISPER_SERVE = dict(batch=4, prompt_len=224, gen_len=224, page_size=16)
+WHISPER_SERVE_PATH = "serve/whisper-small"
+WHISPER_PARAMS = 278_143_488
 # logits tolerance of the serving phase (absolute; logits have std 0.88).  The port
 # on the CPU is within 7.9e-6 of the JAX reference at full width (the golden file's
 # port_cpu_max_abs_logit_gap); 1e-4 leaves 12x that for the card's other summation
@@ -789,6 +810,7 @@ def phase_flash(gen):
     import torch
     import torch.nn.functional as F
 
+    from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.ref import flash_attention_ref
 
@@ -810,6 +832,9 @@ def phase_flash(gen):
     cases += [(1, 2, 70, 0, 64, causal, dt, False) for causal in (True, False) for dt in tols]  # Sk = 0: zeros
     # llama4-scout's prefill call (B = 4, Dh = 128, H = 40 after the GQA repeat) and kimi-k2's head dim, one batch row
     cases += [(4, 40, 2048, 2048, 128, True, torch.float32, True), (1, 64, 2048, 2048, 112, True, torch.float32, True)]
+    # whisper-small's prefill calls: the encoder's over 1500 frames (not causal; 1500 is a multiple of neither the
+    # 128-row q tile nor the 64-key tile) and the decoder's self-attention over the 224-token prompt
+    cases += [(4, 12, 1500, 1500, 64, False, torch.float32, True), (4, 12, 224, 224, 64, True, torch.float32, True)]
     worst = {dt: 0.0 for dt in tols}
     for B, H, Sq, Sk, Dh, causal, dt, bshd in cases:
         q, k, v = attn_inputs(B, H, Sq, Sk, Dh, dt, gen, bshd=bshd)
@@ -826,33 +851,42 @@ def phase_flash(gen):
     log(f"  flash_attention: {len(cases)} cases within tolerance; max |err| float32 {worst[torch.float32]:.3e}, "
         f"bfloat16 {worst[torch.bfloat16]:.3e}")
 
-    def timing(label, B, H, S, Dh):
+    def timing(label, B, H, S, Dh, causal=True):
         """The kernel at a prefill's call, as attention_op makes it, beside its
         plain version and SDPA, and its float32 bound."""
         q, k, v = attn_inputs(B, H, S, S, Dh, torch.float32, gen, bshd=True)
         qc, kc, vc = (t.contiguous() for t in (q, k, v))
-        fn = lambda: flash_attention(q, k, v, causal=True)  # noqa: E731
-        plain = lambda: flash_attention_ref(q, k, v, causal=True)  # noqa: E731
-        sdpa = lambda: F.scaled_dot_product_attention(qc, kc, vc, is_causal=True)  # noqa: E731
+        fn = lambda: flash_attention(q, k, v, causal=causal)  # noqa: E731
+        plain = lambda: flash_attention_ref(q, k, v, causal=causal)  # noqa: E731
+        sdpa = lambda: F.scaled_dot_product_attention(qc, kc, vc, is_causal=causal)  # noqa: E731
         t = {"ms": time_graph_ms(fn, reps=10), "plain_ms": time_graph_ms(plain, reps=3),
              "library_ms": time_graph_ms(sdpa, reps=10), "host_ms": time_ms(fn, reps=10, warm=2),
              "plain_host_ms": time_ms(plain, reps=3, warm=1), "library_host_ms": time_ms(sdpa, reps=10, warm=2)}
         sdpa_err = float((sdpa().float() - plain().float()).abs().max())
-        n_bytes, n_flops = attn_work(B, H, S, S, Dh, True, 4)
+        n_bytes, n_flops = attn_work(B, H, S, S, Dh, causal, 4)
         t["bound_ms"], t["bound_by"] = bound_ms(n_bytes, n_flops, FP32_FLOPS_PER_S)
-        log(f"flash_attention ({label}: B={B}, H={H}, S={S}, Dh={Dh}, causal, float32): {t['ms']:.6f} ms/call "
+        mask = "causal" if causal else "not causal"
+        log(f"flash_attention ({label}: B={B}, H={H}, S={S}, Dh={Dh}, {mask}, float32): {t['ms']:.6f} ms/call "
             f"on the device ({t['host_ms']:.6f} issued eagerly), plain {t['plain_ms']:.6f} ms "
             f"({t['plain_host_ms']:.6f}), SDPA {t['library_ms']:.6f} ms ({t['library_host_ms']:.6f}; max |err| vs "
             f"plain {sdpa_err:.3e}), bound {t['bound_ms']:.6f} ms ({t['bound_by']}: {n_flops / 1e9:.2f} GFLOP, "
             f"{n_bytes / 1e6:.1f} MB), {n_flops / t['ms'] / 1e9:.2f} TFLOP/s")
-        return dict(t, B=B, H=H, S=S, Dh=Dh)
+        return dict(t, B=B, H=H, S=S, Dh=Dh, causal=causal)
 
+    # whisper's prefill launches the kernel once per encoder layer and once per decoder layer: its path's row is the
+    # two calls' launch-weighted mean, and each call's own row stands beside it
+    cfg = get_config(WHISPER_ARCH)[0]
+    B, H, T, P = WHISPER_SERVE["batch"], cfg.n_heads, cfg.enc_seq_len, WHISPER_SERVE["prompt_len"]
+    whisper_calls = {"encoder": timing(f"{WHISPER_SERVE_PATH} encoder", B, H, T, cfg.head_dim, causal=False),
+                     "decoder": timing(f"{WHISPER_SERVE_PATH} decoder", B, H, P, cfg.head_dim)}
     by_path = {SERVE_PATH: timing(SERVE_PATH, 4, 32, 2048, 64),  # the serving prefill's call
-               MOE_SERVE_PATH: timing(MOE_SERVE_PATH, 4, 40, 2048, 128)}
+               MOE_SERVE_PATH: timing(MOE_SERVE_PATH, 4, 40, 2048, 128),
+               WHISPER_SERVE_PATH: mix([(cfg.n_enc_layers, whisper_calls["encoder"]),
+                                        (cfg.n_layers, whisper_calls["decoder"])])}
     return dict(
         name="flash_attention", route="cuda", source="src/repro_torch/kernels/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:70", max_abs_err=worst[torch.float32],
-        max_abs_err_bf16=worst[torch.bfloat16], by_path=by_path,
+        max_abs_err_bf16=worst[torch.bfloat16], by_path=by_path, whisper_calls=whisper_calls,
         # kimi-k2's head dim: not on a main path yet (its full width does not fit the card)
         dh112=timing("kimi-k2-1t-a32b head dim, not a main path", 1, 64, 2048, 112),
     )
@@ -982,12 +1016,13 @@ def decided_steps(margin_row, tol=LOGIT_TOL):
 def check_init(params, golden):
     """The card's init_lm against the reference's weights: samples (a
     corner of the leaf seen as rows of its last dim) within 2 ulp, sums of
-    |w| within 1e-6 relative."""
+    |w| within 1e-6 relative.  A layer's leaf is named after its stack
+    (``layers/…``, ``enc_layers/…``, ``dec_layers/…``) at its layer."""
     for name, ref in golden["leaves"].items():
         parts = name.split("@")[0].split("/")  # a file may name a leaf once per layer, as name@layer
         t = params
         if ref["layer"] is not None:
-            t = t.layers[ref["layer"]]
+            t = getattr(t, parts[0])[ref["layer"]]
             parts = parts[1:]
         for part in parts:
             t = getattr(t, part)
@@ -1639,6 +1674,189 @@ def phase_serve_hybrid(counted):
     return got
 
 
+def whisper_serve_work(cfg, n_params, B, S, G):
+    """(flops, bytes) a float32 prefill of B requests (T = ``enc_seq_len``
+    frames and an S-token prompt each) needs on the encoder-decoder, and the
+    bytes of one decode step at the run's mean position S + G / 2.
+    Operations: 2 per weight of a layer's matrices per token (the encoder's
+    q, k, v, o and MLP per frame; the decoder's self q, k, v, o, cross q, o
+    and MLP per token, and its cross k and v per frame), 4 Dh per (query,
+    key) pair and head (all T x T in the encoder, the causal prefix in the
+    decoder's self-attention, all S x T in its cross-attention), the head
+    on the last token only; biases, norms and the sinusoids are not
+    counted.  Bytes: every weight read once (of the embedding only the rows
+    the tokens read), the frames read, the self and cross caches written
+    (prefill), or the decoder's weights and the head read, the valid self
+    cache and the whole cross cache read and one token's self k/v written
+    (decode)."""
+    D, F, H, KV, Dh, V, T, L, Le = (cfg.d_model, cfg.d_ff, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+                                    cfg.vocab_size, cfg.enc_seq_len, cfg.n_layers, cfg.n_enc_layers)
+    attn_w = 2 * D * H * Dh + 2 * D * KV * Dh
+    mlp_w = 2 * D * F
+    enc = 2 * B * T * Le * (attn_w + mlp_w) + Le * 4 * Dh * B * H * T * T
+    dec = (2 * B * S * L * (attn_w + 2 * D * H * Dh + mlp_w) + 2 * B * T * L * 2 * D * KV * Dh
+           + L * 4 * Dh * B * H * (S * (S + 1) // 2 + S * T))
+    flops = enc + dec + 2 * B * D * V
+    kv = 4 * 2 * L * B * KV * Dh  # bytes of one token's (or frame's) k and v over the decoder's layers
+    weights = 4 * (n_params - V * D)  # all but the embedding (not tied to the head)
+    p_bytes = weights + 4 * B * S * D + 4 * B * T * D + kv * (S + T)
+    dec_weights = 4 * (n_params - V * D - Le * (4 * D * D + mlp_w + 9 * D + F) - 2 * D)  # no encoder, no enc_norm
+    d_bytes = dec_weights + 4 * B * D + kv * (S + G // 2 + T) + kv
+    return flops, p_bytes, d_bytes
+
+
+def check_frames(frames, golden):
+    """The frames' corners (rows of d_model) against the golden file's
+    ``normal(PRNGKey(seed + 1))`` draw, within 2 ulp; returns the ulps."""
+    rows = frames.reshape(-1, frames.shape[-1])
+    d = max(ulps(rows[:2, :8].cpu().numpy(), golden["frames"]["head"]),
+            ulps(rows[-2:, -8:].cpu().numpy(), golden["frames"]["tail"]))
+    if d > 2:
+        raise AssertionError(f"the frames on the card differ from the reference's normal(PRNGKey(1)) by {d} ulp")
+    return d
+
+
+def phase_serve_whisper(counted):
+    """The encoder-decoder serving path at full width and depth on the card:
+    whisper-small's 12 + 12 layers, init_lm from seed 0 (checked against the
+    reference's weights, a cross-attention leaf among them, and the frames'
+    draw), the golden-file run on the whole model, a profiled prefill and
+    decode step (flash_attention launches counted in each), then the main
+    path: serve() at WHISPER_SERVE, launches counted from 0 (24 a prefill:
+    the encoder's non-causal calls and the decoder's causal ones; none in
+    decode), and the same requests on the torch plane.  Returns the
+    launches by kernel."""
+    import gc
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import prng
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch.serve import serve
+    from repro_torch.models.decode import lm_decode_step, lm_prefill
+    from repro_torch.models.lm import init_lm
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg, _ = get_config(WHISPER_ARCH)
+    with open(os.path.join(ROOT, "src", "repro_torch", "data", "golden_serve_whisper.json")) as f:
+        golden = json.load(f)
+    tol = golden["tolerance"]["logits"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = init_lm(prng.prng_key(0), cfg, torch.float32, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in params.parameters())
+    D, F = cfg.d_model, cfg.d_ff
+    # the config's analytic count (the reference's formula) leaves out the biases and takes two norm vectors a
+    # layer: 9D + F short a decoder layer, 7D + F an encoder layer, 4D for the final and encoder norms
+    analytic = cfg.param_count()
+    log(f"serve whisper: init_lm({cfg.name}, {cfg.n_enc_layers} + {cfg.n_layers} layers, seed 0) on the card: "
+        f"{n_params:,} parameters (the config's analytic count {analytic:,}) in {init_s:.3f} s, "
+        f"{torch.cuda.memory_allocated() / 1e9:.3f} GB")
+    if n_params != WHISPER_PARAMS or n_params != (analytic + cfg.n_layers * (9 * D + F)
+                                                  + cfg.n_enc_layers * (7 * D + F) + 4 * D):
+        raise AssertionError(f"init_lm: {n_params} parameters, not {WHISPER_PARAMS}")
+    check_init(params, golden)
+    for layer in params.dec_layers:  # C.13: equal values in tensors of their own
+        if not torch.equal(layer.xattn.wq, layer.attn.wq) or layer.xattn.wq.data_ptr() == layer.attn.wq.data_ptr():
+            raise AssertionError("init_lm: a decoder layer's xattn is not attn's draw in storage of its own")
+
+    # the golden run: the whole model, one request
+    g = serve(cfg, batch=golden["batch"], prompt_len=golden["prompt_len"], gen_len=golden["gen_len"],
+              page_size=16, seed=golden["seed"], device="cuda", plane="kernel", params=params)
+    d = check_frames(g.frames, golden)
+    err = check_golden(g, golden, tol)
+    log(f"serve whisper golden ({golden['batch']} x {cfg.enc_seq_len} frames + {golden['prompt_len']} tokens, "
+        f"{golden['gen_len']} steps, all {cfg.n_enc_layers} + {cfg.n_layers} layers): frames within {d} ulp, "
+        f"logits within {err:.3e} of the JAX reference (tolerance {tol}, 10x the port's CPU gap "
+        f"{golden['port_cpu_gap']['logits']:.3e}), tokens {g.tokens.tolist()}")
+    if g.tokens.tolist() != golden["tokens"]:
+        raise AssertionError(f"serve whisper golden: tokens {g.tokens.tolist()} != {golden['tokens']}")
+    del g
+
+    # where the time goes: one prefill and one decode step at the main path's shape, profiled, launches counted
+    B, S, G = WHISPER_SERVE["batch"], WHISPER_SERVE["prompt_len"], WHISPER_SERVE["gen_len"]
+    flops, p_bytes, d_bytes = whisper_serve_work(cfg, n_params, B, S, G)
+    p_bound = max(flops / FP32_FLOPS_PER_S, p_bytes / HBM_BYTES_PER_S) * 1e3
+    d_bound = d_bytes / HBM_BYTES_PER_S * 1e3
+    with torch.inference_mode():
+        key = prng.prng_key(1, "cuda")
+        prompts = prng.randint(key, (B, S), 0, cfg.vocab_size)
+        frames = prng.normal(key, (B, cfg.enc_seq_len, D))
+        batch = {"tokens": prompts, "frames": frames}
+        lm_prefill(params, cfg, {"tokens": prompts[:, :16], "frames": frames}, plane="kernel")  # warm-up
+        flash_attention.launches = 0
+        (logits, cache), p_wall, p_busy, p_ops, p_top, _ = device_busy(
+            lambda: lm_prefill(params, cfg, batch, pad_to=S + G, plane="kernel"))
+        p_launches = flash_attention.launches
+        tok = logits.argmax(-1)
+        lm_decode_step(params, cfg, cache, {"token": tok})  # warm-up: the profiled step decodes the next position
+        flash_attention.launches = 0
+        _, d_wall, d_busy, d_ops, d_top, _ = device_busy(lambda: lm_decode_step(params, cfg, cache, {"token": tok}))
+        d_launches = flash_attention.launches
+        prof_logits = logits.float()
+        del cache, logits
+    prof = {"prefill_wall_ms": p_wall, "prefill_device_busy_ms": p_busy, "prefill_idle_share": 1 - p_busy / p_wall,
+            "prefill_device_ops": p_ops, "prefill_flash_attention_launches": p_launches,
+            "prefill_bound_ms": p_bound, "prefill_tflop": flops / 1e12,
+            "decode_step_wall_ms": d_wall, "decode_step_device_busy_ms": d_busy,
+            "decode_step_idle_share": 1 - d_busy / d_wall, "decode_step_device_ops": d_ops,
+            "decode_step_flash_attention_launches": d_launches, "decode_step_bound_ms": d_bound,
+            "prefill_top_launches_and_ms": p_top, "decode_step_top_launches_and_ms": d_top}
+    log("serve whisper profile: " + json.dumps(prof))
+    if (p_launches, d_launches) != (cfg.n_enc_layers + cfg.n_layers, 0):
+        raise AssertionError(f"{WHISPER_SERVE_PATH}: flash_attention launched {p_launches} times in a prefill and "
+                             f"{d_launches} in a decode step, not {cfg.n_enc_layers + cfg.n_layers} and 0")
+
+    # the main path: counts from 0, then read
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counted:
+        fn.launches = 0
+    k = serve(cfg, **WHISPER_SERVE, seed=0, device="cuda", plane="kernel", params=params)
+    got = {fn.__name__: fn.launches for fn in counted}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    log(f"main path {WHISPER_SERVE_PATH} (all {cfg.n_enc_layers} + {cfg.n_layers} layers, B={B}, {cfg.enc_seq_len} "
+        f"frames, prompt {S}, {G} tokens each, float32): prefill {k.prefill_ms:.3f} ms ({k.prefill_ms / p_bound:.2f}x "
+        f"its bound {p_bound:.3f} ms: {flops / 1e12:.3f} TFLOP at {FP32_FLOPS_PER_S / 1e12:.0f} TFLOP/s, "
+        f"{p_bytes / 1e9:.3f} GB), decode {k.decode_ms_per_step:.3f} ms/step ({k.decode_ms_per_step / d_bound:.2f}x "
+        f"its bound {d_bound:.3f} ms: {d_bytes / 1e9:.3f} GB at {HBM_BYTES_PER_S / 1e12:.2f} TB/s), "
+        f"{k.tokens_per_s:.1f} tok/s, peak {peak:.3f} GB allocated, page table {k.pages_used}/{k.pages_total} used, "
+        f"{k.pages_used_after_release} after release, launches {got}")
+    expect = {fn.__name__: 0 for fn in counted}
+    expect["flash_attention"] = cfg.n_enc_layers + cfg.n_layers
+    if got != expect:
+        raise AssertionError(f"{WHISPER_SERVE_PATH}: kernel launches {got} != {expect} (one flash_attention per "
+                             "encoder and decoder layer in the prefill, none in decode)")
+    if not (torch.equal(k.prompts, prompts) and torch.equal(k.frames, frames)):
+        raise AssertionError(f"{WHISPER_SERVE_PATH}: serve's prompts or frames are not the draws of PRNGKey(1)")
+    gap = float((k.logits[0] - prof_logits).abs().max())
+    if gap > tol:
+        raise AssertionError(f"{WHISPER_SERVE_PATH}: prefill logits {gap} from the profiled prefill's > {tol}")
+
+    t = serve(cfg, **WHISPER_SERVE, seed=0, device="cuda", plane="torch", params=params)
+    log(f"main path {WHISPER_SERVE_PATH} (torch plane): prefill {t.prefill_ms:.3f} ms, decode "
+        f"{t.decode_ms_per_step:.3f} ms/step, {t.tokens_per_s:.1f} tok/s")
+    gap = float((k.logits[0] - t.logits[0]).abs().max())
+    if gap > tol:
+        raise AssertionError(f"{WHISPER_SERVE_PATH}: prefill logits of the planes differ by {gap} > {tol}")
+    m = margins(t.logits)
+    for b in range(B):
+        n = decided_steps(m[:, b].tolist(), tol)
+        if k.tokens[b, :n].tolist() != t.tokens[b, :n].tolist():
+            raise AssertionError(f"{WHISPER_SERVE_PATH}: request {b}: greedy tokens differ within the first {n} steps")
+        log(f"  request {b}: tokens equal over the {n} decided steps of {G} "
+            f"({int((k.tokens[b] == t.tokens[b]).sum())} equal in all)")
+    log(f"{WHISPER_SERVE_PATH}: prefill logits of the planes within {gap:.3e} (tolerance {tol}); logits std "
+        f"{float(k.logits[0].std()):.3f}")
+    del params, k, t, prof_logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    return got
+
+
 # the LM training main path: stablelm-1.6b at full width and depth, float32, AdamW, remat "full"
 TRAIN = dict(batch=4, seq=2048, steps=5)
 TRAIN_PATH = "train/stablelm-1.6b"
@@ -2210,6 +2428,14 @@ def main() -> int:
     ).stdout.strip()
     log(card)
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, device 0: {torch.cuda.get_device_name(0)}")
+    walls, t_lap = {}, time.perf_counter()
+
+    def lap(name):
+        """Record the wall seconds since the last lap under ``name``."""
+        nonlocal t_lap
+        now = time.perf_counter()
+        walls[name] = round(now - t_lap, 1)
+        t_lap = now
 
     t0 = time.perf_counter()
     build_logs = _build.build()
@@ -2218,6 +2444,7 @@ def main() -> int:
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line or "error" in line.lower():
                 log(f"  {name}: {line.strip()}")
+    lap("build")
 
     kernels = phase_kernels()
     phase_shard_kernels(torch.Generator().manual_seed(1), kernels)
@@ -2226,6 +2453,7 @@ def main() -> int:
             phase_profile(protocol, workload, codes)
         phase_profile(protocol, workload, (63,), devices=NODE_DEVICES)
     phase_profile("nowait", "smallbank", tuple(range(64)))
+    lap("kernels and profiles")
 
     launches = {k["name"]: {} for k in kernels}
     configs_per_s = {}
@@ -2260,6 +2488,7 @@ def main() -> int:
         if golden["spec"] != {"protocol": protocol, "workload": workload, "configs": [{"hybrid": c} for c in CODES]}:
             raise AssertionError(f"{golden_file} holds another spec: {golden['spec']}")
 
+    lap("rcc main paths")
     # configs per second at G = 1 (hybrid 63 alone) and G = 64 (the 64-code sweep)
     res1, got = counted_run(main_path_spec("nowait", "smallbank", "kernel", (63,)), counted)
     n_ticks = check_launches(ONE_PATH, "nowait", res1, got)
@@ -2275,30 +2504,42 @@ def main() -> int:
     configs_per_s["nowait/smallbank G=64 kernel"] = 64 / res64.wall_s
     log("configs_per_s: " + json.dumps(configs_per_s))
 
+    lap("configs per second")
     for name, n in phase_calvin(counted).items():
         launches[name][CALVIN_PATH] = n
+    lap("calvin")
 
     # the node-sharded layouts: four node shards on the one card
     for path, got in phase_node(counted).items():
         for name, n in got.items():
             launches[name][path] = n
 
+    lap("node layouts")
     # phase 7: the LM serving path (stablelm-1.6b at full width)
     for name, n in phase_serve(counted).items():
         launches[name][SERVE_PATH] = n
 
+    lap("serve stablelm")
     # the MoE serving path (llama4-scout-17b-a16e at full width, 6 layers)
     for name, n in phase_serve_moe(counted).items():
         launches[name][MOE_SERVE_PATH] = n
 
+    lap("serve moe")
     # the SSM serving path (falcon-mamba-7b at full width and depth)
     for name, n in phase_serve_ssm(counted).items():
         launches[name][SSM_SERVE_PATH] = n
 
+    lap("serve ssm")
     # the hybrid serving path (recurrentgemma-2b at full width and depth)
     for name, n in phase_serve_hybrid(counted).items():
         launches[name][HYBRID_SERVE_PATH] = n
 
+    lap("serve hybrid")
+    # the encoder-decoder serving path (whisper-small at full width and depth)
+    for name, n in phase_serve_whisper(counted).items():
+        launches[name][WHISPER_SERVE_PATH] = n
+
+    lap("serve whisper")
     # phase 8: the LM training path (stablelm-1.6b at full width and depth)
     for name, n in phase_train(counted).items():
         launches[name][TRAIN_PATH] = n
@@ -2314,6 +2555,8 @@ def main() -> int:
         lib = [(n, r) for n, r in weighted if r.get("library_ms") is not None]
         k.update({key: mix(lib)[key] if lib else None for key in ("library_ms", "library_host_ms")})
         k["ms_library_paths"] = mix(lib)["ms"] if lib else None
+    lap("train")
+    log("phase walls (s): " + json.dumps(walls))
     log(card)  # again, so that the card and its power limit stand beside the numbers in a tail of the output
     log(f"smoke wall: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))

@@ -2,9 +2,10 @@
 
 Only the architectures whose families the port runs are listed: the dense
 decoder stablelm-1.6b, the MoE decoders llama4-scout-17b-a16e and
-kimi-k2-1t-a32b, the Mamba-1 SSM falcon-mamba-7b and the RG-LRU +
-local-attention hybrid recurrentgemma-2b.  The other configs wait for
-their families (ROADMAP.md A.12).
+kimi-k2-1t-a32b, the Mamba-1 SSM falcon-mamba-7b, the RG-LRU +
+local-attention hybrid recurrentgemma-2b and the audio encoder-decoder
+whisper-small.  The other configs wait for their families (ROADMAP.md
+A.12).
 """
 from __future__ import annotations
 
@@ -20,6 +21,7 @@ ARCH_MODULES = {
     "kimi-k2-1t-a32b": "kimi_k2_1t_a32b",
     "falcon-mamba-7b": "falcon_mamba_7b",
     "recurrentgemma-2b": "recurrentgemma_2b",
+    "whisper-small": "whisper_small",
 }
 
 ARCH_IDS = tuple(ARCH_MODULES)

@@ -8,7 +8,9 @@ JAX mid-run state and to compare the two key by key.
 ``lm_params_from_numpy`` builds the port's LM from the reference's parameter
 tree (nested dicts of arrays, layers stacked on a leading axis), and
 ``lm_params_to_numpy`` gives that tree back: the two are a name map
-(``layers/attn/wq[l]`` is ``layers.{l}.attn.wq``; a hybrid's
+(``layers/attn/wq[l]`` is ``layers.{l}.attn.wq``, and an
+encoder-decoder's ``enc_layers/…[l]`` and ``dec_layers/…[l]`` are
+``enc_layers.{l}.…`` and ``dec_layers.{l}.…``; a hybrid's
 ``groups/g{j}_{kind}/…[l]`` is ``layers.{P l + j}.…`` for a pattern of
 length P over n_full groups, and its ``tail[i]/…``, a list entry with no
 layer axis, is ``layers.{P n_full + i}.…``).  ``stack_named`` and
@@ -56,24 +58,28 @@ def _tensor(a, dev) -> torch.Tensor:
     return torch.tensor(np.asarray(a), device=dev)
 
 
-def _name(layer: int, path) -> str:
-    return ".".join(("layers", str(layer)) + tuple(path))
+def _name(layer: int, path, stack: str = "layers") -> str:
+    return ".".join((stack, str(layer)) + tuple(path))
+
+
+STACKS = ("layers", "enc_layers", "dec_layers")  # the reference's trees of layers stacked on a leading axis
 
 
 def unstack_tree(tree: Dict, n_layers: int, device=None) -> Dict[str, torch.Tensor]:
     """A reference tree (layers stacked, or a hybrid's groups and tail) ->
-    the port's flat name map."""
+    the port's flat name map.  ``n_layers`` is the decoder's depth (an
+    encoder's stack is taken at its own)."""
     out = {}
     P = len(tree.get("groups", {}))
     n_full = (n_layers - len(tree.get("tail", []))) // max(P, 1)
     for path, arr in _leaves(tree):
-        if path[0] in ("layers", "groups"):
-            stacked = n_layers if path[0] == "layers" else n_full
+        if path[0] in STACKS + ("groups",):
+            stacked = {"groups": n_full, "enc_layers": arr.shape[0]}.get(path[0], n_layers)
             if arr.shape[0] != stacked:
                 raise ValueError(f"{'/'.join(map(str, path))}: {arr.shape[0]} layers, config has {n_layers}")
             for i in range(stacked):
-                if path[0] == "layers":
-                    out[_name(i, path[1:])] = _tensor(arr[i], device)
+                if path[0] in STACKS:
+                    out[_name(i, path[1:], path[0])] = _tensor(arr[i], device)
                 else:  # groups/g{j}_{kind}/...
                     out[_name(P * i + int(path[1][1:].split("_")[0]), path[2:])] = _tensor(arr[i], device)
         elif path[0] == "tail":
@@ -95,13 +101,17 @@ def stack_named(named: Dict[str, torch.Tensor], cfg: Optional[ArchConfig] = None
     hybrid ``cfg``'s in groups and a tail), detached tensors on the map's
     devices."""
     tree: Dict = {}
-    layers: Dict[int, Dict] = {}  # layer -> {path below it: tensor}
+    stacks: Dict[str, Dict[int, Dict]] = {}  # stack -> layer -> {path below it: tensor}
     for name, t in named.items():
         parts = name.split(".")
-        if parts[0] == "layers":
-            layers.setdefault(int(parts[1]), {})[tuple(parts[2:])] = t.detach()
+        if parts[0] in STACKS:
+            stacks.setdefault(parts[0], {}).setdefault(int(parts[1]), {})[tuple(parts[2:])] = t.detach()
         else:
             _put(tree, parts, t.detach())
+    layers = stacks.pop("layers", None)
+    for stack, by_layer in stacks.items():
+        for path in by_layer[0]:
+            _put(tree, (stack,) + path, torch.stack([by_layer[i][path] for i in range(len(by_layer))]))
     if not layers:
         return tree
     if cfg is None or not cfg.is_hybrid:

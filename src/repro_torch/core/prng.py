@@ -9,9 +9,9 @@ follows jax 0.9.0's sources in its default ``jax_threefry_partitionable``
 mode (``jax/_src/prng.py``: ``threefry2x32`` lowering, ``threefry_seed``,
 ``iota_2x32_shape``, ``_threefry_split_foldlike``, ``_threefry_fold_in``,
 ``_threefry_random_bits_partitionable``; ``jax/_src/random.py``:
-``_uniform``, ``_randint``, ``_truncated_normal``; XLA's float32
-``erf_inv``, ``log``, ``exp`` and ``pow``).  The legacy mode (flag ``False``) is not
-implemented.
+``_uniform``, ``_randint``, ``_truncated_normal``, ``_normal_real``; XLA's
+float32 ``erf_inv``, ``log``, ``exp``, ``pow``, ``sin`` and ``cos``).  The
+legacy mode (flag ``False``) is not implemented.
 
 A key is an int64 tensor ``(..., 2)`` holding two uint32 words; every
 function is vectorised over the leading batch dimensions.  torch has no
@@ -249,13 +249,16 @@ _EXP2F_SHIFT = float.fromhex("0x1.8p+47")  # 0x1.8p52 / 32: adding it rounds to 
 _EXP2F_SHIFT_BITS = int(np.float64(_EXP2F_SHIFT).view(np.int64))
 
 
-def powf(x: torch.Tensor, y: float) -> torch.Tensor:
+def powf(x, y) -> torch.Tensor:
     """XLA's CPU float32 ``x ** y`` for positive normal float32 ``x`` and a
     float32 exponent ``y`` whose ``y * log2(x)`` stays within (-126, 126):
-    glibc's ``powf``, step for step.  A float64 ``pow`` rounded to float32
-    differs from it (its error reaches 0.82 ulp) on 3 of recurrentgemma's
-    2560 RG-LRU ``lam`` draws."""
-    dev = x.device
+    glibc's ``powf``, step for step.  Either argument may be a Python float
+    (rounded to float32) and the other a float32 tensor; they broadcast.  A
+    float64 ``pow`` rounded to float32 differs from it (its error reaches
+    0.82 ulp) on 3 of recurrentgemma's 2560 RG-LRU ``lam`` draws."""
+    dev = (x if torch.is_tensor(x) else y).device
+    x = torch.as_tensor(x, dtype=torch.float32, device=dev)
+    yd = y.double() if torch.is_tensor(y) else float(np.float32(y))
     ix = x.contiguous().view(torch.int32).to(torch.int64)
     tmp = ix - 0x3F330000
     i = (tmp >> 19) & 15
@@ -272,7 +275,7 @@ def powf(x: torch.Tensor, y: float) -> torch.Tensor:
     q = A[2] * r + A[3]
     r4 = r2 * r2
     q = q * r2 + (A[4] * r + y0)
-    xd = (p * r4 + q) * float(np.float32(y))
+    xd = (p * r4 + q) * yd
     # exp2(xd) = 2**(k/32) * 2**r, r in [-1/64, 1/64]
     kd = xd + _EXP2F_SHIFT
     r = xd - (kd - _EXP2F_SHIFT)
@@ -280,6 +283,83 @@ def powf(x: torch.Tensor, y: float) -> torch.Tensor:
     s = (torch.tensor(_EXP2F_TAB, dtype=torch.int64, device=dev)[k & 31] + k * 2**47).view(torch.float64)
     C = _EXP2F_POLY
     return (((C[0] * r + C[1]) * (r * r) + (C[2] * r + 1.0)) * s).float()
+
+
+# XLA's CPU float32 ``sin`` and ``cos`` call the C library's ``sinf`` and
+# ``cosf``; glibc's (2.28 on, from Arm's optimized-routines) work in float64:
+# the signs of the quadrants, 2/pi * 2**24, pi/2, then the cosine's
+# coefficients c0..c4 and the sine's s1..s3, with a second set whose cosine is
+# negated (the quadrants n with n & 2); and 4/pi to 192 bits for large
+# arguments, 8 new bits an entry
+_SINCOSF_TAB = tuple(tuple(float.fromhex(c) for c in row) for row in (
+    ("0x1p+0", "-0x1p+0", "-0x1p+0", "0x1p+0", "0x1.45f306dc9c883p+23", "0x1.921fb54442d18p+0", "0x1p+0",
+     "-0x1.ffffffd0c621cp-2", "0x1.55553e1068f19p-5", "-0x1.6c087e89a359dp-10", "0x1.99343027bf8c3p-16",
+     "-0x1.555545995a603p-3", "0x1.1107605230bc4p-7", "-0x1.994eb3774cf24p-13"),
+    ("0x1p+0", "-0x1p+0", "-0x1p+0", "0x1p+0", "0x1.45f306dc9c883p+23", "0x1.921fb54442d18p+0", "-0x1p+0",
+     "0x1.ffffffd0c621cp-2", "-0x1.55553e1068f19p-5", "0x1.6c087e89a359dp-10", "-0x1.99343027bf8c3p-16",
+     "-0x1.555545995a603p-3", "0x1.1107605230bc4p-7", "-0x1.994eb3774cf24p-13")))
+_INV_PIO4 = (0xA2, 0xA2F9, 0xA2F983, 0xA2F9836E, 0xF9836E4E, 0x836E4E44, 0x6E4E4415, 0x4E441529, 0x441529FC,
+             0x1529FC27, 0x29FC2757, 0xFC2757D1, 0x2757D1F5, 0x57D1F534, 0xD1F534DD, 0xF534DDC0, 0x34DDC0DB,
+             0xDDC0DB62, 0xC0DB6295, 0xDB629599, 0x6295993C, 0x95993C43, 0x993C4390, 0x3C439041)
+_PI63 = float.fromhex("0x1.921fb54442d18p-62")  # 2 pi / 2**64
+
+
+def _sincosf(y: torch.Tensor, cos: bool) -> torch.Tensor:
+    """glibc's ``sinf`` (``cos=False``) or ``cosf`` of finite float32 ``y``,
+    step for step in float64 (its fused multiply-adds, if any, round once
+    where these round twice: that moves the float32 result only if the
+    float64 one lies within an ulp of float64 of a float32 rounding point)."""
+    dev = y.device
+    y = y.float().contiguous()
+    xi = y.view(torch.int32).to(torch.int64) & _M
+    top12 = (xi >> 20) & 0x7FF
+    x = y.double()
+    tab = torch.tensor(_SINCOSF_TAB, dtype=torch.float64, device=dev)
+    # |y| < 120: n = round(y 2/pi) through a 24-bit shift, r = y - n pi/2
+    nf = (((x * tab[0, 4]).to(torch.int32).to(torch.int64) + 0x800000) >> 24)
+    r_fast = x - nf.double() * tab[0, 5]
+    # larger: y's 24-bit mantissa times 4/pi's bits from y's exponent on, a 2.62 fixed-point remainder
+    arr = torch.tensor(_INV_PIO4, dtype=torch.int64, device=dev)
+    j = (xi >> 26) & 15
+    m = ((xi & 0xFFFFFF) | 0x800000) << ((xi >> 23) & 7)
+    res0 = (m * arr[j]) & _M
+    res1 = m * arr[j + 4]
+    res2 = m * arr[j + 8]
+    res0 = ((res2 >> 32) & _M) | (res0 << 32)
+    res0 = res0 + res1
+    nl = ((res0 + (1 << 61)) >> 62) & 3
+    r_large = (res0 - (nl << 62)).double() * _PI63
+    sign = xi >> 31
+    small, fast = top12 < 0x3F4, top12 < 0x42F  # |y| < 0.75 and |y| < 120, as glibc's abstop12 tests them
+    # the quadrant picks the polynomial; with y's sign added (large |y|) it picks the sign and the set
+    quad = torch.where(small, 0, torch.where(fast, nf, nl))
+    n = torch.where(fast, quad, nl + sign)
+    r = torch.where(small, x, torch.where(fast, r_fast, r_large))
+    p = tab[(n & 2) >> 1]
+    s = torch.where(small, 1.0, p[..., 0:4].gather(-1, (n & 3)[..., None])[..., 0])
+    if cos:
+        quad = quad ^ 1
+    r = r * s
+    r2 = r * r
+    # the sine polynomial on even quadrants, the cosine on odd ones
+    r3 = r * r2
+    sin_p = (r + r3 * p[..., 11]) + (r3 * r2) * (p[..., 12] + r2 * p[..., 13])
+    r4 = r2 * r2
+    cos_p = (p[..., 6] + r2 * p[..., 7]) + r4 * p[..., 8] + (r4 * r2) * (p[..., 9] + r2 * p[..., 10])
+    out = torch.where((quad & 1) == 1, cos_p, sin_p).float()
+    tiny = top12 < 0x398  # |y| < 2**-12: sinf returns y, cosf 1
+    return torch.where(tiny, torch.ones_like(y) if cos else y, out)
+
+
+def sinf(y: torch.Tensor) -> torch.Tensor:
+    """XLA's CPU float32 ``sin`` (glibc's ``sinf``): ``torch.sin`` differs
+    from it by an ulp on some angles (0.5 % of ``tests/test_torch_whisper.py``'s grid)."""
+    return _sincosf(y, cos=False)
+
+
+def cosf(y: torch.Tensor) -> torch.Tensor:
+    """XLA's CPU float32 ``cos`` (glibc's ``cosf``)."""
+    return _sincosf(y, cos=True)
 
 
 def _xla_log1p(x: torch.Tensor) -> torch.Tensor:
@@ -304,7 +384,8 @@ def erf_inv(x: torch.Tensor) -> torch.Tensor:
     """
     w = -_xla_log1p(-(x * x))
     lt = w < 5.0
-    w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0)
+    # the square root correctly rounded, as XLA's: torch's float32 sqrt on the CPU is not everywhere
+    w = torch.where(lt, w - 2.5, torch.sqrt(w.double()).float() - 3.0)
 
     def coef(i):
         return torch.where(lt, _f32(_ERFINV_LT5[i]), _f32(_ERFINV_GE5[i]))
@@ -329,19 +410,35 @@ def truncated_normal(key, lower: float, upper: float, shape: Sequence[int], *, c
     element (``erf_inv``'s float64 multiply-adds round twice in rare cases).  The draws run ``chunk`` elements at a time, so a
     (100352, 2048) table needs no more than a few chunk-sized temporaries.
     """
-    shape = tuple(int(d) for d in shape)
-    n = math.prod(shape)
-    if n >= 2**32:
-        raise ValueError(f"truncated_normal: {n} elements need 64-bit counts, which are not implemented")
     sqrt2 = np.float32(np.sqrt(2))
     lo, hi = np.float32(lower), np.float32(upper)
     a, b = _erf32(lo / sqrt2), _erf32(hi / sqrt2)
     clip_lo = float(np.nextafter(lo, np.float32(np.inf)))
     clip_hi = float(np.nextafter(hi, np.float32(-np.inf)))
+    return _chunked_draw(key, shape, chunk, "truncated_normal", lambda bits: torch.clamp(
+        erf_inv(uniform_from_bits(bits, a, b)) * float(sqrt2), clip_lo, clip_hi))
+
+
+def _chunked_draw(key, shape, chunk: int, name: str, fn) -> torch.Tensor:
+    """float32 ``fn(bits)`` of one key's (2,) 32-bit draws over ``shape``,
+    ``chunk`` elements at a time."""
+    shape = tuple(int(d) for d in shape)
+    n = math.prod(shape)
+    if n >= 2**32:
+        raise ValueError(f"{name}: {n} elements need 64-bit counts, which are not implemented")
     out = torch.empty(n, dtype=torch.float32, device=key.device)
     for start in range(0, n, chunk):
         counts = torch.arange(start, min(n, start + chunk), dtype=torch.int64, device=key.device)
         y0, y1 = _hash_counts(key, counts)
-        u = uniform_from_bits(y0 ^ y1, a, b)
-        out[start : start + counts.numel()] = torch.clamp(erf_inv(u) * float(sqrt2), clip_lo, clip_hi)
+        out[start : start + counts.numel()] = fn(y0 ^ y1)
     return out.reshape(shape)
+
+
+def normal(key, shape: Sequence[int], *, chunk: int = 1 << 24) -> torch.Tensor:
+    """``jax.random.normal(key, shape, float32)`` for one key (2,), bit for
+    bit: the uniform on ``[nextafter(-1, 0), 1)`` from the key's 32-bit
+    draws, then ``sqrt2 * erf_inv(u)`` (XLA fuses neither step into
+    another).  The draws run ``chunk`` elements at a time."""
+    lo = float(np.nextafter(np.float32(-1), np.float32(0)))
+    sqrt2 = float(np.float32(np.sqrt(2)))
+    return _chunked_draw(key, shape, chunk, "normal", lambda bits: erf_inv(uniform_from_bits(bits, lo, 1.0)) * sqrt2)

@@ -20,12 +20,23 @@ for the hybrid (``--arch recurrentgemma-2b``): its attention is local,
 which no kernel takes, so both planes compute the same thing too, and its
 cache holds each RG-LRU layer's state and each attention layer's ring of
 its window's W slots, token p at slot p mod W.
+
+An encoder-decoder (``--arch whisper-small``) also takes each request's
+audio window: ``enc_seq_len`` frame embeddings from the reference's stub
+frontend, drawn as the reference's serve draws them, with
+``normal(PRNGKey(seed + 1))``, the prompts' key.  Prefill encodes them (the
+``flash_attention`` kernel, not causal, once per encoder layer on the
+``"kernel"`` plane) and caches each decoder layer's cross k/v; each decode
+step attends to all of them.
+
+    python -m repro_torch.launch.serve --arch whisper-small --no-reduced --batch 4 --prompt-len 224 --gen-len 224
 """
 from __future__ import annotations
 
 import argparse
 import time
 from dataclasses import dataclass
+from typing import Optional
 
 import torch
 
@@ -92,6 +103,7 @@ class ServeResult:
     pages_total: int
     pages_used_after_release: int
     plane: str
+    frames: Optional[torch.Tensor] = None  # (B, enc_seq_len, D) an encoder-decoder's audio frames
 
 
 def _sync(dev):
@@ -124,9 +136,12 @@ def serve(cfg: ArchConfig, *, batch: int = 4, prompt_len: int = 32, gen_len: int
     log(f"[serve] admitted {B} requests; page table used={used}/{pt.n_pages}")
 
     prompts = prng.randint(prng.prng_key(seed + 1, dev), (B, P), 0, cfg.vocab_size)
+    batch = {"tokens": prompts}
+    if cfg.encoder_decoder:
+        batch["frames"] = prng.normal(prng.prng_key(seed + 1, dev), (B, cfg.enc_seq_len, cfg.d_model)).to(dtype)
     _sync(dev)
     t0 = time.perf_counter()
-    logits, cache = lm_prefill(params, cfg, {"tokens": prompts}, pad_to=total, plane=plane)
+    logits, cache = lm_prefill(params, cfg, batch, pad_to=total, plane=plane)
     _sync(dev)
     prefill_ms = (time.perf_counter() - t0) * 1e3
     log(f"[serve] prefill {B}x{P} in {prefill_ms:.3f} ms")
@@ -152,7 +167,8 @@ def serve(cfg: ArchConfig, *, batch: int = 4, prompt_len: int = 32, gen_len: int
     step_logits = torch.stack(steps)
     if not bool(torch.isfinite(step_logits).all()) or seq.shape != (B, G):
         raise AssertionError("serve: non-finite logits or a wrong token shape")
-    return ServeResult(seq, step_logits, prompts, prefill_ms, step_ms, tok_s, used, pt.n_pages, pt.used, plane)
+    return ServeResult(seq, step_logits, prompts, prefill_ms, step_ms, tok_s, used, pt.n_pages, pt.used, plane,
+                       batch.get("frames"))
 
 
 def main(argv=None):

@@ -8,8 +8,9 @@ Weights come from ``init_lm`` at seed 0, batches from the synthetic
 pipeline at seed 0, the step from ``build_train_step`` (the config's
 optimizer, peak learning rate 3e-4 on the warmup-stable-decay schedule,
 as the reference's ``make_optimizer`` sets it), all through the
-fault-tolerant runner.  The reference also parses ``--lr`` and never uses
-it (ROADMAP.md C.7); the port leaves it out.  Runs on ``"cuda"`` unless
+fault-tolerant runner.  An encoder-decoder's batches also hold frames
+(``train.steps.frames_batch``, the reference's draw).  The reference also
+parses ``--lr`` and never uses it (ROADMAP.md C.7); the port leaves it out.  Runs on ``"cuda"`` unless
 ``--device cpu`` is given.
 """
 from __future__ import annotations
@@ -23,7 +24,7 @@ from repro_torch.core import prng
 from repro_torch.data.pipeline import make_pipeline
 from repro_torch.ft.runner import TrainRunner
 from repro_torch.models.lm import init_lm, resolve_device
-from repro_torch.train.steps import build_train_step
+from repro_torch.train.steps import build_train_step, frames_batch
 
 
 def parse_args(argv=None):
@@ -54,6 +55,12 @@ def main(argv=None):
         return params, optimizer.init(dict(params.named_parameters()))
 
     init_data, next_batch = make_pipeline(cfg.vocab_size, args.batch, args.seq, device=dev)
+    if cfg.encoder_decoder:
+        def next_batch(ds, _tokens=next_batch):
+            ds, b = _tokens(ds)
+            b["frames"] = frames_batch(cfg, args.batch, ds.step, dev)
+            return ds, b
+
     runner = TrainRunner(train_step, init_state, next_batch, init_data,
                          ckpt_dir=args.ckpt, ckpt_every=args.ckpt_every, fail_at=args.fail_at)
     out = runner.run(args.steps)

@@ -10,9 +10,11 @@ on the ``"torch"`` plane).  Training takes the reference's XLA route,
 which autograd differentiates (the kernel has no backward).  Decode
 attention is plain PyTorch, as in the reference, which has no decode
 kernel.  Local attention takes the reference's XLA route on every plane
-(``models.lm._attention``): no kernel takes a window.  The
-sequence-sharded decode branch and the cross-attention paths wait
-(ROADMAP.md A.12).
+(``models.lm._attention``): no kernel takes a window.  So does an
+encoder-decoder's cross-attention (``flash_attention_xla`` over the
+encoder's states in the forward and prefill, ``decode_attn_cached``
+without a write over all of them in decode), as in the reference.  The
+sequence-sharded decode branch waits (ROADMAP.md A.12).
 """
 from __future__ import annotations
 
@@ -34,7 +36,10 @@ class Attention(ParamSet):
     NAMES = ("wq", "wk", "wv", "wo", "bq", "bk", "bv", "bo")
 
 
-def init_attn(key, cfg: ArchConfig, dtype=torch.float32) -> Attention:
+def init_attn(key, cfg: ArchConfig, dtype=torch.float32, cross: bool = False) -> Attention:
+    """The reference's draw, which ignores ``cross``: a decoder layer's
+    cross-attention drawn from its self-attention's key holds the same
+    values (ROADMAP.md C.13), in tensors of its own."""
     D, H, KV, Dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     p = {
         "wq": dense_init(key, "wq", (D, H * Dh), dtype),
@@ -51,18 +56,21 @@ def init_attn(key, cfg: ArchConfig, dtype=torch.float32) -> Attention:
     return Attention(p)
 
 
-def _project_qkv(params: Attention, cfg: ArchConfig, x):
-    """x (B,S,D) -> q (B,S,H,Dh), k/v (B,S,KV,Dh)."""
+def _project_qkv(params: Attention, cfg: ArchConfig, x, kv_x=None):
+    """x (B,S,D) -> q (B,S,H,Dh), k/v (B,S_kv,KV,Dh) of ``kv_x`` (B,S_kv,D),
+    x itself unless given (a cross-attention's encoder states)."""
     B, S, _ = x.shape
     H, KV, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    kv_x = x if kv_x is None else kv_x
     q = x @ params.wq.to(x.dtype)
-    k = x @ params.wk.to(x.dtype)
-    v = x @ params.wv.to(x.dtype)
+    k = kv_x @ params.wk.to(x.dtype)
+    v = kv_x @ params.wv.to(x.dtype)
     if params.bq is not None:
         q = q + params.bq.to(x.dtype)
         k = k + params.bk.to(x.dtype)
         v = v + params.bv.to(x.dtype)
-    return q.reshape(B, S, H, Dh), k.reshape(B, S, KV, Dh), v.reshape(B, S, KV, Dh)
+    S_kv = kv_x.shape[1]
+    return q.reshape(B, S, H, Dh), k.reshape(B, S_kv, KV, Dh), v.reshape(B, S_kv, KV, Dh)
 
 
 def _out_proj(params: Attention, x_attn, dtype):
@@ -187,20 +195,23 @@ def _gqa_partials(q, k_cache, v_cache):
 def decode_attn_cached(q, k_new, v_new, k_cache, v_cache, cache_len: int, *, ring: bool = False):
     """One-token attention against an unsharded KV cache.
 
-    q (B,H,Dh) with rope applied; k_new/v_new (B,KV,Dh); k/v_cache
+    q (B,H,Dh) with rope applied; k_new/v_new (B,KV,Dh), or None for no
+    write (a cross-attention over the encoder's cached states); k/v_cache
     (B,S,KV,Dh); ``cache_len`` the number of tokens before this one (a
     Python int).  Writes (k_new, v_new) at slot ``cache_len`` (``cache_len
     mod S`` for a window's ``ring``) **in place**, saving the reference's
     copy of the cache, and attends over the valid entries, the first
-    ``min(cache_len + 1, S)`` (those the reference leaves unmasked).
+    ``min(cache_len + 1, S)`` (those the reference leaves unmasked; the
+    first ``min(cache_len, S)`` without a write).
     Returns (out (B,H,Dh), k_cache, v_cache).
     """
     B, S, KV, Dh = k_cache.shape
     H = q.shape[1]
-    slot = cache_len % S if ring else min(max(cache_len, 0), S - 1)
-    k_cache[:, slot] = k_new
-    v_cache[:, slot] = v_new
-    n_valid = min(cache_len + 1, S)
+    if k_new is not None:
+        slot = cache_len % S if ring else min(max(cache_len, 0), S - 1)
+        k_cache[:, slot] = k_new
+        v_cache[:, slot] = v_new
+    n_valid = min(cache_len + (k_new is not None), S)
     num, den, _ = _gqa_partials(q.reshape(B, KV, H // KV, Dh), k_cache[:, :n_valid], v_cache[:, :n_valid])
     out = num / torch.clamp(den, min=1e-30)[..., None]
     return out.reshape(B, H, Dh).to(q.dtype), k_cache, v_cache

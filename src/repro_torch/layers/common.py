@@ -2,8 +2,8 @@
 ``repro.layers.common``.
 
 A norm's parameters live in a :class:`Norm` module whose parameter names
-are the reference's keys (``scale``, ``bias``).  ``apply_mrope`` and
-``sinusoidal_positions`` wait for qwen2-vl and whisper (ROADMAP.md A.12).
+are the reference's keys (``scale``, ``bias``).  ``apply_mrope`` waits
+for qwen2-vl (ROADMAP.md A.12.7).
 """
 from __future__ import annotations
 
@@ -11,6 +11,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.core import prng
 from repro_torch.sharding import ones_init, zeros_init
 
 NORMS = ("rmsnorm", "layernorm", "layernorm_nobias")
@@ -103,3 +104,26 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, rope_pct: float, theta:
     x1, x2, xp = x[..., : rot // 2], x[..., rot // 2 : rot], x[..., rot:]
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return torch.cat([out.to(x.dtype), xp], dim=-1)
+
+
+def sinusoid_freqs(d: int, device=None) -> torch.Tensor:
+    """(d/2,) float32 ``1 / 10000 ** (2i / d)`` as the reference computes it
+    under ``jit``, where XLA rewrites ``1 / pow(b, e)`` into ``pow(b, -e)``
+    (eagerly, its ``1 /`` moves a third of the bands by an ulp): glibc's
+    ``powf`` (``prng.powf``), XLA's CPU ``pow``.  ``torch.pow`` misses a
+    band, and one ulp of a band's frequency moves its angle at position 1499
+    by about 1e-4."""
+    return prng.powf(10_000.0, -(torch.arange(0, d, 2, dtype=torch.float32, device=device) / d))
+
+
+def sinusoid_at(positions: torch.Tensor, d: int) -> torch.Tensor:
+    """(..., d) ``[sin(p f), cos(p f)]`` of float32 positions (...), with
+    XLA's CPU ``sin`` and ``cos`` (glibc's, ``prng.sinf``/``cosf``)."""
+    ang = positions[..., None] * sinusoid_freqs(d, positions.device)
+    return torch.cat([prng.sinf(ang), prng.cosf(ang)], dim=-1)
+
+
+def sinusoidal_positions(n_pos: int, d: int, device=None) -> torch.Tensor:
+    """Whisper-style fixed sinusoidal embeddings (n_pos, d), float32: the
+    reference's table under ``jit``, bit for bit."""
+    return sinusoid_at(torch.arange(n_pos, dtype=torch.float32, device=device), d)

@@ -1,6 +1,7 @@
-"""Prefill + single-token decode with a KV, SSM-state or hybrid cache (port
-of ``repro.models.decode``: attention stacks with a dense MLP or MoE FFN,
-Mamba-1 SSM stacks, and the hybrid's RG-LRU and local-attention cycle).
+"""Prefill + single-token decode with a KV, SSM-state, hybrid or
+encoder-decoder cache (port of ``repro.models.decode``: attention stacks
+with a dense MLP or MoE FFN, Mamba-1 SSM stacks, the hybrid's RG-LRU and
+local-attention cycle, and the audio encoder-decoder).
 
 Cache layout, as the reference's: ``{"len": int, "layers": {...}}`` with
 ``len`` the number of tokens already in the cache (a Python int here, a
@@ -13,6 +14,10 @@ attention layer's entry there is a ring of min(W, s_max) slots for its
 window W: decode writes token p at slot p mod W, and prefill leaves the
 window's last tokens where decode expects them (``lm.write_kv``); an RG-LRU
 layer's is ``{"h": (B, rnn_width) float32, "conv": (B, K-1, rnn_width)}``.
+An encoder-decoder's is ``{"len", "self": {"k", "v"}, "cross_k",
+"cross_v"}``: its decoder's self k/v (L,B,S,KV,Dh) and each decoder layer's
+k and v of the encoder's states (L,B,enc_seq_len,KV,Dh), which prefill
+writes and decode only reads.
 Unlike the reference, which is functional, the port writes into the cache's
 arrays **in place**: prefill fills a cache allocated once at its padded
 size (no per-layer pad and no stack copy), and each decode step writes its
@@ -28,13 +33,13 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops
 from repro_torch.layers import attention as attn_lib
-from repro_torch.layers.common import apply_norm
+from repro_torch.layers.common import apply_norm, sinusoid_at
 from repro_torch.layers.mlp import apply_mlp
 from repro_torch.layers.rglru import apply_rglru_step
 from repro_torch.layers.ssm import apply_ssm_step
 from repro_torch.models.lm import (
-    LM, _attn_in, _block_full, _block_out, _rope, attn_window, check_ported, default_positions, embed_tokens,
-    logits_fn,
+    LM, _attn_in, _block_full, _block_out, _rope, _run_decoder_encdec, attn_window, check_ported, default_positions,
+    embed_tokens, encode_audio, logits_fn,
 )
 
 
@@ -55,8 +60,13 @@ def init_cache(cfg: ArchConfig, batch: int, s_max: int, dtype=torch.float32, dev
     or for an SSM stack zeros h (L, batch, di, N) float32 and conv
     (L, batch, K-1, di) (``s_max`` unused); for a hybrid the reference's
     groups and tail (the module's docstring), each attention layer a ring
-    of min(W, s_max) slots."""
+    of min(W, s_max) slots; for an encoder-decoder its decoder's self k/v
+    and the cross k/v of ``cfg.enc_seq_len`` frames a layer."""
     check_ported(cfg)
+    if cfg.encoder_decoder:
+        cross = _entry(cfg, "attn", cfg.n_layers, batch, cfg.enc_seq_len, dtype, device)
+        return {"len": 0, "self": _entry(cfg, "attn", cfg.n_layers, batch, s_max, dtype, device),
+                "cross_k": cross["k"], "cross_v": cross["v"]}
     if not cfg.is_hybrid:
         kind = "ssm" if cfg.is_ssm else "attn"
         return {"len": 0, "layers": _entry(cfg, kind, cfg.n_layers, batch, s_max, dtype, device)}
@@ -70,7 +80,11 @@ def init_cache(cfg: ArchConfig, batch: int, s_max: int, dtype=torch.float32, dev
 
 
 def layer_caches(cfg: ArchConfig, cache: Dict) -> List[Dict[str, torch.Tensor]]:
-    """Each layer's views into the cache's arrays, in layer order."""
+    """Each layer's views into the cache's arrays, in layer order (an
+    encoder-decoder's: ``k``, ``v``, ``xk``, ``xv``)."""
+    if cfg.encoder_decoder:
+        return [{"k": cache["self"]["k"][i], "v": cache["self"]["v"][i], "xk": cache["cross_k"][i],
+                 "xv": cache["cross_v"][i]} for i in range(cfg.n_layers)]
     if not cfg.is_hybrid:
         return [{name: t[i] for name, t in cache["layers"].items()} for i in range(cfg.n_layers)]
     pat = cfg.block_pattern
@@ -91,14 +105,23 @@ def lm_prefill(params: LM, cfg: ArchConfig, batch, pad_to: Optional[int] = None,
     attention runs through ``ops.attention_op`` (the ``flash_attention``
     kernel on the ``"kernel"`` plane: one launch per layer); an SSM stack,
     and a hybrid, whose local attention no kernel takes, compute the same
-    on both planes.
+    on both planes.  An encoder-decoder encodes ``batch["frames"]`` (one
+    launch per encoder layer), then runs its decoder's layers, which write
+    their self and cross entries: its decoder's self-attention goes through
+    ``attention_op`` too, where the reference's prefill takes its XLA route.
     """
     tokens = batch["tokens"]
     B, S = tokens.shape
+    x = embed_tokens(params, cfg, tokens)
+    if cfg.encoder_decoder:
+        enc = encode_audio(params, cfg, batch["frames"], plane=plane)
+        cache = init_cache(cfg, B, max(S, pad_to or 0), x.dtype, x.device)
+        x = _run_decoder_encdec(params, cfg, x, enc, plane=plane, caches=layer_caches(cfg, cache))
+        cache["len"] = S
+        return logits_fn(params, cfg, x[:, -1:])[:, 0], cache
     positions = batch.get("positions")
     if positions is None:
         positions = default_positions(tokens)
-    x = embed_tokens(params, cfg, tokens)
     cache = init_cache(cfg, B, max(S, pad_to or 0, attn_window(cfg)), x.dtype, x.device)
     for lp, kind, cl in zip(params.layers, cfg.layer_kinds(), layer_caches(cfg, cache)):
         x = _block_full(lp, cfg, kind, x, positions, plane=plane, cache_out=cl)
@@ -131,6 +154,25 @@ def _block_step(lp, cfg: ArchConfig, kind: str, x, cl: Dict, pos: int):
     return _attn_block_step(lp, cfg, x, cl["k"], cl["v"], pos)
 
 
+def _dec_block_step(lp, cfg: ArchConfig, x, cl: Dict, pos: int):
+    """One decoder layer of an encoder-decoder's decode step: self-attention
+    without rotary on its cache (written at ``pos``), cross-attention over
+    every cached frame (no write), the MLP. Returns x'."""
+    B = x.shape[0]
+    q, k, v = attn_lib._project_qkv(lp.attn, cfg, apply_norm(cfg.norm, lp.norm1, x))
+    out, _, _ = attn_lib.decode_attn_cached(q[:, 0], k[:, 0], v[:, 0], cl["k"], cl["v"], pos)
+    x = x + attn_lib._out_proj(lp.attn, out[:, None], x.dtype)
+    hx = apply_norm(cfg.norm, lp.norm_x, x)
+    qx = hx @ lp.xattn.wq.to(x.dtype)
+    if lp.xattn.bq is not None:
+        qx = qx + lp.xattn.bq.to(x.dtype)
+    xk = cl["xk"]
+    out, _, _ = attn_lib.decode_attn_cached(qx.reshape(B, cfg.n_heads, cfg.head_dim), None, None, xk, cl["xv"],
+                                            xk.shape[1])
+    x = x + attn_lib._out_proj(lp.xattn, out[:, None], x.dtype)
+    return x + apply_mlp(lp.mlp, cfg, apply_norm(cfg.norm, lp.norm2, x))
+
+
 def lm_decode_step(params: LM, cfg: ArchConfig, cache, batch):
     """One-token decode. batch: {"token": (B,) int}.
 
@@ -140,9 +182,20 @@ def lm_decode_step(params: LM, cfg: ArchConfig, cache, batch):
     capacity is that of T = B."""
     pos = int(cache["len"])
     x = embed_tokens(params, cfg, batch["token"][:, None])
-    for lp, kind, cl in zip(params.layers, cfg.layer_kinds(), layer_caches(cfg, cache)):
-        x = _block_step(lp, cfg, kind, x, cl, pos)
+    if cfg.encoder_decoder:
+        x = x + _encdec_pos(pos, cfg.d_model, x)
+        for lp, cl in zip(params.dec_layers, layer_caches(cfg, cache)):
+            x = _dec_block_step(lp, cfg, x, cl, pos)
+    else:
+        for lp, kind, cl in zip(params.layers, cfg.layer_kinds(), layer_caches(cfg, cache)):
+            x = _block_step(lp, cfg, kind, x, cl, pos)
     new_cache = dict(cache)
     new_cache["len"] = pos + 1
     logits = logits_fn(params, cfg, x)
     return logits[:, 0], new_cache
+
+
+def _encdec_pos(pos: int, d: int, x):
+    """The decoder's sinusoid at position ``pos`` (1, 1, d) in x's dtype,
+    the table's row ``pos`` bit for bit."""
+    return sinusoid_at(torch.tensor(float(pos), device=x.device), d).to(x.dtype)[None, None]

@@ -1,12 +1,13 @@
-"""The decoder LM (port of ``repro.models.lm``: attention stacks with a
-dense MLP or an MoE FFN, Mamba-1 SSM stacks, and the hybrid's cycle of
-RG-LRU and local-attention blocks).
+"""The LM (port of ``repro.models.lm``: attention stacks with a dense MLP
+or an MoE FFN, Mamba-1 SSM stacks, the hybrid's cycle of RG-LRU and
+local-attention blocks, and the audio encoder-decoder).
 
 Parameters are ``nn.Module``s whose names follow the reference's parameter
 tree, one module per layer where the reference stacks layers on a leading
 axis: ``layers.{l}.attn.wq`` is the reference's ``layers/attn/wq[l]`` (a
 hybrid's layer P l + j is its ``groups/g{j}_{kind}/…[l]`` for a pattern of
-length P, and its tail layers follow the groups), so ``convert`` is a name
+length P, and its tail layers follow the groups; an encoder-decoder's are
+``enc_layers.{l}.…`` and ``dec_layers.{l}.…``), so ``convert`` is a name
 map.  The functions mirror the reference's
 (``lm_apply(params, cfg, batch)``, without the sharding rules) and take a
 ``plane`` for attention: a kernel plane (``kernels.ops.attention_op``, for
@@ -32,7 +33,7 @@ from repro_torch.core import prng
 from repro_torch.kernels import ops
 from repro_torch.layers import attention as attn_lib
 from repro_torch.layers.attention import Attention
-from repro_torch.layers.common import Norm, apply_norm, apply_rope, init_norm
+from repro_torch.layers.common import Norm, apply_norm, apply_rope, init_norm, sinusoidal_positions
 from repro_torch.layers.mlp import MLP, apply_mlp, init_mlp
 from repro_torch.layers.moe import MoE, apply_moe, init_moe
 from repro_torch.layers.rglru import RGLRU, apply_rglru, init_rglru
@@ -59,8 +60,6 @@ def check_ported(cfg: ArchConfig) -> None:
     if cfg.is_hybrid and not set(cfg.block_pattern) <= set(HYBRID_KINDS):
         raise NotImplementedError(f"{cfg.name}: a hybrid pattern {cfg.block_pattern} of other kinds than "
                                   f"{HYBRID_KINDS} is not ported")
-    if cfg.encoder_decoder:
-        raise NotImplementedError(f"{cfg.name}: encoder-decoder is not ported yet (ROADMAP.md A.12.6)")
     if cfg.mrope_sections is not None or cfg.vision_stub:
         raise NotImplementedError(f"{cfg.name}: M-RoPE / vision is not ported yet (ROADMAP.md A.12.7)")
 
@@ -69,7 +68,9 @@ class Block(nn.Module):
     """One decoder layer: ``norm1``, ``attn``, ``norm2`` and the FFN under
     the reference's name, ``moe`` for an MoE config and ``mlp`` otherwise (a
     parallel block has one ``norm``); an SSM layer is ``norm`` and ``ssm``;
-    an RG-LRU layer ``norm1``, ``rglru``, ``norm2`` and ``mlp``."""
+    an RG-LRU layer ``norm1``, ``rglru``, ``norm2`` and ``mlp``; an
+    encoder-decoder's decoder layer ``norm1``, ``attn``, ``norm_x``,
+    ``xattn`` (its cross-attention), ``norm2`` and ``mlp``."""
 
     def __init__(self, parts: Dict[str, nn.Module]):
         super().__init__()
@@ -79,15 +80,23 @@ class Block(nn.Module):
 
 class LM(nn.Module):
     """``embed`` (V, D), ``final_norm``, ``lm_head`` (D, V) unless tied, and
-    ``layers``, one :class:`Block` each."""
+    ``layers``, one :class:`Block` each.  An encoder-decoder holds them as
+    ``dec_layers``, and its encoder as ``enc_layers`` and ``enc_norm`` (the
+    reference's tree has no ``layers`` there)."""
 
-    def __init__(self, cfg: ArchConfig, embed, final_norm: Norm, lm_head: Optional[torch.Tensor], layers: List[Block]):
+    def __init__(self, cfg: ArchConfig, embed, final_norm: Norm, lm_head: Optional[torch.Tensor], layers: List[Block],
+                 enc_layers: Optional[List[Block]] = None, enc_norm: Optional[Norm] = None):
         super().__init__()
         self.cfg = cfg
         self.embed = nn.Parameter(embed, requires_grad=False)
         self.final_norm = final_norm
         self.lm_head = None if lm_head is None else nn.Parameter(lm_head, requires_grad=False)
-        self.layers = nn.ModuleList(layers)
+        if cfg.encoder_decoder:
+            self.enc_layers = nn.ModuleList(enc_layers)
+            self.enc_norm = enc_norm
+            self.dec_layers = nn.ModuleList(layers)
+        else:
+            self.layers = nn.ModuleList(layers)
 
 
 # ---------------------------------------------------------------------------
@@ -117,12 +126,27 @@ def _init_layer(key, cfg: ArchConfig, kind: str, dtype) -> Block:
     return _block(cfg, norms, attn_lib.init_attn(key, cfg, dtype), ffn)
 
 
+def _init_dec_layer(key, cfg: ArchConfig, dtype) -> Block:
+    """An encoder-decoder's decoder layer.  The reference draws ``xattn``
+    from ``attn``'s key and names, so the two hold equal values (ROADMAP.md
+    C.13); here they are separate tensors, as the reference's two leaves
+    are, which part at the first optimizer step."""
+    norm = lambda: init_norm(cfg.norm, cfg.d_model, dtype, key.device)  # noqa: E731
+    return Block({"norm1": norm(), "attn": attn_lib.init_attn(key, cfg, dtype), "norm_x": norm(),
+                  "xattn": attn_lib.init_attn(key, cfg, dtype, cross=True), "norm2": norm(),
+                  "mlp": init_mlp(key, cfg, dtype)})
+
+
 def layer_keys(key, cfg: ArchConfig) -> torch.Tensor:
     """(L, 2): each layer's init key, as the reference's ``_stack_init``
     vmaps them: layer l's is ``split(name_key(key, "layers"), L)[l]``; a
     hybrid's layer P l + j (P the pattern's length) is
     ``split(name_key(key, f"grp{j}"), n_full)[l]`` and its tail layer i's
-    ``name_key(key, f"tail{i}")``."""
+    ``name_key(key, f"tail{i}")``; an encoder-decoder's decoder layer l's is
+    ``split(name_key(key, "dec"), L)[l]`` (its encoder layer l's,
+    ``split(name_key(key, "enc"), L_enc)[l]``, is drawn in ``init_lm``)."""
+    if cfg.encoder_decoder:
+        return prng.split(name_key(key, "dec"), cfg.n_layers)
     if not cfg.is_hybrid:
         return prng.split(name_key(key, "layers"), cfg.n_layers)
     P = len(cfg.block_pattern)
@@ -144,6 +168,10 @@ def init_lm(key, cfg: ArchConfig, dtype=torch.float32, *, device="cuda") -> LM:
     final_norm = init_norm(cfg.norm, D, dtype, dev)
     lm_head = None if cfg.tie_embeddings else dense_init(key, "lm_head", (D, V), dtype)
     keys = layer_keys(key, cfg)
+    if cfg.encoder_decoder:
+        enc = [_init_layer(k, cfg, "attn", dtype) for k in prng.split(name_key(key, "enc"), cfg.n_enc_layers)]
+        return LM(cfg, embed, final_norm, lm_head, [_init_dec_layer(k, cfg, dtype) for k in keys],
+                  enc, init_norm(cfg.norm, D, dtype, dev))
     layers = [_init_layer(keys[i], cfg, kind, dtype) for i, kind in enumerate(cfg.layer_kinds())]
     return LM(cfg, embed, final_norm, lm_head, layers)
 
@@ -159,6 +187,17 @@ def lm_from_state(cfg: ArchConfig, state: Dict[str, torch.Tensor]) -> LM:
     def norm(prefix):
         return Norm(cfg.norm, sub(prefix))
 
+    def attn_block(p):
+        names = ("norm",) if cfg.parallel_block else ("norm1", "norm2")
+        ffn = (MoE if cfg.is_moe else MLP)(sub(p + _ffn_name(cfg) + "."))
+        return _block(cfg, [norm(p + n + ".") for n in names], Attention(sub(p + "attn.")), ffn)
+
+    if cfg.encoder_decoder:
+        enc = [attn_block(f"enc_layers.{i}.") for i in range(cfg.n_enc_layers)]
+        dec = [Block({"norm1": norm(p + "norm1."), "attn": Attention(sub(p + "attn.")), "norm_x": norm(p + "norm_x."),
+                      "xattn": Attention(sub(p + "xattn.")), "norm2": norm(p + "norm2."), "mlp": MLP(sub(p + "mlp."))})
+               for p in (f"dec_layers.{i}." for i in range(cfg.n_layers))]
+        return LM(cfg, state["embed"], norm("final_norm."), state.get("lm_head"), dec, enc, norm("enc_norm."))
     layers = []
     for i, kind in enumerate(cfg.layer_kinds()):
         p = f"layers.{i}."
@@ -169,9 +208,7 @@ def lm_from_state(cfg: ArchConfig, state: Dict[str, torch.Tensor]) -> LM:
             layers.append(Block({"norm1": norm(p + "norm1."), "rglru": RGLRU(sub(p + "rglru.")),
                                  "norm2": norm(p + "norm2."), "mlp": MLP(sub(p + "mlp."))}))
             continue
-        names = ("norm",) if cfg.parallel_block else ("norm1", "norm2")
-        ffn = (MoE if cfg.is_moe else MLP)(sub(p + _ffn_name(cfg) + "."))
-        layers.append(_block(cfg, [norm(p + n + ".") for n in names], Attention(sub(p + "attn.")), ffn))
+        layers.append(attn_block(p))
     return LM(cfg, state["embed"], norm("final_norm."), state.get("lm_head"), layers)
 
 
@@ -209,21 +246,22 @@ def _block_out(lp: Block, cfg: ArchConfig, x, h, attn_out):
 TRAIN = "train"  # the attention route of training (``_attention``)
 
 
-def _attention(q, k, v, plane, window: int = 0):
-    """Causal attention on ``plane``; ``TRAIN`` takes the reference's route
-    without the Pallas kernel (``repro.models.lm._attn_full``):
-    ``naive_attention`` up to 512 tokens, ``flash_attention_xla`` above.
-    Local attention (``window``) takes the reference's route on every plane,
-    as its kernel takes no window: ``local_attention_xla`` past the window,
-    else ``naive_attention`` or ``flash_attention_xla`` masked to it."""
+def _attention(q, k, v, plane, window: int = 0, causal: bool = True):
+    """Self-attention on ``plane``, causal unless told (an encoder's is
+    not); ``TRAIN`` takes the reference's route without the Pallas kernel
+    (``repro.models.lm._attn_full``): ``naive_attention`` up to 512 tokens,
+    ``flash_attention_xla`` above.  Local attention (``window``) takes the
+    reference's route on every plane, as its kernel takes no window:
+    ``local_attention_xla`` past the window, else ``naive_attention`` or
+    ``flash_attention_xla`` masked to it."""
     S = q.shape[1]
     if window and S > window:
-        return attn_lib.local_attention_xla(q, k, v, window=window)
+        return attn_lib.local_attention_xla(q, k, v, window=window, causal=causal)
     if plane != TRAIN and not window:
-        return ops.attention_op(q, k, v, causal=True, plane=plane)
+        return ops.attention_op(q, k, v, causal=causal, plane=plane)
     if S <= 512:
-        return attn_lib.naive_attention(q, k, v, causal=True, window=window)
-    return attn_lib.flash_attention_xla(q, k, v, causal=True, window=window)
+        return attn_lib.naive_attention(q, k, v, causal=causal, window=window)
+    return attn_lib.flash_attention_xla(q, k, v, causal=causal, window=window)
 
 
 def write_kv(cache_out, k, v):
@@ -240,20 +278,22 @@ def write_kv(cache_out, k, v):
         cache_out[name][:, :r] = last[:, last.shape[1] - r :]
 
 
-def _attn_full(lp: Attention, cfg: ArchConfig, x, positions, *, plane=ops.AUTO, window: int = 0, cache_out=None):
-    """Causal self-attention over x (B,S,D), within ``window`` positions
-    when it is set.  With ``cache_out`` (this layer's (B, n, KV, Dh) cache
-    views, zeroed) the rotated k and v are written as ``write_kv`` places
-    them: that is prefill's cache entry (the reference pads each layer's
-    entry and stacks them; ``_pad_entry``)."""
+def _attn_full(lp: Attention, cfg: ArchConfig, x, positions, *, plane=ops.AUTO, window: int = 0, cache_out=None,
+               causal: bool = True, use_rope: bool = True):
+    """Self-attention over x (B,S,D), causal unless told, within ``window``
+    positions when it is set, rotated unless ``use_rope`` is False.  With
+    ``cache_out`` (this layer's (B, n, KV, Dh) cache views, zeroed) k and v
+    are written as ``write_kv`` places them: that is prefill's cache entry
+    (the reference pads each layer's entry and stacks them; ``_pad_entry``)."""
     q, k, v = attn_lib._project_qkv(lp, cfg, x)
-    q = _rope(cfg, q, positions)
-    k = _rope(cfg, k, positions)
+    if use_rope:
+        q = _rope(cfg, q, positions)
+        k = _rope(cfg, k, positions)
     if cache_out is not None:
         write_kv(cache_out, k, v)
     k = attn_lib.repeat_kv(k, cfg.n_rep)
     v = attn_lib.repeat_kv(v, cfg.n_rep)
-    return attn_lib._out_proj(lp, _attention(q, k, v, plane, window), x.dtype)
+    return attn_lib._out_proj(lp, _attention(q, k, v, plane, window, causal), x.dtype)
 
 
 def attn_window(cfg: ArchConfig) -> int:
@@ -262,10 +302,12 @@ def attn_window(cfg: ArchConfig) -> int:
     return cfg.local_window if cfg.is_hybrid else 0
 
 
-def _block_full(lp: Block, cfg: ArchConfig, kind: str, x, positions, *, plane=ops.AUTO, cache_out=None):
-    """One decoder block of ``kind`` (``cfg.layer_kinds()``) over a full
-    sequence. x (B,S,D).  With ``cache_out``, this layer's cache views, the
-    block also writes its prefill cache entry: an attention block its k/v
+def _block_full(lp: Block, cfg: ArchConfig, kind: str, x, positions, *, plane=ops.AUTO, cache_out=None,
+                causal: bool = True):
+    """One block of ``kind`` (``cfg.layer_kinds()``) over a full sequence,
+    causal unless told (an encoder's block is not). x (B,S,D).  With
+    ``cache_out``, this layer's cache views, the block also writes its
+    prefill cache entry: an attention block its k/v
     (``_attn_full``), an SSM or RG-LRU block its final state h and conv
     tail (the reference's ``_attn_block_prefill``).  The recurrent blocks
     compute the same on every plane and take no positions."""
@@ -282,7 +324,8 @@ def _block_full(lp: Block, cfg: ArchConfig, kind: str, x, positions, *, plane=op
         x = x + y
         return x if ssm else x + apply_mlp(lp.mlp, cfg, apply_norm(cfg.norm, lp.norm2, x))
     h = _attn_in(lp, cfg, x)
-    attn_out = _attn_full(lp.attn, cfg, h, positions, plane=plane, window=attn_window(cfg), cache_out=cache_out)
+    attn_out = _attn_full(lp.attn, cfg, h, positions, plane=plane, window=attn_window(cfg), cache_out=cache_out,
+                          causal=causal)
     return _block_out(lp, cfg, x, h, attn_out)
 
 
@@ -323,6 +366,66 @@ def _run_stack(params: LM, cfg: ArchConfig, x, positions, *, plane=ops.AUTO):
 
 
 # ---------------------------------------------------------------------------
+# The encoder-decoder (stub audio frontend: inputs are frame embeddings)
+# ---------------------------------------------------------------------------
+
+
+def encode_audio(params: LM, cfg: ArchConfig, frames, *, plane=ops.AUTO):
+    """frames (B, T_enc, D) -> the encoder's states: the sinusoid added,
+    then ``enc_layers``' non-causal attention blocks (rotary, as the
+    reference's: ROADMAP.md C.14; on a kernel plane the ``flash_attention``
+    kernel, one launch a layer), then ``enc_norm``."""
+    T = frames.shape[1]
+    x = frames + sinusoidal_positions(T, cfg.d_model, frames.device).to(frames.dtype)[None]
+    positions = torch.arange(T, dtype=torch.int32, device=frames.device)[None]
+    block = _remat(_block_full, cfg) if torch.is_grad_enabled() else _block_full
+    for lp in params.enc_layers:
+        x = block(lp, cfg, "attn", x, positions, plane=plane, causal=False)
+    return apply_norm(cfg.norm, params.enc_norm, x)
+
+
+def cross_attention(lp: Attention, cfg: ArchConfig, x, enc, cache_out=None):
+    """x (B,S,D) attends to all of the encoder's states enc (B,T,D) on the
+    reference's route on every plane (``flash_attention_xla``, not causal).
+    With ``cache_out`` (this layer's (B, T, KV, Dh) ``xk``/``xv`` views) the
+    projected k and v are written there: prefill's cross cache."""
+    q, k, v = attn_lib._project_qkv(lp, cfg, x, kv_x=enc)
+    if cache_out is not None:
+        cache_out["xk"].copy_(k)
+        cache_out["xv"].copy_(v)
+    k, v = attn_lib.repeat_kv(k, cfg.n_rep), attn_lib.repeat_kv(v, cfg.n_rep)
+    return attn_lib._out_proj(lp, attn_lib.flash_attention_xla(q, k, v, causal=False), x.dtype)
+
+
+def _dec_block_full(lp: Block, cfg: ArchConfig, x, enc, *, plane=ops.AUTO, cache_out=None):
+    """One decoder layer over x (B,S,D): causal self-attention without
+    rotary (through ``attention_op`` on a kernel plane), cross-attention to
+    the encoder's states, the MLP.  With ``cache_out`` (this layer's self
+    ``k``/``v`` and cross ``xk``/``xv`` views) it writes its prefill cache
+    entry."""
+    h = apply_norm(cfg.norm, lp.norm1, x)
+    x = x + _attn_full(lp.attn, cfg, h, None, plane=plane, cache_out=cache_out, use_rope=False)
+    x = x + cross_attention(lp.xattn, cfg, apply_norm(cfg.norm, lp.norm_x, x), enc, cache_out)
+    return x + apply_mlp(lp.mlp, cfg, apply_norm(cfg.norm, lp.norm2, x))
+
+
+def _run_decoder_encdec(params: LM, cfg: ArchConfig, x, enc, *, plane=ops.AUTO, caches=None):
+    """The decoder over the token embeddings x (B,S,D): the sinusoid of
+    positions 0..S-1 added (the reference's stand-in for whisper's learned
+    table), then ``dec_layers``.  With ``caches`` (each layer's cache views,
+    ``decode.layer_caches``) each layer writes its prefill entry."""
+    x = x + sinusoidal_positions(x.shape[1], cfg.d_model, x.device).to(x.dtype)[None]
+    if caches is not None:
+        for lp, cl in zip(params.dec_layers, caches):
+            x = _dec_block_full(lp, cfg, x, enc, plane=plane, cache_out=cl)
+        return x
+    block = _remat(_dec_block_full, cfg) if torch.is_grad_enabled() else _dec_block_full
+    for lp in params.dec_layers:
+        x = block(lp, cfg, x, enc, plane=plane)
+    return x
+
+
+# ---------------------------------------------------------------------------
 # Embedding / logits
 # ---------------------------------------------------------------------------
 
@@ -344,16 +447,22 @@ def default_positions(tokens):
 
 
 def lm_hidden(params: LM, cfg: ArchConfig, batch, *, plane=ops.AUTO):
-    """Backbone forward -> final hidden states (B,S,D)."""
+    """Backbone forward -> final hidden states (B,S,D); an encoder-decoder
+    encodes ``batch["frames"]`` first."""
     tokens = batch["tokens"]
+    x = embed_tokens(params, cfg, tokens)
+    if cfg.encoder_decoder:
+        enc = encode_audio(params, cfg, batch["frames"], plane=plane)
+        return _run_decoder_encdec(params, cfg, x, enc, plane=plane)
     positions = batch.get("positions")
     if positions is None:
         positions = default_positions(tokens)
-    return _run_stack(params, cfg, embed_tokens(params, cfg, tokens), positions, plane=plane)
+    return _run_stack(params, cfg, x, positions, plane=plane)
 
 
 def lm_apply(params: LM, cfg: ArchConfig, batch, *, plane=ops.AUTO):
-    """Full forward -> logits (B,S,V). batch: tokens (+positions)."""
+    """Full forward -> logits (B,S,V). batch: tokens (+positions, or the
+    frames (B, T_enc, D) of an encoder-decoder)."""
     return logits_fn(params, cfg, lm_hidden(params, cfg, batch, plane=plane))
 
 

@@ -1,5 +1,5 @@
 """Step builders (port of ``repro.train.steps``): train (with gradient
-accumulation), prefill, decode."""
+accumulation), prefill, decode; and an encoder-decoder's training frames."""
 from __future__ import annotations
 
 from typing import Optional
@@ -7,6 +7,7 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core import prng
 from repro_torch.models.decode import lm_decode_step, lm_prefill
 from repro_torch.models.lm import LM, check_ported, lm_loss
 from repro_torch.optim import make_optimizer
@@ -19,7 +20,8 @@ def build_train_step(cfg: ArchConfig, opt_name: Optional[str] = None):
     metrics)``: ``params`` is an :class:`LM` (its parameters turned
     trainable here), ``opt_state`` the optimizer's state over
     ``dict(params.named_parameters())``, both updated in place and
-    returned; ``batch`` ``{"tokens", "labels"}`` (B, S), or (n_micro,
+    returned; ``batch`` ``{"tokens", "labels"}`` (B, S) (and an
+    encoder-decoder's ``frames`` (B, T_enc, D)), or (n_micro,
     B_micro, S) for gradient accumulation: float32 for AdamW, bfloat16
     otherwise, then divided by ``n_micro``.  ``metrics``: ``loss`` and
     ``grad_norm`` (float32 tensors on the model's device) and ``step + 1``.
@@ -70,3 +72,12 @@ def build_decode_step(cfg: ArchConfig):
         return lm_decode_step(params, cfg, cache, batch)
 
     return decode
+
+
+def frames_batch(cfg: ArchConfig, batch: int, step: int, device=None) -> torch.Tensor:
+    """An encoder-decoder's training frames once the pipeline has drawn
+    ``step`` batches: ``normal(fold_in(PRNGKey(7), step), (batch,
+    enc_seq_len, d_model))``, as the reference's training launcher draws
+    them."""
+    key = prng.fold_in(prng.prng_key(7, device), step)
+    return prng.normal(key, (batch, cfg.enc_seq_len, cfg.d_model))

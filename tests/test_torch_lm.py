@@ -260,8 +260,7 @@ def test_dense_variants_match_reference(variant):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("kw,item", [  # the cases keep their ids (test_attn_rglru_pattern_matches_reference was kw0)
-    pytest.param(dict(encoder_decoder=True, n_enc_layers=2), "A.12.6", id="kw1-A.12.6"),
+@pytest.mark.parametrize("kw,item", [  # the case keeps its id (kw0 and kw1 went with their families' ports)
     pytest.param(dict(mrope_sections=(4, 6, 6)), "A.12.7", id="kw2-A.12.7"),
 ])
 def test_unported_families_raise(kw, item):
@@ -325,7 +324,8 @@ def test_entry_points_default_to_cuda_and_refuse_without_it():
 def test_only_ported_configs_are_listed():
     from repro_torch.configs import ARCH_IDS
 
-    assert ARCH_IDS == (ARCH, "llama4-scout-17b-a16e", "kimi-k2-1t-a32b", "falcon-mamba-7b", "recurrentgemma-2b")
+    assert ARCH_IDS == (ARCH, "llama4-scout-17b-a16e", "kimi-k2-1t-a32b", "falcon-mamba-7b", "recurrentgemma-2b",
+                        "whisper-small")
     for arch in ARCH_IDS:
         cfg, over = get_config(arch)
         jcfg, jover = jget_config(arch)
