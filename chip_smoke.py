@@ -18,9 +18,10 @@ Run from a checkout of the repository on a machine with one CUDA card and
    a CUDA graph, replayed between CUDA events), its time per call as the
    host issues them eagerly, its bound, the plain version's times and a
    library call's times (``flash_attention``: SDPA, at both serving
-   paths' prefill calls, Dh = 64 and 128, at whisper-small's two (the
-   encoder's, not causal over 1500 frames, and the decoder's over a
-   224-token prompt) and at kimi-k2's Dh = 112;
+   paths' prefill calls, Dh = 64 and 128, at qwen2-vl-72b's (H = 64 after
+   the GQA repeat, Dh = 128), at whisper-small's two (the encoder's, not
+   causal over 1500 frames, and the decoder's over a 224-token prompt) and
+   at kimi-k2's Dh = 112;
    ``multi_read``: the per-array ``a[keys]`` of the torch plane).  ``multi_read`` and
    ``mvcc_version_select`` are timed as the whole ops-level call
    (``ops.gather_many``, ``ops.version_read``), which must be one launch
@@ -104,7 +105,18 @@ Run from a checkout of the repository on a machine with one CUDA card and
    not causal in the encoder, and never in decode), then the main path
    ``serve`` (4 x 1500 frames x 224 + 224 tokens) on both planes beside its
    float32 bounds;
-13. the LM training path, stablelm-1.6b at full width in float32 with TF32
+13. the M-RoPE VLM serving path, qwen2-vl-72b at full width, 12 of its 80
+   layers (13.02 B float32 parameters), TF32 off: ``init_lm`` from seed 0 on
+   the card (its parameter count against the config's, checked against the
+   reference's weights), the golden-file run on the first two layers of the
+   same model (one 2048-token request holding a 1 x 32 x 32 image grid at
+   Qwen2-VL's three position ids, 8 greedy tokens whose positions run behind
+   the cache length, logits within 10x the port's CPU gap, every decided
+   token equal), a profiled prefill and decode step (``flash_attention``
+   launched 12 times in the prefill and never in decode), then the main path
+   ``serve`` (4 x 2048 tokens, 32 each, the reference's text-only positions)
+   on both planes beside its float32 bounds;
+14. the LM training path, stablelm-1.6b at full width in float32 with TF32
    off: 3 AdamW steps at the depth the reference's golden file was cut to
    (its pipeline tokens bitwise, losses, grad_norms and leaf sums within
    10x the port's CPU gap), then the main path at full width and depth,
@@ -227,6 +239,11 @@ WHISPER_ARCH = "whisper-small"
 WHISPER_SERVE = dict(batch=4, prompt_len=224, gen_len=224, page_size=16)
 WHISPER_SERVE_PATH = "serve/whisper-small"
 WHISPER_PARAMS = 278_143_488
+# the M-RoPE VLM serving main path: qwen2-vl-72b at full width, depth cut to VLM_LAYERS of 80 (13,023,641,600
+# float32 parameters, 52.1 GB), the same requests as SERVE (text-only positions, as the reference's serve passes them)
+VLM_ARCH = "qwen2-vl-72b"
+VLM_LAYERS = 12
+VLM_SERVE_PATH = "serve/qwen2-vl-72b"
 # logits tolerance of the serving phase (absolute; logits have std 0.88).  The port
 # on the CPU is within 7.9e-6 of the JAX reference at full width (the golden file's
 # port_cpu_max_abs_logit_gap); 1e-4 leaves 12x that for the card's other summation
@@ -835,6 +852,8 @@ def phase_flash(gen):
     # whisper-small's prefill calls: the encoder's over 1500 frames (not causal; 1500 is a multiple of neither the
     # 128-row q tile nor the 64-key tile) and the decoder's self-attention over the 224-token prompt
     cases += [(4, 12, 1500, 1500, 64, False, torch.float32, True), (4, 12, 224, 224, 64, True, torch.float32, True)]
+    # qwen2-vl-72b's prefill call: B = 4, H = 64 after the GQA repeat, S = 2048, Dh = 128, causal
+    cases += [(4, 64, 2048, 2048, 128, True, torch.float32, True)]
     worst = {dt: 0.0 for dt in tols}
     for B, H, Sq, Sk, Dh, causal, dt, bshd in cases:
         q, k, v = attn_inputs(B, H, Sq, Sk, Dh, dt, gen, bshd=bshd)
@@ -879,8 +898,10 @@ def phase_flash(gen):
     B, H, T, P = WHISPER_SERVE["batch"], cfg.n_heads, cfg.enc_seq_len, WHISPER_SERVE["prompt_len"]
     whisper_calls = {"encoder": timing(f"{WHISPER_SERVE_PATH} encoder", B, H, T, cfg.head_dim, causal=False),
                      "decoder": timing(f"{WHISPER_SERVE_PATH} decoder", B, H, P, cfg.head_dim)}
+    vlm = get_config(VLM_ARCH)[0]
     by_path = {SERVE_PATH: timing(SERVE_PATH, 4, 32, 2048, 64),  # the serving prefill's call
                MOE_SERVE_PATH: timing(MOE_SERVE_PATH, 4, 40, 2048, 128),
+               VLM_SERVE_PATH: timing(VLM_SERVE_PATH, SERVE["batch"], vlm.n_heads, SERVE["prompt_len"], vlm.head_dim),
                WHISPER_SERVE_PATH: mix([(cfg.n_enc_layers, whisper_calls["encoder"]),
                                         (cfg.n_layers, whisper_calls["decoder"])])}
     return dict(
@@ -1857,6 +1878,170 @@ def phase_serve_whisper(counted):
     return got
 
 
+def vlm_serve_work(cfg, n_params, B, S, G):
+    """(flops, bytes) a float32 prefill of B x S tokens needs on the dense
+    M-RoPE model, and the bytes of one decode step at the run's mean cache
+    length S + G / 2.  Operations: 2 per weight of a layer's matrices per
+    token (q, k, v, o and the SwiGLU's three), 4 Dh per causal (query, key)
+    pair and head (after the GQA repeat), the head on the last token only;
+    biases, norms and the rotary are not counted.  Bytes: every weight read
+    once (of the embedding only the B x S rows the tokens read, at most),
+    the KV cache written (prefill), or the weights and the head read, B
+    embedding rows, the valid KV cache read and one token's k/v written
+    (decode)."""
+    D, F, H, KV, Dh, V, L = (cfg.d_model, cfg.d_ff, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.vocab_size,
+                             cfg.n_layers)
+    layer_w = 2 * D * H * Dh + 2 * D * KV * Dh + 3 * D * F
+    flops = 2 * B * S * L * layer_w + L * 4 * Dh * B * H * (S * (S + 1) // 2) + 2 * B * D * V
+    kv = 4 * 2 * L * B * KV * Dh  # bytes of one token's k and v over the layers
+    weights = 4 * (n_params - V * D)  # all but the embedding (not tied to the head)
+    p_bytes = weights + 4 * min(B * S, V) * D + kv * S
+    d_bytes = weights + 4 * B * D + kv * (S + G // 2) + kv
+    return flops, p_bytes, d_bytes
+
+
+def phase_serve_vlm(counted):
+    """The M-RoPE VLM serving path at full width on the card: qwen2-vl-72b
+    cut to VLM_LAYERS layers, init_lm from seed 0 (its parameter count and
+    leaf corners against the reference's), the golden-file run on the first
+    two layers of the same model (one 2048-token request holding a 32 x 32
+    image grid, whose decode positions run behind the cache length), a
+    profiled prefill and decode step (flash_attention launches counted in
+    each), then the main path: serve() at SERVE on the kernel plane,
+    launches counted from 0 (one flash_attention a prefill layer, none in
+    decode), and the same requests on the torch plane.  Returns the
+    launches by kernel."""
+    import dataclasses
+    import gc
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import prng
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch.serve import serve
+    from repro_torch.models.decode import lm_decode_step, lm_prefill
+    from repro_torch.models.lm import LM, default_positions, init_lm
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(get_config(VLM_ARCH)[0], n_layers=VLM_LAYERS)
+    with open(os.path.join(ROOT, "src", "repro_torch", "data", "golden_serve_qwen2_vl.json")) as f:
+        golden = json.load(f)
+    tol = golden["tolerance"]["logits"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = init_lm(prng.prng_key(0), cfg, torch.float32, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in params.parameters())
+    log(f"serve vlm: init_lm({cfg.name}, {cfg.n_layers} of 80 layers, seed 0) on the card: {n_params:,} parameters "
+        f"(the config's analytic count {cfg.param_count():,}) in {init_s:.3f} s, "
+        f"{torch.cuda.memory_allocated() / 1e9:.3f} GB")
+    # the config's analytic count takes one d_model vector per rmsnorm and the QKV biases; the final norm is not
+    # counted
+    if n_params != cfg.param_count() + cfg.d_model:
+        raise AssertionError(f"init_lm: {n_params} parameters, config {cfg.param_count()} + the final norm")
+    check_init(params, golden)
+
+    # the golden run: the first layers of the same model (layer l's key does not depend on the depth), one request
+    # with the golden file's image, decoded at positions behind the cache length
+    cfg2 = dataclasses.replace(cfg, n_layers=golden["n_layers"])
+    two = LM(cfg2, params.embed, params.final_norm, params.lm_head, list(params.layers[: cfg2.n_layers]))
+    off, grid = golden["image"]
+    g = serve(cfg2, batch=golden["batch"], prompt_len=golden["prompt_len"], gen_len=golden["gen_len"],
+              page_size=16, seed=golden["seed"], device="cuda", plane="kernel", params=two, image=(off, tuple(grid)))
+    if g.positions[0].cpu().tolist() != golden["positions"]:
+        raise AssertionError("serve vlm golden: the prompt's M-RoPE positions are not the golden file's")
+    err = check_golden(g, golden, tol)
+    same = g.tokens.tolist() == golden["tokens"]
+    log(f"serve vlm golden ({golden['batch']} x {golden['prompt_len']} with a {grid[0]}x{grid[1]}x{grid[2]} image "
+        f"at {off}, {golden['gen_len']} steps at positions {golden['decode_positions'][0]}.. from cache length "
+        f"{golden['prompt_len']}, {cfg2.n_layers} layers, kernel plane): logits within {err:.3e} of the JAX "
+        f"reference (tolerance {tol}, 10x the port's CPU gap {golden['port_cpu_gap']['logits']:.3e}), tokens "
+        f"{g.tokens.tolist()} ({'all equal' if same else 'reference ' + str(golden['tokens'])})")
+    del two, g
+
+    # where the time goes: one prefill and one decode step at the main path's shape, profiled, launches counted
+    B, S, G = SERVE["batch"], SERVE["prompt_len"], SERVE["gen_len"]
+    flops, p_bytes, d_bytes = vlm_serve_work(cfg, n_params, B, S, G)
+    p_bound = max(flops / FP32_FLOPS_PER_S, p_bytes / HBM_BYTES_PER_S) * 1e3
+    d_bound = d_bytes / HBM_BYTES_PER_S * 1e3
+    with torch.inference_mode():
+        prompts = prng.randint(prng.prng_key(1, "cuda"), (B, S), 0, cfg.vocab_size)
+        batch = {"tokens": prompts, "positions": default_positions(cfg, prompts)}
+        lm_prefill(params, cfg, {"tokens": prompts[:, :64]}, pad_to=96, plane="kernel")  # warm-up
+        flash_attention.launches = 0
+        (logits, cache), p_wall, p_busy, p_ops, p_top, _ = device_busy(
+            lambda: lm_prefill(params, cfg, batch, pad_to=S + G, plane="kernel"))
+        p_launches = flash_attention.launches
+        tok = logits.argmax(-1)
+        step = {"token": tok, "positions": torch.full((B, 3), S, dtype=torch.int32, device="cuda")}
+        lm_decode_step(params, cfg, cache, step)  # warm-up: writes slot S, which the next call rewrites
+        flash_attention.launches = 0
+        _, d_wall, d_busy, d_ops, d_top, _ = device_busy(lambda: lm_decode_step(params, cfg, cache, step))
+        d_launches = flash_attention.launches
+        prof_logits = logits.float()
+        del cache, logits
+    prof = {"prefill_wall_ms": p_wall, "prefill_device_busy_ms": p_busy, "prefill_idle_share": 1 - p_busy / p_wall,
+            "prefill_device_ops": p_ops, "prefill_flash_attention_launches": p_launches,
+            "prefill_bound_ms": p_bound, "prefill_tflop": flops / 1e12,
+            "decode_step_wall_ms": d_wall, "decode_step_device_busy_ms": d_busy,
+            "decode_step_idle_share": 1 - d_busy / d_wall, "decode_step_device_ops": d_ops,
+            "decode_step_flash_attention_launches": d_launches, "decode_step_bound_ms": d_bound,
+            "prefill_top_launches_and_ms": p_top, "decode_step_top_launches_and_ms": d_top}
+    log("serve vlm profile: " + json.dumps(prof))
+    if (p_launches, d_launches) != (cfg.n_layers, 0):
+        raise AssertionError(f"{VLM_SERVE_PATH}: flash_attention launched {p_launches} times in a prefill and "
+                             f"{d_launches} in a decode step, not {cfg.n_layers} and 0")
+
+    # the main path: counts from 0, then read
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counted:
+        fn.launches = 0
+    k = serve(cfg, **SERVE, seed=0, device="cuda", plane="kernel", params=params)
+    got = {fn.__name__: fn.launches for fn in counted}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    log(f"main path {VLM_SERVE_PATH} (kernel plane, {cfg.n_layers} of 80 layers, B={B}, prompt {S}, {G} tokens each, "
+        f"float32): prefill {k.prefill_ms:.3f} ms ({k.prefill_ms / p_bound:.2f}x its bound {p_bound:.3f} ms: "
+        f"{flops / 1e12:.3f} TFLOP at {FP32_FLOPS_PER_S / 1e12:.0f} TFLOP/s, {p_bytes / 1e9:.3f} GB), decode "
+        f"{k.decode_ms_per_step:.3f} ms/step ({k.decode_ms_per_step / d_bound:.2f}x its bound {d_bound:.3f} ms: "
+        f"{d_bytes / 1e9:.3f} GB at {HBM_BYTES_PER_S / 1e12:.2f} TB/s), {k.tokens_per_s:.1f} tok/s, peak {peak:.3f} GB "
+        f"allocated, page table {k.pages_used}/{k.pages_total} used, {k.pages_used_after_release} after release, "
+        f"launches {got}")
+    expect = {fn.__name__: 0 for fn in counted}
+    expect["flash_attention"] = cfg.n_layers
+    if got != expect:
+        raise AssertionError(f"{VLM_SERVE_PATH}: kernel launches {got} != {expect} (one flash_attention per prefill "
+                             "layer, none in decode)")
+    if not (torch.equal(k.prompts, prompts) and torch.equal(k.positions, batch["positions"])):
+        raise AssertionError(f"{VLM_SERVE_PATH}: serve's prompts or positions are not randint(PRNGKey(1)) and the "
+                             "text-only layout")
+    gap = float((k.logits[0] - prof_logits).abs().max())
+    if gap > tol:
+        raise AssertionError(f"{VLM_SERVE_PATH}: prefill logits {gap} from the profiled prefill's > {tol}")
+
+    t = serve(cfg, **SERVE, seed=0, device="cuda", plane="torch", params=params)
+    log(f"main path {VLM_SERVE_PATH} (torch plane): prefill {t.prefill_ms:.3f} ms, decode "
+        f"{t.decode_ms_per_step:.3f} ms/step, {t.tokens_per_s:.1f} tok/s")
+    gap = float((k.logits[0] - t.logits[0]).abs().max())
+    if gap > tol:
+        raise AssertionError(f"{VLM_SERVE_PATH}: prefill logits of the planes differ by {gap} > {tol}")
+    m = margins(t.logits)
+    for b in range(B):
+        n = decided_steps(m[:, b].tolist(), tol)
+        if k.tokens[b, :n].tolist() != t.tokens[b, :n].tolist():
+            raise AssertionError(f"{VLM_SERVE_PATH}: request {b}: greedy tokens differ within the first {n} steps")
+        log(f"  request {b}: tokens equal over the {n} decided steps of {G} "
+            f"({int((k.tokens[b] == t.tokens[b]).sum())} equal in all)")
+    log(f"{VLM_SERVE_PATH}: prefill logits of the planes within {gap:.3e} (tolerance {tol}); logits std "
+        f"{float(k.logits[0].std()):.3f}")
+    del params, k, t, prof_logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    return got
+
+
 # the LM training main path: stablelm-1.6b at full width and depth, float32, AdamW, remat "full"
 TRAIN = dict(batch=4, seq=2048, steps=5)
 TRAIN_PATH = "train/stablelm-1.6b"
@@ -2540,6 +2725,11 @@ def main() -> int:
         launches[name][WHISPER_SERVE_PATH] = n
 
     lap("serve whisper")
+    # the M-RoPE VLM serving path (qwen2-vl-72b at full width, 12 of 80 layers)
+    for name, n in phase_serve_vlm(counted).items():
+        launches[name][VLM_SERVE_PATH] = n
+
+    lap("serve vlm")
     # phase 8: the LM training path (stablelm-1.6b at full width and depth)
     for name, n in phase_train(counted).items():
         launches[name][TRAIN_PATH] = n

@@ -3,9 +3,10 @@
 Only the architectures whose families the port runs are listed: the dense
 decoder stablelm-1.6b, the MoE decoders llama4-scout-17b-a16e and
 kimi-k2-1t-a32b, the Mamba-1 SSM falcon-mamba-7b, the RG-LRU +
-local-attention hybrid recurrentgemma-2b and the audio encoder-decoder
-whisper-small.  The other configs wait for their families (ROADMAP.md
-A.12).
+local-attention hybrid recurrentgemma-2b, the audio encoder-decoder
+whisper-small and the M-RoPE VLM backbone qwen2-vl-72b.  The other
+configs (dense decoders of families the port runs) wait for their
+``model_config`` PRs (ROADMAP.md A.12.1).
 """
 from __future__ import annotations
 
@@ -22,6 +23,7 @@ ARCH_MODULES = {
     "falcon-mamba-7b": "falcon_mamba_7b",
     "recurrentgemma-2b": "recurrentgemma_2b",
     "whisper-small": "whisper_small",
+    "qwen2-vl-72b": "qwen2_vl_72b",
 }
 
 ARCH_IDS = tuple(ARCH_MODULES)

@@ -30,10 +30,22 @@ frontend, drawn as the reference's serve draws them, with
 step attends to all of them.
 
     python -m repro_torch.launch.serve --arch whisper-small --no-reduced --batch 4 --prompt-len 224 --gen-len 224
+
+An M-RoPE model (``--arch qwen2-vl-72b``) takes three position ids a token
+(temporal, height, width).  Text-only prompts take the reference's: 0..P-1
+for each id in prefill, then P + i for each in decode step i.  With
+``image=(offset, (t, h, w))`` every prompt holds one image grid of t*h*w
+vision tokens from ``offset`` on (``vlm_layout``): the reference's vision
+stub has no encoder, so they are a reserved id, the vocabulary's last, at
+Qwen2-VL's multimodal positions, and decode's positions run on from the
+largest id + 1, behind the cache length.
+
+    python -m repro_torch.launch.serve --arch qwen2-vl-72b --no-reduced --layers 12 --batch 4 --prompt-len 2048
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 from dataclasses import dataclass
 from typing import Optional
@@ -104,6 +116,32 @@ class ServeResult:
     pages_used_after_release: int
     plane: str
     frames: Optional[torch.Tensor] = None  # (B, enc_seq_len, D) an encoder-decoder's audio frames
+    positions: Optional[torch.Tensor] = None  # (B, 3, P) an M-RoPE model's prompt position ids
+
+
+def vlm_layout(prompt_len: int, image=None, device=None):
+    """A prompt's M-RoPE layout as Qwen2-VL's ``get_rope_index`` makes it:
+    (position ids (3, P) int32, the image's token mask (P,), the first
+    position id after the prompt).  Text tokens take one id for all three
+    (0, 1, ... from the prompt's start, or from the largest id before them
+    + 1); an image ``(offset, (t, h, w))`` of t*h*w tokens from ``offset``
+    on, row-major, takes (s + frame, s + row, s + col) for the start s that
+    text at ``offset`` would take.  Without an image: 0..P-1 three times."""
+    ids = torch.arange(prompt_len, dtype=torch.int32, device=device).expand(3, prompt_len).clone()
+    mask = torch.zeros(prompt_len, dtype=torch.bool, device=device)
+    if image is None:
+        return ids, mask, prompt_len
+    offset, (t, h, w) = image
+    n = t * h * w
+    if offset < 0 or offset + n > prompt_len:
+        raise ValueError(f"an image of {t}x{h}x{w} tokens at {offset} does not fit a {prompt_len}-token prompt")
+    grid = torch.stack(torch.meshgrid(*(torch.arange(k, dtype=torch.int32, device=device) for k in (t, h, w)),
+                                      indexing="ij")).reshape(3, n)
+    ids[:, offset:offset + n] = offset + grid
+    after = offset + max(t, h, w)  # the largest id of the image + 1
+    ids[:, offset + n:] = torch.arange(after, after + prompt_len - offset - n, dtype=torch.int32, device=device)
+    mask[offset:offset + n] = True
+    return ids, mask, after + prompt_len - offset - n
 
 
 def _sync(dev):
@@ -114,12 +152,14 @@ def _sync(dev):
 @torch.inference_mode()
 def serve(cfg: ArchConfig, *, batch: int = 4, prompt_len: int = 32, gen_len: int = 32, page_size: int = 16,
           seed: int = 0, device="cuda", plane: str = ops.AUTO, dtype=torch.float32, params: LM = None,
-          verbose: bool = False) -> ServeResult:
+          image=None, verbose: bool = False) -> ServeResult:
     """Admission -> prefill -> greedy decode -> release for ``batch``
     random prompts of ``prompt_len`` tokens, ``gen_len`` tokens each.
 
     ``params`` reuses weights built earlier (``init_lm`` at the same seed
-    and dtype); otherwise they are drawn here, on ``device``."""
+    and dtype); otherwise they are drawn here, on ``device``.  ``image``
+    ``(offset, (t, h, w))`` puts one image grid in every prompt of an
+    M-RoPE model (``vlm_layout``)."""
     dev = resolve_device(device)
     plane = ops.resolve_plane(plane, dev)
     log = print if verbose else (lambda *a: None)
@@ -139,6 +179,12 @@ def serve(cfg: ArchConfig, *, batch: int = 4, prompt_len: int = 32, gen_len: int
     batch = {"tokens": prompts}
     if cfg.encoder_decoder:
         batch["frames"] = prng.normal(prng.prng_key(seed + 1, dev), (B, cfg.enc_seq_len, cfg.d_model)).to(dtype)
+    if image is not None and cfg.mrope_sections is None:
+        raise ValueError(f"{cfg.name} has no M-RoPE: it takes no image")
+    if cfg.mrope_sections is not None:
+        ids, mask, next_id = vlm_layout(P, image, dev)
+        prompts = batch["tokens"] = prompts.masked_fill(mask, cfg.vocab_size - 1)
+        batch["positions"] = ids.expand(B, 3, P)
     _sync(dev)
     t0 = time.perf_counter()
     logits, cache = lm_prefill(params, cfg, batch, pad_to=total, plane=plane)
@@ -149,8 +195,11 @@ def serve(cfg: ArchConfig, *, batch: int = 4, prompt_len: int = 32, gen_len: int
     tok = logits.argmax(-1)
     out, steps = [tok], [logits.float()]
     t0 = time.perf_counter()
-    for _ in range(G - 1):
-        logits, cache = lm_decode_step(params, cfg, cache, {"token": tok})
+    for i in range(G - 1):
+        step = {"token": tok}
+        if cfg.mrope_sections is not None:
+            step["positions"] = torch.full((B, 3), next_id + i, dtype=torch.int32, device=dev)
+        logits, cache = lm_decode_step(params, cfg, cache, step)
         tok = logits.argmax(-1)
         out.append(tok)
         steps.append(logits.float())
@@ -168,7 +217,7 @@ def serve(cfg: ArchConfig, *, batch: int = 4, prompt_len: int = 32, gen_len: int
     if not bool(torch.isfinite(step_logits).all()) or seq.shape != (B, G):
         raise AssertionError("serve: non-finite logits or a wrong token shape")
     return ServeResult(seq, step_logits, prompts, prefill_ms, step_ms, tok_s, used, pt.n_pages, pt.used, plane,
-                       batch.get("frames"))
+                       batch.get("frames"), batch.get("positions"))
 
 
 def main(argv=None):
@@ -176,6 +225,9 @@ def main(argv=None):
     ap.add_argument("--arch", default="stablelm-1.6b", choices=ARCH_IDS)
     ap.add_argument("--reduced", action=argparse.BooleanOptionalAction, default=True,
                     help="the tiny same-family config (default); --no-reduced serves the full config")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the config's depth to this many layers at full width (qwen2-vl-72b: 12 of 80 fit "
+                         "one 80 GB card in float32)")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen-len", type=int, default=32)
@@ -185,6 +237,8 @@ def main(argv=None):
     ap.add_argument("--plane", default=ops.AUTO, choices=(ops.AUTO,) + ops.KERNEL_PLANES)
     args = ap.parse_args(argv)
     cfg = reduced_config(args.arch) if args.reduced else get_config(args.arch)[0]
+    if args.layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
     serve(cfg, batch=args.batch, prompt_len=args.prompt_len, gen_len=args.gen_len, page_size=args.page_size,
           seed=args.seed, device=args.device, plane=args.plane, verbose=True)
     print("[serve] ok")

@@ -9,7 +9,9 @@ pipeline at seed 0, the step from ``build_train_step`` (the config's
 optimizer, peak learning rate 3e-4 on the warmup-stable-decay schedule,
 as the reference's ``make_optimizer`` sets it), all through the
 fault-tolerant runner.  An encoder-decoder's batches also hold frames
-(``train.steps.frames_batch``, the reference's draw).  The reference also
+(``train.steps.frames_batch``, the reference's draw), and an M-RoPE
+model's (``--arch qwen2-vl-72b``) the reference's text-only positions,
+0..seq-1 for each of the three ids.  The reference also
 parses ``--lr`` and never uses it (ROADMAP.md C.7); the port leaves it out.  Runs on ``"cuda"`` unless
 ``--device cpu`` is given.
 """
@@ -23,7 +25,7 @@ from repro_torch.configs import ARCH_IDS, get_config, reduced_config
 from repro_torch.core import prng
 from repro_torch.data.pipeline import make_pipeline
 from repro_torch.ft.runner import TrainRunner
-from repro_torch.models.lm import init_lm, resolve_device
+from repro_torch.models.lm import default_positions, init_lm, resolve_device
 from repro_torch.train.steps import build_train_step, frames_batch
 
 
@@ -59,6 +61,11 @@ def main(argv=None):
         def next_batch(ds, _tokens=next_batch):
             ds, b = _tokens(ds)
             b["frames"] = frames_batch(cfg, args.batch, ds.step, dev)
+            return ds, b
+    if cfg.mrope_sections is not None:
+        def next_batch(ds, _tokens=next_batch):
+            ds, b = _tokens(ds)
+            b["positions"] = default_positions(cfg, b["tokens"])
             return ds, b
 
     runner = TrainRunner(train_step, init_state, next_batch, init_data,

@@ -1,9 +1,8 @@
-"""Norms, activations and rotary embeddings (incl. partial rotary), port of
-``repro.layers.common``.
+"""Norms, activations and rotary embeddings (incl. partial rotary and
+M-RoPE), port of ``repro.layers.common``.
 
 A norm's parameters live in a :class:`Norm` module whose parameter names
-are the reference's keys (``scale``, ``bias``).  ``apply_mrope`` waits
-for qwen2-vl (ROADMAP.md A.12.7).
+are the reference's keys (``scale``, ``bias``).
 """
 from __future__ import annotations
 
@@ -92,6 +91,14 @@ def rope_freqs(head_dim: int, rope_pct: float, theta: float, device=None) -> tor
     return 1.0 / (theta ** (torch.arange(0, rot, 2, dtype=torch.float32, device=device) / rot))
 
 
+def rotate_halves(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """x (..., Dh) with its halves rotated against each other by the angles
+    whose ``cos`` and ``sin`` (..., Dh/2) broadcast against them; in x's dtype."""
+    half = x.shape[-1] // 2
+    x1, x2 = x[..., :half], x[..., half:]
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+
+
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, rope_pct: float, theta: float) -> torch.Tensor:
     """x (..., S, H, Dh), positions (..., S) int: rotate the first
     ``rope_pct`` of each head (halves rotated against each other), keep the
@@ -101,25 +108,55 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, rope_pct: float, theta:
     rot = inv.shape[0] * 2
     ang = positions[..., None].float() * inv  # (..., S, rot/2)
     cos, sin = ang.cos()[..., None, :], ang.sin()[..., None, :]  # (..., S, 1, rot/2)
-    x1, x2, xp = x[..., : rot // 2], x[..., rot // 2 : rot], x[..., rot:]
-    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
-    return torch.cat([out.to(x.dtype), xp], dim=-1)
+    return torch.cat([rotate_halves(x[..., :rot], cos, sin), x[..., rot:]], dim=-1)
 
 
-def sinusoid_freqs(d: int, device=None) -> torch.Tensor:
-    """(d/2,) float32 ``1 / 10000 ** (2i / d)`` as the reference computes it
+def jit_freqs(d: int, theta: float, device=None) -> torch.Tensor:
+    """(d/2,) float32 ``1 / theta ** (2i / d)`` as the reference computes it
     under ``jit``, where XLA rewrites ``1 / pow(b, e)`` into ``pow(b, -e)``
-    (eagerly, its ``1 /`` moves a third of the bands by an ulp): glibc's
-    ``powf`` (``prng.powf``), XLA's CPU ``pow``.  ``torch.pow`` misses a
-    band, and one ulp of a band's frequency moves its angle at position 1499
-    by about 1e-4."""
-    return prng.powf(10_000.0, -(torch.arange(0, d, 2, dtype=torch.float32, device=device) / d))
+    (ROADMAP.md C.14; eagerly, its ``1 /`` moves a third of the bands by an
+    ulp, 25 of 64 at qwen2-vl's theta 1e6 and Dh 128): glibc's ``powf``
+    (``prng.powf``), XLA's CPU ``pow``.  ``torch.pow`` misses bands too, and
+    one ulp of a band's frequency moves its angle at position p by p ulps
+    of the band: about 1e-4 rad at p = 2048 for a band near 1."""
+    return prng.powf(theta, -(torch.arange(0, d, 2, dtype=torch.float32, device=device) / d))
+
+
+def mrope_rotation(positions: torch.Tensor, sections, theta: float, head_dim: int):
+    """M-RoPE's (cos, sin), each (..., S, 1, Dh/2) float32, of positions
+    (..., 3, S) int, the (temporal, height, width) ids of each token: the
+    Dh/2 frequency bands (``jit_freqs``) split into ``sections`` (t, h, w)
+    consecutive runs, each band rotated by its section's id times its
+    frequency, as the reference's ``apply_mrope`` computes them (its
+    ``take_along_axis`` on a band -> section table is a concatenation of
+    the three ids here).  The angles' ``cos`` and ``sin`` are torch's:
+    glibc's (``prng.cosf``/``sinf``), which XLA's CPU calls, took the port
+    no closer to the reference (qwen2-vl at full width, 2 layers, the
+    golden request: 1.41e-5 with torch's, 1.38e-5 with glibc's, over the
+    golden file's top-8 logits, max and lse; 2.6e-6 with either at the
+    reduced config), since the rotation's own rounding and the products
+    decide the gap, and cost some hundred device operations a call."""
+    if sum(sections) * 2 != head_dim:
+        raise ValueError(f"M-RoPE sections {tuple(sections)} do not split head_dim {head_dim} / 2 bands")
+    p = positions.float()
+    band_pos = torch.cat([p[..., i, :, None].expand(*p.shape[:-2], p.shape[-1], n)
+                          for i, n in enumerate(sections)], dim=-1)  # (..., S, Dh/2)
+    ang = band_pos * jit_freqs(head_dim, theta, positions.device)
+    return ang.cos()[..., None, :], ang.sin()[..., None, :]
+
+
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor, sections, theta: float) -> torch.Tensor:
+    """Qwen2-VL's multimodal rotary: x (..., S, H, Dh) with positions
+    (..., 3, S) int, the whole head rotated (no ``rope_pct``), halves
+    against each other (``mrope_rotation``)."""
+    return rotate_halves(x, *mrope_rotation(positions, sections, theta, x.shape[-1]))
 
 
 def sinusoid_at(positions: torch.Tensor, d: int) -> torch.Tensor:
-    """(..., d) ``[sin(p f), cos(p f)]`` of float32 positions (...), with
+    """(..., d) ``[sin(p f), cos(p f)]`` of float32 positions (...) at the
+    reference's frequencies under ``jit`` (``jit_freqs`` of 10000), with
     XLA's CPU ``sin`` and ``cos`` (glibc's, ``prng.sinf``/``cosf``)."""
-    ang = positions[..., None] * sinusoid_freqs(d, positions.device)
+    ang = positions[..., None] * jit_freqs(d, 10_000.0, positions.device)
     return torch.cat([prng.sinf(ang), prng.cosf(ang)], dim=-1)
 
 

@@ -39,7 +39,7 @@ from repro_torch.layers.rglru import apply_rglru_step
 from repro_torch.layers.ssm import apply_ssm_step
 from repro_torch.models.lm import (
     LM, _attn_in, _block_full, _block_out, _rope, _run_decoder_encdec, attn_window, check_ported, default_positions,
-    embed_tokens, encode_audio, logits_fn,
+    embed_tokens, encode_audio, logits_fn, rotary,
 )
 
 
@@ -109,6 +109,8 @@ def lm_prefill(params: LM, cfg: ArchConfig, batch, pad_to: Optional[int] = None,
     launch per encoder layer), then runs its decoder's layers, which write
     their self and cross entries: its decoder's self-attention goes through
     ``attention_op`` too, where the reference's prefill takes its XLA route.
+    ``batch["positions"]`` as ``lm_hidden`` takes them: (B, S), or (B, 3, S)
+    under M-RoPE, ``default_positions`` without them.
     """
     tokens = batch["tokens"]
     B, S = tokens.shape
@@ -121,27 +123,28 @@ def lm_prefill(params: LM, cfg: ArchConfig, batch, pad_to: Optional[int] = None,
         return logits_fn(params, cfg, x[:, -1:])[:, 0], cache
     positions = batch.get("positions")
     if positions is None:
-        positions = default_positions(tokens)
+        positions = default_positions(cfg, tokens)
+    rot = rotary(cfg, positions)
     cache = init_cache(cfg, B, max(S, pad_to or 0, attn_window(cfg)), x.dtype, x.device)
     for lp, kind, cl in zip(params.layers, cfg.layer_kinds(), layer_caches(cfg, cache)):
-        x = _block_full(lp, cfg, kind, x, positions, plane=plane, cache_out=cl)
+        x = _block_full(lp, cfg, kind, x, rot, plane=plane, cache_out=cl)
     cache["len"] = S
     logits = logits_fn(params, cfg, x[:, -1:])
     return logits[:, 0], cache
 
 
-def _attn_block_step(lp, cfg: ArchConfig, x, kc, vc, pos: int):
+def _attn_block_step(lp, cfg: ArchConfig, x, kc, vc, pos: int, rot):
     """x (B,1,D); kc/vc (B,S,KV,Dh), written in place at ``pos`` (at
-    ``pos mod S`` in a hybrid's window ring). Returns x'."""
+    ``pos mod S`` in a hybrid's window ring); q and k rotated at ``rot``
+    (``step_rotary``). Returns x'."""
     h = _attn_in(lp, cfg, x)
     q, k, v = attn_lib._project_qkv(lp.attn, cfg, h)
-    pos_ids = torch.full((x.shape[0], 1), pos, dtype=torch.int32, device=x.device)
-    q, k = _rope(cfg, q, pos_ids), _rope(cfg, k, pos_ids)
+    q, k = _rope(cfg, q, rot), _rope(cfg, k, rot)
     out, _, _ = attn_lib.decode_attn_cached(q[:, 0], k[:, 0], v[:, 0], kc, vc, pos, ring=cfg.is_hybrid)
     return _block_out(lp, cfg, x, h, attn_lib._out_proj(lp.attn, out[:, None], x.dtype))
 
 
-def _block_step(lp, cfg: ArchConfig, kind: str, x, cl: Dict, pos: int):
+def _block_step(lp, cfg: ArchConfig, kind: str, x, cl: Dict, pos: int, rot):
     """One layer of a decode step on its cache views ``cl`` (the
     reference's ``_block_step``). Returns x'."""
     if kind == "ssm":
@@ -151,7 +154,7 @@ def _block_step(lp, cfg: ArchConfig, kind: str, x, cl: Dict, pos: int):
         y, _ = apply_rglru_step(lp.rglru, cfg, apply_norm(cfg.norm, lp.norm1, x), cl)
         x = x + y
         return x + apply_mlp(lp.mlp, cfg, apply_norm(cfg.norm, lp.norm2, x))
-    return _attn_block_step(lp, cfg, x, cl["k"], cl["v"], pos)
+    return _attn_block_step(lp, cfg, x, cl["k"], cl["v"], pos, rot)
 
 
 def _dec_block_step(lp, cfg: ArchConfig, x, cl: Dict, pos: int):
@@ -173,8 +176,25 @@ def _dec_block_step(lp, cfg: ArchConfig, x, cl: Dict, pos: int):
     return x + apply_mlp(lp.mlp, cfg, apply_norm(cfg.norm, lp.norm2, x))
 
 
+def step_rotary(cfg: ArchConfig, pos: int, batch):
+    """The rotary of a decode step's token (``rotary``): at ``pos`` (B, 1),
+    or under M-RoPE at ``batch["positions"]`` (B, 3), which is not the
+    cache slot ``pos``: after an image, Qwen2-VL's text positions run behind
+    the cache length (the reference's ``positions3``); without them, ``pos``
+    for each of the three ids."""
+    B, dev = batch["token"].shape[0], batch["token"].device
+    positions = batch.get("positions") if cfg.mrope_sections is not None else None
+    if positions is not None:
+        ids = positions.to(device=dev, dtype=torch.int32)[:, :, None]
+    else:
+        ids = torch.full((B, 3, 1) if cfg.mrope_sections is not None else (B, 1), pos, dtype=torch.int32, device=dev)
+    return rotary(cfg, ids)
+
+
 def lm_decode_step(params: LM, cfg: ArchConfig, cache, batch):
-    """One-token decode. batch: {"token": (B,) int}.
+    """One-token decode. batch: {"token": (B,) int [, "positions": (B, 3)
+    int under M-RoPE]}: the token's k and v go to cache slot ``len``, and
+    its rotary is ``step_rotary``'s.
 
     Returns (logits (B,V), new cache); the new cache shares the given
     cache's arrays, which this step has written in place.  An MoE layer
@@ -187,8 +207,9 @@ def lm_decode_step(params: LM, cfg: ArchConfig, cache, batch):
         for lp, cl in zip(params.dec_layers, layer_caches(cfg, cache)):
             x = _dec_block_step(lp, cfg, x, cl, pos)
     else:
+        rot = step_rotary(cfg, pos, batch)
         for lp, kind, cl in zip(params.layers, cfg.layer_kinds(), layer_caches(cfg, cache)):
-            x = _block_step(lp, cfg, kind, x, cl, pos)
+            x = _block_step(lp, cfg, kind, x, cl, pos, rot)
     new_cache = dict(cache)
     new_cache["len"] = pos + 1
     logits = logits_fn(params, cfg, x)

@@ -16,8 +16,10 @@ differentiates.  Parameters are built frozen, for serving; training turns
 them on with ``LM.requires_grad_()`` (``train.steps`` does) and runs
 ``lm_loss``, whose blocks are checkpointed as ``cfg.remat`` says.
 
-Families the port does not run yet raise ``NotImplementedError`` naming
-their ROADMAP.md item.
+Position ids are (B, S), or (B, 3, S) under M-RoPE (qwen2-vl: the
+temporal, height and width ids of each token); the layers take them as
+``rotary`` makes them.  A hybrid pattern of block kinds the port does not
+run raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -33,7 +35,9 @@ from repro_torch.core import prng
 from repro_torch.kernels import ops
 from repro_torch.layers import attention as attn_lib
 from repro_torch.layers.attention import Attention
-from repro_torch.layers.common import Norm, apply_norm, apply_rope, init_norm, sinusoidal_positions
+from repro_torch.layers.common import (
+    Norm, apply_norm, apply_rope, init_norm, mrope_rotation, rotate_halves, sinusoidal_positions,
+)
 from repro_torch.layers.mlp import MLP, apply_mlp, init_mlp
 from repro_torch.layers.moe import MoE, apply_moe, init_moe
 from repro_torch.layers.rglru import RGLRU, apply_rglru, init_rglru
@@ -60,8 +64,6 @@ def check_ported(cfg: ArchConfig) -> None:
     if cfg.is_hybrid and not set(cfg.block_pattern) <= set(HYBRID_KINDS):
         raise NotImplementedError(f"{cfg.name}: a hybrid pattern {cfg.block_pattern} of other kinds than "
                                   f"{HYBRID_KINDS} is not ported")
-    if cfg.mrope_sections is not None or cfg.vision_stub:
-        raise NotImplementedError(f"{cfg.name}: M-RoPE / vision is not ported yet (ROADMAP.md A.12.7)")
 
 
 class Block(nn.Module):
@@ -217,7 +219,20 @@ def lm_from_state(cfg: ArchConfig, state: Dict[str, torch.Tensor]) -> LM:
 # ---------------------------------------------------------------------------
 
 
+def rotary(cfg: ArchConfig, positions):
+    """What the layers' ``_rope`` takes for position ids: the ids (B, S)
+    themselves, or under M-RoPE the (cos, sin) of ids (B, 3, S), made once
+    for every layer's q and k (``mrope_rotation``; the reference makes the
+    same values in each call)."""
+    if cfg.mrope_sections is None:
+        return positions
+    return mrope_rotation(positions, cfg.mrope_sections, cfg.rope_theta, cfg.head_dim)
+
+
 def _rope(cfg: ArchConfig, x, positions):
+    """x (B, S, H, Dh) rotated at ``rotary(cfg, ids)``."""
+    if cfg.mrope_sections is not None:
+        return rotate_halves(x, *positions)
     return apply_rope(x, positions, cfg.rope_pct, cfg.rope_theta)
 
 
@@ -281,7 +296,8 @@ def write_kv(cache_out, k, v):
 def _attn_full(lp: Attention, cfg: ArchConfig, x, positions, *, plane=ops.AUTO, window: int = 0, cache_out=None,
                causal: bool = True, use_rope: bool = True):
     """Self-attention over x (B,S,D), causal unless told, within ``window``
-    positions when it is set, rotated unless ``use_rope`` is False.  With
+    positions when it is set, rotated at ``positions`` (``rotary(cfg,
+    ids)``) unless ``use_rope`` is False.  With
     ``cache_out`` (this layer's (B, n, KV, Dh) cache views, zeroed) k and v
     are written as ``write_kv`` places them: that is prefill's cache entry
     (the reference pads each layer's entry and stacks them; ``_pad_entry``)."""
@@ -441,14 +457,21 @@ def logits_fn(params: LM, cfg: ArchConfig, x):
     return x @ w.to(x.dtype)
 
 
-def default_positions(tokens):
+def default_positions(cfg: ArchConfig, tokens):
+    """The position ids of a batch that brings none: 0..S-1 (B, S), and
+    under M-RoPE the text-only layout, 0..S-1 for each of the three ids
+    (B, 3, S), as the reference's serve passes them and its decode falls
+    back to (its own forward and prefill default to (B, S) there, which
+    its ``apply_mrope`` reads as (..., 3, S): ROADMAP.md C.15)."""
     B, S = tokens.shape
-    return torch.arange(S, dtype=torch.int32, device=tokens.device)[None].expand(B, S)
+    ids = torch.arange(S, dtype=torch.int32, device=tokens.device)
+    return ids.expand(B, 3, S) if cfg.mrope_sections is not None else ids.expand(B, S)
 
 
 def lm_hidden(params: LM, cfg: ArchConfig, batch, *, plane=ops.AUTO):
     """Backbone forward -> final hidden states (B,S,D); an encoder-decoder
-    encodes ``batch["frames"]`` first."""
+    encodes ``batch["frames"]`` first.  ``batch["positions"]``: (B, S), or
+    (B, 3, S) under M-RoPE; ``default_positions`` without it."""
     tokens = batch["tokens"]
     x = embed_tokens(params, cfg, tokens)
     if cfg.encoder_decoder:
@@ -456,13 +479,14 @@ def lm_hidden(params: LM, cfg: ArchConfig, batch, *, plane=ops.AUTO):
         return _run_decoder_encdec(params, cfg, x, enc, plane=plane)
     positions = batch.get("positions")
     if positions is None:
-        positions = default_positions(tokens)
-    return _run_stack(params, cfg, x, positions, plane=plane)
+        positions = default_positions(cfg, tokens)
+    return _run_stack(params, cfg, x, rotary(cfg, positions), plane=plane)
 
 
 def lm_apply(params: LM, cfg: ArchConfig, batch, *, plane=ops.AUTO):
-    """Full forward -> logits (B,S,V). batch: tokens (+positions, or the
-    frames (B, T_enc, D) of an encoder-decoder)."""
+    """Full forward -> logits (B,S,V). batch: tokens (+positions (B, S), or
+    (B, 3, S) under M-RoPE, or the frames (B, T_enc, D) of an
+    encoder-decoder)."""
     return logits_fn(params, cfg, lm_hidden(params, cfg, batch, plane=plane))
 
 
