@@ -56,7 +56,17 @@ Run from a checkout of the repository on a machine with one CUDA card and
    with local keys outside [0, R_l) over G*R_l rows) against its plain
    version and the dense result, and times it there; the profile phase
    traces 20 node-layout ticks beside the dense tick at G = 1;
-8. the LM serving path, stablelm-1.6b at full width in float32 with TF32
+8. the legacy PRNG mode (``prng.threefry_partitionable(False)``, jax's
+   ``jax_threefry_partitionable=False``) through the deprecated sweep entry
+   points on the kernel plane: ``run_grid`` over the reference's pinned
+   ``tests/data/stage_graph_golden.json`` (5 protocols x 4 codes on
+   SmallBank, 4 protocols on YCSB, at its 2-node grid), NOWAIT/SmallBank and
+   MVCC/YCSB at the full spec on CODES against ``golden_legacy_prng.json``
+   with the torch plane's counters equal, and ``run_cell_sharded`` on four
+   node shards of the one card for NOWAIT/SmallBank hybrid 63; each run's
+   launches per tick checked and its wall printed beside the same run in
+   the default mode;
+9. the LM serving path, stablelm-1.6b at full width in float32 with TF32
    off: ``init_lm`` from seed 0 on the card (checked against the reference's
    weights), a 2 x 256-token, 8-step run against the JAX reference's
    full-width golden file, a profiled prefill and decode step (device busy
@@ -64,7 +74,7 @@ Run from a checkout of the repository on a machine with one CUDA card and
    tokens, 32 tokens each) on the ``"kernel"`` plane, whose prefill must
    launch ``flash_attention`` once per layer, and on the ``"torch"`` plane,
    whose prefill logits and decided greedy tokens must agree;
-9. the MoE serving path, llama4-scout-17b-a16e at full width, 6 of its 48
+10. the MoE serving path, llama4-scout-17b-a16e at full width, 6 of its 48
    layers (14.52 B float32 parameters), TF32 off: ``init_lm`` from seed 0
    on the card (checked against the reference's weights), the golden-file
    run on the first two layers of the same model (expert loads and dropped
@@ -74,7 +84,7 @@ Run from a checkout of the repository on a machine with one CUDA card and
    router, dispatch, expert products and combine, then the main path
    ``serve`` (4 x 2048 tokens, 32 each) on both planes, 6
    ``flash_attention`` launches per prefill, each plane's routing per layer;
-10. the SSM serving path, falcon-mamba-7b at full width and all 64 layers
+11. the SSM serving path, falcon-mamba-7b at full width and all 64 layers
    (7.27 B float32 parameters), TF32 off: ``init_lm`` from seed 0 on the
    card (checked against the reference's weights), the golden-file run on
    the first two layers of the same model (one 2048-token prompt, 8 greedy
@@ -83,7 +93,7 @@ Run from a checkout of the repository on a machine with one CUDA card and
    x_proj/dt, scan and out_proj, then the main path ``serve`` (4 x 2048
    tokens, 32 each) beside its float32 bound; it launches no hand-written
    kernel, and without attention both planes compute the same thing;
-11. the hybrid serving path, recurrentgemma-2b at full width and all 26
+12. the hybrid serving path, recurrentgemma-2b at full width and all 26
    layers (3.31 B float32 parameters), TF32 off: ``init_lm`` from seed 0
    on the card (3,314,096,640 parameters, checked against the reference's
    weights, ``lam`` among them), the golden-file run on the first group of
@@ -94,7 +104,7 @@ Run from a checkout of the repository on a machine with one CUDA card and
    tokens, 32 each: the window's ring wraps) beside its float32 bound; it
    launches no hand-written kernel (local attention takes the reference's
    XLA route), and a torch-plane prefill gives its logits bitwise;
-12. the encoder-decoder serving path, whisper-small at full width and depth
+13. the encoder-decoder serving path, whisper-small at full width and depth
    (12 encoder and 12 decoder layers, 278,143,488 float32 parameters), TF32
    off: ``init_lm`` from seed 0 on the card (checked against the reference's
    weights, a cross-attention leaf among them, and the frames'
@@ -105,7 +115,7 @@ Run from a checkout of the repository on a machine with one CUDA card and
    not causal in the encoder, and never in decode), then the main path
    ``serve`` (4 x 1500 frames x 224 + 224 tokens) on both planes beside its
    float32 bounds;
-13. the M-RoPE VLM serving path, qwen2-vl-72b at full width, 12 of its 80
+14. the M-RoPE VLM serving path, qwen2-vl-72b at full width, 12 of its 80
    layers (13.02 B float32 parameters), TF32 off: ``init_lm`` from seed 0 on
    the card (its parameter count against the config's, checked against the
    reference's weights), the golden-file run on the first two layers of the
@@ -116,7 +126,7 @@ Run from a checkout of the repository on a machine with one CUDA card and
    launched 12 times in the prefill and never in decode), then the main path
    ``serve`` (4 x 2048 tokens, 32 each, the reference's text-only positions)
    on both planes beside its float32 bounds;
-14. the LM training path, stablelm-1.6b at full width in float32 with TF32
+15. the LM training path, stablelm-1.6b at full width in float32 with TF32
    off: 3 AdamW steps at the depth the reference's golden file was cut to
    (its pipeline tokens bitwise, losses, grad_norms and leaf sums within
    10x the port's CPU gap), then the main path at full width and depth,
@@ -204,6 +214,18 @@ NODE_GATHERS = {
                 "wts_hi|wts_lo|ver": (((4,), (4,), ()), 1)},
 }
 NODE_SHAPES = {NODE_NOWAIT: (1, 240, 2), NODE_MVCC: (1, 240, 10)}
+# the legacy PRNG mode (jax_threefry_partitionable=False): tests/data/stage_graph_golden.json's 24 rows (9 runs at
+# tests/test_sweep.py's grid), NOWAIT/SmallBank and MVCC/YCSB at the full spec (golden_legacy_prng.json) and four node
+# shards of NOWAIT/SmallBank hybrid 63, all through the deprecated sweep entry points
+LEGACY_STAGE_PATH = "legacy/stage_graph"
+LEGACY_NODE_PATH = "legacy/nowait/smallbank/node4"
+STAGE_KW = dict(n_nodes=2, coroutines=8, records_per_node=128, ticks=64, warmup=8)
+STAGE_CELLS = tuple((p, "smallbank", CODES) for p in ("nowait", "waitdie", "occ", "mvcc", "sundial")) + tuple(
+    (p, "ycsb", (21,)) for p in ("nowait", "occ", "sundial", "mvcc"))
+# kernel launches per batched tick of the other stage-graph protocols, as PER_TICK's: one lock_arbiter per
+# try_lock, one multi_read per gather_many
+LEGACY_PER_TICK = dict(PER_TICK, **{p: {"lock_arbiter": 1, "multi_read": n, "mvcc_version_select": 0,
+                                        "flash_attention": 0} for p, n in (("waitdie", 3), ("occ", 3), ("sundial", 8))})
 # H100 SXM peaks: the HBM3 rate (NVIDIA data sheet), and the INT32 issue rate
 # that bounds integer compares and selects: 132 SMs x 64 INT32 lanes per SM x
 # 1.98 GHz boost clock = 16.7e12 ops/s (the data sheet's 67 TFLOP/s float32
@@ -2198,12 +2220,12 @@ def main_path_spec(protocol, workload, plane, codes=CODES):
     )
 
 
-def show_rows(label, res, every=True):
+def show_rows(label, rows, warmup, every=True):
     """Each row's counters (or, with ``every`` False, the first four) and
-    its bucket's simulated ticks per wall second; fails on a metric that is
-    not finite."""
-    for i, r in enumerate(res.rows):
-        ticks = r["ticks"] + res.plan.buckets[r["bucket"]].grid_spec.warmup
+    its bucket's simulated ticks (``warmup`` + its own) per wall second;
+    fails on a metric that is not finite."""
+    for i, r in enumerate(rows):
+        ticks = r["ticks"] + warmup
         if every or i < 4:
             log(f"  {label} hybrid={r['hybrid']} commits={r['commits']} aborts={r['aborts']} "
                 f"throughput_mtps={r['throughput_mtps']} avg_latency_us={r['avg_latency_us']} "
@@ -2257,7 +2279,7 @@ def phase_sweep(counted):
     n_ticks = check_launches(SWEEP_PATH, "nowait", res, got)
     log(f"main path {SWEEP_PATH} (kernel plane, 64 configs in one bucket): {res.wall_s:.3f} s for {n_ticks} "
         f"batched ticks, {64 / res.wall_s:.3f} configs/s, launches {got}")
-    show_rows(SWEEP_PATH, res, every=False)
+    show_rows(SWEEP_PATH, res.rows, res.plan.spec.warmup, every=False)
     golden = golden_counters(SWEEP_PATH, res, "golden_nowait_smallbank_sweep64.json")
     if golden["spec"] != {"protocol": "nowait", "workload": "smallbank", "configs": [{"hybrid": c} for c in range(64)]}:
         raise AssertionError(f"golden_nowait_smallbank_sweep64.json holds another spec: {golden['spec']}")
@@ -2500,7 +2522,7 @@ def phase_node(counted):
     and CALVIN/SmallBank hybrid 63 (``layout="node"``), and the four codes
     on a 2 x 2 ``config_node`` mesh, each against its golden file, with
     launches per tick counted from 0; then one NOWAIT final store, node
-    against dense.  Returns the launches by path, and the wall s by path."""
+    against dense.  Returns the launches by path and the wall s by path."""
     import torch
 
     from repro_torch.api import ExperimentSpec
@@ -2560,7 +2582,7 @@ def phase_node(counted):
         f"{res.wall_s:.3f} s, {len(CODES) / res.wall_s:.3f} configs/s, launches {got}")
     if res.plan.layout != "config_node" or got != expect or {r["n_node_shards"] for r in res.rows} != {2}:
         raise AssertionError(f"{CONFIG_NODE_PATH}: layout {res.plan.layout}, kernel launches {got} != {expect}")
-    show_rows(CONFIG_NODE_PATH, res)
+    show_rows(CONFIG_NODE_PATH, res.rows, spec.warmup)
     golden_counters(CONFIG_NODE_PATH, res, "golden_nowait_smallbank.json")
     launches[CONFIG_NODE_PATH], walls[CONFIG_NODE_PATH] = got, res.wall_s
 
@@ -2584,6 +2606,116 @@ def phase_node(counted):
         f"(engine.run_sharded {t1 - t0:.3f} s, engine.run {t2 - t1:.3f} s)")
     walls["nowait/smallbank/node4 engine.run_sharded"], walls["nowait/smallbank/g1 engine.run"] = t1 - t0, t2 - t1
     log("node walls_s: " + json.dumps(walls))
+    return launches, walls
+
+
+def legacy_call(fn, counted, *args, legacy=True, **kw):
+    """``fn(*args, **kw)`` (a deprecated sweep entry point, its warning
+    silenced) in the legacy PRNG mode, or the default one, with every
+    kernel's launch count set to 0 just before and read just after:
+    (rows, launches by kernel, wall s)."""
+    import warnings
+
+    from repro_torch.core import prng
+
+    for f in counted:
+        f.launches = 0
+    t0 = time.perf_counter()
+    with prng.threefry_partitionable(not legacy), warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        out = fn(*args, **kw)  # rows hold Python values: the device has finished
+    return out, {f.__name__: f.launches for f in counted}, time.perf_counter() - t0
+
+
+def legacy_launches(path, protocol, got, n_ticks, per_tick):
+    expect = {name: per * n_ticks for name, per in per_tick[protocol].items()}
+    if got != expect:
+        raise AssertionError(f"{path}: kernel launches {got} != {expect}")
+
+
+def phase_legacy(counted, default_walls):
+    """The legacy PRNG mode on the kernel plane, through the deprecated
+    sweep entry points: ``run_grid`` over tests/data/stage_graph_golden.json's
+    24 rows (taken by the reference in that mode), NOWAIT/SmallBank and
+    MVCC/YCSB at the full spec on CODES against golden_legacy_prng.json
+    with the torch plane's counters equal, and ``run_cell_sharded`` on four
+    node shards of the one card for NOWAIT/SmallBank hybrid 63 against the
+    same file; each run's launches per tick checked, its wall beside the
+    same run in the default mode (``default_walls``: the full-size paths'
+    walls from earlier phases of this run; the stage-graph runs are run
+    again here).  Returns the launches by path."""
+    from repro_torch.api import ExperimentSpec
+    from repro_torch.core import sweep
+
+    default = ExperimentSpec(protocol="nowait", workload="smallbank")  # the full spec's ticks and warm-up
+    warmup = default.warmup
+    with open(os.path.join(ROOT, "tests", "data", "stage_graph_golden.json")) as f:
+        stage = json.load(f)
+    with open(os.path.join(ROOT, "src", "repro_torch", "data", "golden_legacy_prng.json")) as f:
+        golden = json.load(f)
+    launches, walls = {}, {}
+    total = {fn.__name__: 0 for fn in counted}
+    n_ticks = STAGE_KW["ticks"] + STAGE_KW["warmup"]
+    for protocol, workload, codes in STAGE_CELLS:
+        configs = [{"hybrid": c} for c in codes]
+        rows, got, wall = legacy_call(sweep.run_grid, counted, protocol, workload, configs, kernel_plane="kernel",
+                                      **STAGE_KW)
+        legacy_launches(f"{LEGACY_STAGE_PATH} {protocol}/{workload}", protocol, got, n_ticks, LEGACY_PER_TICK)
+        total = {name: total[name] + n for name, n in got.items()}
+        for r in rows:
+            want = stage[f"{protocol}/{workload}/{r['hybrid']}"]
+            if (r["commits"], r["aborts"]) != (want["commits"], want["aborts"]):
+                raise AssertionError(f"{LEGACY_STAGE_PATH} {protocol}/{workload}/{r['hybrid']}: "
+                                     f"{r['commits']}/{r['aborts']} != golden {want}")
+        _, _, wall_default = legacy_call(sweep.run_grid, counted, protocol, workload, configs, kernel_plane="kernel",
+                                         legacy=False, **STAGE_KW)
+        walls[f"{protocol}/{workload} stage grid"] = (wall, wall_default)
+        log(f"{LEGACY_STAGE_PATH} {protocol}/{workload} (kernel plane, {len(codes)} config(s), {n_ticks} ticks): "
+            f"{[(r['hybrid'], r['commits'], r['aborts']) for r in rows]} equal the golden rows; legacy "
+            f"{wall:.3f} s, default mode {wall_default:.3f} s; launches {got}")
+    log(f"{LEGACY_STAGE_PATH}: all {len(stage)} rows of tests/data/stage_graph_golden.json met on the kernel plane")
+    launches[LEGACY_STAGE_PATH] = total
+
+    for cell in golden["cells"]:
+        spec = cell["spec"]
+        protocol, workload, path = spec["protocol"], spec["workload"], f"legacy/{spec['protocol']}/{spec['workload']}"
+        if spec["configs"] != [{"hybrid": c} for c in CODES]:
+            raise AssertionError(f"golden_legacy_prng.json holds another spec: {spec}")
+        rows, got, wall = legacy_call(sweep.run_grid, counted, protocol, workload, spec["configs"],
+                                      kernel_plane="kernel")
+        n_ticks = rows[0]["ticks"] + warmup
+        legacy_launches(path, protocol, got, n_ticks, PER_TICK)
+        counters = [{k: r[k] for k in ("hybrid", "commits", "aborts")} for r in rows]
+        if counters != cell["rows"]:
+            raise AssertionError(f"{path}: counters {counters} != JAX golden {cell['rows']}")
+        rows_t, _, wall_t = legacy_call(sweep.run_grid, counted, protocol, workload, spec["configs"],
+                                        kernel_plane="torch")
+        for a, b in zip(rows, rows_t):
+            for k in ("hybrid", "commits", "aborts", "abort_rate", "throughput_mtps", "avg_round_trips"):
+                if a[k] != b[k]:
+                    raise AssertionError(f"{path}: planes disagree on {a['hybrid']} {k}: {a[k]} vs {b[k]}")
+        show_rows(path, rows, warmup)
+        walls[path] = (wall, default_walls[f"{protocol}/{workload}"])
+        walls[f"{path} torch"] = (wall_t, default_walls[f"{protocol}/{workload} torch"])
+        log(f"main path {path} (kernel plane, {len(CODES)} configs in one bucket, run_grid): legacy {wall:.3f} s, "
+            f"default mode {default_walls[f'{protocol}/{workload}']:.3f} s (phase 4); torch plane legacy {wall_t:.3f} s; "
+            f"launches {got}; counters equal golden_legacy_prng.json, planes agree bitwise")
+        launches[path] = got
+
+    want = next(r for r in golden["cells"][0]["rows"] if r["hybrid"] == "111111")
+    row, got, wall = legacy_call(sweep.run_cell_sharded, counted, "nowait", "smallbank", {"hybrid": 63},
+                                 devices=NODE_DEVICES, kernel_plane="kernel")
+    n_ticks = default.ticks + warmup
+    legacy_launches(LEGACY_NODE_PATH, "nowait", got, n_ticks, NODE_PER_TICK)
+    node_row_check(LEGACY_NODE_PATH, row, want, ("hybrid", "commits", "aborts"))
+    if row["n_node_shards"] != NODE_SHARDS:
+        raise AssertionError(f"{LEGACY_NODE_PATH}: {row['n_node_shards']} node shards")
+    walls[LEGACY_NODE_PATH] = (wall, default_walls[NODE_NOWAIT])
+    log(f"main path {LEGACY_NODE_PATH} (kernel plane, hybrid 63, {NODE_SHARDS} node shards on one card, "
+        f"run_cell_sharded): legacy {wall:.3f} s, default mode {default_walls[NODE_NOWAIT]:.3f} s (node phase), "
+        f"commits={row['commits']} aborts={row['aborts']} equal golden_legacy_prng.json (111111), launches {got}")
+    launches[LEGACY_NODE_PATH] = got
+    log("legacy walls_s (legacy, default): " + json.dumps(walls))
     return launches
 
 
@@ -2641,7 +2773,7 @@ def main() -> int:
     lap("kernels and profiles")
 
     launches = {k["name"]: {} for k in kernels}
-    configs_per_s = {}
+    configs_per_s, default_walls = {}, {}
     for protocol, workload, golden_file in PATHS:
         path = f"{protocol}/{workload}"
         # phase 4: the main path on the kernel plane, one batched run; launches counted from 0
@@ -2650,17 +2782,19 @@ def main() -> int:
         n_ticks = check_launches(path, protocol, res, got)
         log(f"main path {path} (kernel plane, {len(CODES)} configs in one bucket): {res.wall_s:.3f} s for "
             f"{n_ticks} batched ticks, {len(CODES) / res.wall_s:.3f} configs/s, launches {got}")
-        show_rows(f"{path} kernel", res)
+        show_rows(f"{path} kernel", res.rows, res.plan.spec.warmup)
         for name, n in got.items():
             launches[name][path] = n
         configs_per_s[f"{path} G={len(CODES)} kernel"] = len(CODES) / res.wall_s
+        default_walls[path] = res.wall_s
 
         # phase 5: the torch plane gives the same counters
         res_t = api.run(main_path_spec(protocol, workload, "torch"))
         log(f"main path {path} (torch plane, {len(CODES)} configs in one bucket): {res_t.wall_s:.3f} s, "
             f"{len(CODES) / res_t.wall_s:.3f} configs/s")
-        show_rows(f"{path} torch", res_t)
+        show_rows(f"{path} torch", res_t.rows, res_t.plan.spec.warmup)
         configs_per_s[f"{path} G={len(CODES)} torch"] = len(CODES) / res_t.wall_s
+        default_walls[f"{path} torch"] = res_t.wall_s
         for a, b in zip(res.rows, res_t.rows):
             for k in ("hybrid", "commits", "aborts", "abort_rate", "throughput_mtps", "avg_round_trips"):
                 if a[k] != b[k]:
@@ -2695,11 +2829,19 @@ def main() -> int:
     lap("calvin")
 
     # the node-sharded layouts: four node shards on the one card
-    for path, got in phase_node(counted).items():
+    node_launches, node_walls = phase_node(counted)
+    for path, got in node_launches.items():
+        for name, n in got.items():
+            launches[name][path] = n
+    default_walls[NODE_NOWAIT] = node_walls[NODE_NOWAIT]
+
+    lap("node layouts")
+    # the legacy PRNG mode through the deprecated sweep entry points
+    for path, got in phase_legacy(counted, default_walls).items():
         for name, n in got.items():
             launches[name][path] = n
 
-    lap("node layouts")
+    lap("legacy prng")
     # phase 7: the LM serving path (stablelm-1.6b at full width)
     for name, n in phase_serve(counted).items():
         launches[name][SERVE_PATH] = n

@@ -880,14 +880,16 @@ def summarize(ec: EngineConfig, cm: CostModel, st: Dict, n_ticks: Knob) -> Dict[
     commits = st["n_commit"].view(G, -1).sum(dim=1, dtype=torch.int32)
     aborts = st["n_abort"].view(G, -1).sum(dim=1, dtype=torch.int32)
     if isinstance(n_ticks, tuple):
-        sim_us = torch.tensor(n_ticks, dtype=torch.float32, device=commits.device) * cm.tick_us
+        throughput = commits / (torch.tensor(n_ticks, dtype=torch.float32, device=commits.device) * cm.tick_us)
     else:
-        sim_us = n_ticks * cm.tick_us
+        # the reference divides by a constant under jit, which XLA turns into a product with the
+        # constant's float32 reciprocal (up to an ulp from the quotient; ROADMAP.md C.16)
+        throughput = commits.float() * float(np.float32(1.0) / np.float32(n_ticks * cm.tick_us))
     per_commit = torch.clamp(commits, min=1)
     return {
         "commits": commits,
         "aborts": aborts,
-        "throughput_mtps": commits / sim_us,  # million txns/sec (txns per us)
+        "throughput_mtps": throughput,  # million txns/sec (txns per us)
         "avg_latency_us": st["lat_sum"].view(G, -1).sum(dim=1) / per_commit,
         "abort_rate": aborts / torch.clamp(commits + aborts, min=1),
         "avg_round_trips": st["rt_sum"].view(G, -1).sum(dim=1) / per_commit,

@@ -5,13 +5,27 @@ The JAX engine draws every transaction from
 ``fold_in(fold_in(PRNGKey(seed), lsid), txn_no)`` and the workloads then
 call ``split``, ``randint`` and ``uniform``.  A simulated commit history
 only matches the reference if every one of those bits does, so this module
-follows jax 0.9.0's sources in its default ``jax_threefry_partitionable``
-mode (``jax/_src/prng.py``: ``threefry2x32`` lowering, ``threefry_seed``,
-``iota_2x32_shape``, ``_threefry_split_foldlike``, ``_threefry_fold_in``,
-``_threefry_random_bits_partitionable``; ``jax/_src/random.py``:
-``_uniform``, ``_randint``, ``_truncated_normal``, ``_normal_real``; XLA's
-float32 ``erf_inv``, ``log``, ``exp``, ``pow``, ``sin`` and ``cos``).  The
-legacy mode (flag ``False``) is not implemented.
+follows jax 0.9.0's sources (``jax/_src/prng.py``: ``threefry2x32``
+lowering, ``threefry_seed``, ``iota_2x32_shape``, ``_threefry_fold_in``;
+``jax/_src/random.py``: ``_uniform``, ``_randint``, ``_truncated_normal``,
+``_normal_real``; XLA's float32 ``erf_inv``, ``log``, ``exp``, ``pow``,
+``sin`` and ``cos``) in both modes of its ``jax_threefry_partitionable``
+flag:
+
+* partitionable (``True``, jax's default): ``_threefry_split_foldlike`` and
+  ``_threefry_random_bits_partitionable`` hash the count pair ``(0, i)``
+  of element i and take ``y0 ^ y1`` (``split`` takes both words);
+* legacy (``False``, inside ``with threefry_partitionable(False):``):
+  ``_threefry_split_original`` and ``_threefry_random_bits_original``
+  hash ``iota(n)`` through ``threefry_2x32``, which pads an odd n with one
+  0, pairs the first half of the counts with the second and returns
+  ``concat(y0, y1)[:n]``: element i < h = ceil(n/2) is ``y0`` at
+  ``(i, i + h)``, element i >= h is ``y1`` at ``(i - h, i)``.  So a
+  shape-() draw is not the first element of a shape-(2,) draw there.
+
+``prng_key`` and ``fold_in`` are the same in both modes.  The
+transaction stage-graph counters in ``tests/data/stage_graph_golden.json``
+were taken in the legacy mode.
 
 A key is an int64 tensor ``(..., 2)`` holding two uint32 words; every
 function is vectorised over the leading batch dimensions.  torch has no
@@ -21,8 +35,11 @@ shift is masked back to 32 bits (an int64 product that wraps keeps its low
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
+import functools
 import math
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -30,6 +47,26 @@ import torch
 _M = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 _INT32_MIN, _INT32_MAX = -(2**31), 2**31 - 1
+# jax's ``jax_threefry_partitionable`` flag, per thread and context as jax's
+# own context manager sets it
+_PARTITIONABLE = contextvars.ContextVar("threefry_partitionable", default=True)
+
+
+def partitionable() -> bool:
+    """The active mode: True (jax's default) or False (legacy)."""
+    return _PARTITIONABLE.get()
+
+
+@contextlib.contextmanager
+def threefry_partitionable(flag: bool):
+    """``with threefry_partitionable(False):`` draws in jax's legacy mode
+    inside the block, as ``with jax.threefry_partitionable(False):`` does;
+    the mode before it comes back on exit."""
+    token = _PARTITIONABLE.set(bool(flag))
+    try:
+        yield
+    finally:
+        _PARTITIONABLE.reset(token)
 
 
 def _rotl(v, r: int):
@@ -61,8 +98,31 @@ def _hash_counts(keys, counts):
     return threefry2x32(k1, k2, 0, counts)
 
 
+def _legacy_blocks(n: int, device, start: int = 0, stop: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``threefry_2x32``'s count pairs for ``iota(n)`` (blocks ``start`` to
+    ``stop``, default all ceil(n/2)): the first ceil(n/2) counts against the
+    rest, the last of an odd n paired with a padded 0."""
+    h = (n + 1) // 2
+    x0 = torch.arange(start, h if stop is None else stop, dtype=torch.int64, device=device)
+    x1 = x0 + h
+    return x0, torch.where(x1 < n, x1, 0)
+
+
+def _legacy_bits(keys, n: int) -> torch.Tensor:
+    """``threefry_2x32(key, iota(n))`` for keys (..., 2) -> (..., n): both
+    words of ceil(n/2) blocks, ``concat(y0, y1)[:n]``."""
+    if n >= 2**32 - 1:
+        raise ValueError(f"legacy threefry: {n} elements need jax's multi-block path, which is not implemented")
+    x0, x1 = _legacy_blocks(n, keys.device)
+    extra = (1,) * x0.dim()
+    y0, y1 = threefry2x32(keys[..., 0].reshape(keys.shape[:-1] + extra),
+                          keys[..., 1].reshape(keys.shape[:-1] + extra), x0, x1)
+    return torch.cat([y0, y1], dim=-1)[..., :n]
+
+
 def prng_key(seed: int, device=None) -> torch.Tensor:
-    """``jax.random.PRNGKey(seed)`` for an int32 seed: words (0, seed mod 2**32)."""
+    """``jax.random.PRNGKey(seed)`` for an int32 seed: words (0, seed mod
+    2**32), in either mode."""
     seed = int(seed)
     if not _INT32_MIN <= seed <= _INT32_MAX:
         raise ValueError(f"prng_key: seed {seed} is outside int32 (the engine's seed knob type)")
@@ -72,8 +132,10 @@ def prng_key(seed: int, device=None) -> torch.Tensor:
 def fold_in(keys, data) -> torch.Tensor:
     """``jax.random.fold_in``: keys (..., 2), data int (...) -> (..., 2).
 
-    The reference hashes the count pair ``threefry_seed(data) = (0, data)``,
-    which is the foldlike ``split`` at count ``data``.
+    The reference hashes the count pair ``threefry_seed(data) = (0, data)``
+    through ``threefry_2x32`` in either mode, which is the foldlike
+    ``split`` at count ``data``: the engine's slot keys and CALVIN's epoch
+    keys are the same in both modes.
     """
     data = torch.as_tensor(data, device=keys.device).to(torch.int64) & _M
     y0, y1 = threefry2x32(keys[..., 0], keys[..., 1], 0, data)
@@ -81,7 +143,10 @@ def fold_in(keys, data) -> torch.Tensor:
 
 
 def split(keys, num: int = 2) -> torch.Tensor:
-    """``jax.random.split``: keys (..., 2) -> (..., num, 2)."""
+    """``jax.random.split``: keys (..., 2) -> (..., num, 2); in the legacy
+    mode ``threefry_2x32(key, iota(2 num))`` in rows of two words."""
+    if not partitionable():
+        return _legacy_bits(keys, 2 * num).reshape(keys.shape[:-1] + (num, 2))
     counts = torch.arange(num, dtype=torch.int64, device=keys.device)
     y0, y1 = _hash_counts(keys, counts)
     return torch.stack([y0, y1], dim=-1)
@@ -89,11 +154,64 @@ def split(keys, num: int = 2) -> torch.Tensor:
 
 def random_bits(keys, shape: Sequence[int]) -> torch.Tensor:
     """32 random bits per element: keys (..., 2) -> (...,) + shape, uint32
-    values in int64 (``bits1 ^ bits2`` of the partitionable scheme)."""
+    values in int64 (``bits1 ^ bits2`` of the partitionable mode,
+    ``threefry_2x32(key, iota(n))`` of the legacy one)."""
     shape = tuple(shape)
+    if not partitionable():
+        return _legacy_bits(keys, math.prod(shape)).reshape(keys.shape[:-1] + shape)
     counts = torch.arange(math.prod(shape), dtype=torch.int64, device=keys.device).reshape(shape)
     y0, y1 = _hash_counts(keys, counts)
     return y0 ^ y1
+
+
+@functools.lru_cache(maxsize=None)
+def _legacy_rows(shapes: Tuple[Tuple[int, ...], ...], device: str):
+    """``draw_counts``' legacy counts and picks, built once per pass layout and device."""
+    sizes = [math.prod(sh) for sh in shapes]
+    halves = torch.tensor([(n + 1) // 2 for n in sizes], dtype=torch.int64)[:, None]
+    n = torch.tensor(sizes, dtype=torch.int64)[:, None]
+    block = torch.arange(max(int(halves.max()), 1), dtype=torch.int64)[None, :]
+    c1 = block + halves
+    c1 = torch.where(c1 < n, c1, 0)
+    i = torch.arange(max(sizes), dtype=torch.int64)[None, :]
+    pick = torch.where(i < halves, i, block.shape[1] + i - halves)
+    pick = torch.where(i < n, pick, 0)
+    return block.to(device), c1.to(device), pick.to(device)
+
+
+def draw_counts(shapes: Sequence[Sequence[int]], device=None) -> Tuple[object, torch.Tensor, Optional[torch.Tensor]]:
+    """The counts one threefry pass hashes when row j of its keys draws
+    ``shapes[j]``, in the active mode: ``(c0, c1, pick)``, each row's
+    count pairs ``(c0, c1)`` (broadcast to (R, B)) and how its output words
+    make the draws (L = the largest size).
+
+    Partitionable: c0 = 0 and c1 = arange(L) for every row, pick None:
+    element i is ``y0 ^ y1`` at count i, so a smaller draw is the head of a
+    larger one.  Legacy: row j hashes its ceil(n_j/2) blocks at
+    ``(b, b + h_j)``, a count past n_j - 1 padded to 0, and element i is
+    ``concat(y0, y1)[pick[j, i]]``: y0 of block i below h_j, y1 of block
+    i - h_j above (pick (R, L); elements past n_j pick 0).
+    """
+    shapes = tuple(tuple(int(d) for d in sh) for sh in shapes)
+    if partitionable():
+        return 0, torch.arange(max(math.prod(sh) for sh in shapes), dtype=torch.int64, device=device), None
+    if max(math.prod(sh) for sh in shapes) >= 2**32 - 1:
+        raise ValueError("legacy threefry: a draw of 2**32 - 1 elements or more is not implemented")
+    return _legacy_rows(shapes, str(torch.device(device or "cpu")))
+
+
+def row_bits(keys, shapes: Sequence[Sequence[int]]) -> torch.Tensor:
+    """One threefry pass for a batch of draws: keys (..., R, 2), row j
+    drawing ``random_bits(keys[..., j, :], shapes[j])`` -> (..., R, L), L
+    the largest size; row j's first prod(shapes[j]) elements are its draw,
+    flattened, and the rest are not defined.  In the partitionable mode
+    this is ``random_bits(keys, (L,))``, op for op."""
+    c0, c1, pick = draw_counts(shapes, keys.device)
+    y0, y1 = threefry2x32(keys[..., 0:1], keys[..., 1:2], c0, c1)
+    if pick is None:
+        return y0 ^ y1
+    words = torch.cat([y0, y1], dim=-1)
+    return words.gather(-1, pick.expand(words.shape[:-1] + pick.shape[-1:]))
 
 
 def uniform_from_bits(bits, minval: float = 0.0, maxval: float = 1.0) -> torch.Tensor:
@@ -421,12 +539,25 @@ def truncated_normal(key, lower: float, upper: float, shape: Sequence[int], *, c
 
 def _chunked_draw(key, shape, chunk: int, name: str, fn) -> torch.Tensor:
     """float32 ``fn(bits)`` of one key's (2,) 32-bit draws over ``shape``,
-    ``chunk`` elements at a time."""
+    ``chunk`` elements at a time; in the legacy mode, chunks of ``chunk // 2``
+    blocks, each giving its y0 words to the first half of the draw and its
+    y1 words to the second.  ``fn`` must act elementwise."""
     shape = tuple(int(d) for d in shape)
     n = math.prod(shape)
-    if n >= 2**32:
+    legacy = not partitionable()
+    if n >= (2**32 - 1 if legacy else 2**32):  # the legacy iota is uint32: jax takes another path from 2**32 - 1 on
         raise ValueError(f"{name}: {n} elements need 64-bit counts, which are not implemented")
     out = torch.empty(n, dtype=torch.float32, device=key.device)
+    if legacy:
+        h = (n + 1) // 2
+        step = max(chunk // 2, 1)
+        for start in range(0, h, step):
+            blocks, c1 = _legacy_blocks(n, key.device, start, min(h, start + step))
+            y0, y1 = threefry2x32(key[..., 0], key[..., 1], blocks, c1)
+            out[start : start + blocks.numel()] = fn(y0)
+            tail = min(n, h + start + blocks.numel()) - (h + start)  # an odd n's last block has no y1 element
+            out[h + start : h + start + tail] = fn(y1[:tail])
+        return out.reshape(shape)
     for start in range(0, n, chunk):
         counts = torch.arange(start, min(n, start + chunk), dtype=torch.int64, device=key.device)
         y0, y1 = _hash_counts(key, counts)

@@ -143,3 +143,25 @@ def protocol_family(name: str) -> str:
     _ensure_builtins()
     entry = _REGISTRY.get(name)
     return entry.family if entry is not None else name
+
+
+class ProtocolsView(Mapping):
+    """Read-only live view of the registry, in registration order: the
+    reference's legacy ``PROTOCOLS[name].tick`` (entries expose ``.tick``)."""
+
+    def __getitem__(self, name: str) -> ProtocolEntry:
+        return get_protocol(name)
+
+    def __iter__(self):
+        return iter(protocol_names())
+
+    def __len__(self) -> int:
+        _ensure_builtins()
+        return len(_REGISTRY)
+
+    def __contains__(self, name) -> bool:
+        _ensure_builtins()
+        return name in _REGISTRY
+
+    def __repr__(self) -> str:
+        return f"ProtocolsView({protocol_names()})"

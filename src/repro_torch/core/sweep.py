@@ -23,10 +23,16 @@ part node-sharded (the ``config × node`` mesh), and :func:`_run_node` runs
 one config node-sharded.  One controller drives them: each part is one
 run on its device (or node mesh), one after the other.  The reference's
 jit caches and compile counters have no counterpart: nothing compiles.
+
+The reference's deprecated entry points :func:`run_grid`,
+:func:`run_grid_sharded` and :func:`run_cell_sharded` are here as shims
+over ``repro_torch.api`` with the reference's layout rules; each emits one
+``DeprecationWarning``.  New code calls ``repro_torch.api``.
 """
 from __future__ import annotations
 
 import itertools
+import warnings
 from typing import Any, Dict, Iterable, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -34,6 +40,7 @@ import numpy as np
 from repro_torch.core import registry
 from repro_torch.core.costmodel import N_HYBRID_STAGES, RPC, CostModel
 from repro_torch.core.engine import EngineConfig, node_mesh_config, uniform
+from repro_torch.core.planes import visible_devices
 from repro_torch.workloads import make_workload
 
 # per-workload knob defaults, mirroring each factory's signature
@@ -343,3 +350,127 @@ def plan_buckets(
             )
         )
     return buckets
+
+
+# ---------------------------------------------------------------------------
+# Deprecated entry points: shims over repro_torch.api
+# ---------------------------------------------------------------------------
+
+
+def _warn_legacy(name: str) -> None:
+    warnings.warn(
+        f"repro_torch.core.sweep.{name} is deprecated: use repro_torch.api "
+        "(ExperimentSpec -> plan -> execute); this shim delegates to it",
+        DeprecationWarning,
+        stacklevel=3,
+    )
+
+
+def _legacy_grid(
+    protocol: str,
+    workload: str,
+    configs: Iterable[Dict],
+    *,
+    devices: Optional[Sequence] = None,
+    node_shards: Optional[int] = None,
+    **kw,
+) -> List[Dict]:
+    """The reference's ``run_grid`` signature on ``api.plan``/``execute``,
+    with its layout rules: ``node_shards > 1`` -> the ``config × node``
+    mesh (the devices passed explicitly, their count a multiple of
+    ``node_shards``); more than one device -> config-axis sharding;
+    otherwise dense (on the one device, if one is given).  ``kw`` holds
+    the other ``ExperimentSpec`` fields, ``device`` among them."""
+    from repro_torch import api
+
+    devices = list(devices) if devices is not None else None
+    node_shards = node_shards if node_shards and node_shards > 1 else None
+    if node_shards is not None:
+        n_dev = len(devices) if devices is not None else 1
+        if n_dev % node_shards:
+            raise ValueError(f"node_shards={node_shards} must divide the device count ({n_dev})")
+        layout = api.CONFIG_NODE
+    elif devices is not None and len(devices) > 1:
+        layout = api.CONFIG
+    else:
+        layout = api.DENSE
+    spec = api.ExperimentSpec(
+        protocol=protocol,
+        workload=workload,
+        configs=tuple(dict(c) for c in configs),
+        devices=tuple(devices) if devices is not None else None,
+        node_shards=node_shards,
+        layout=layout,
+        **kw,
+    )
+    return api.execute(api.plan(spec)).rows
+
+
+def run_grid(
+    protocol: str,
+    workload: str,
+    configs: Iterable[Dict],
+    *,
+    devices: Optional[Sequence] = None,
+    node_shards: Optional[int] = None,
+    **kw,
+) -> List[Dict]:
+    """DEPRECATED shim: use :mod:`repro_torch.api` (``plan``/``execute``).
+
+    The reference's layout rules on the planner (:func:`_legacy_grid`), so
+    the rows are ``api.execute``'s.  Emits one :class:`DeprecationWarning`.
+    """
+    _warn_legacy("run_grid")
+    return _legacy_grid(protocol, workload, configs, devices=devices, node_shards=node_shards, **kw)
+
+
+def run_grid_sharded(
+    protocol: str,
+    workload: str,
+    configs: Iterable[Dict],
+    *,
+    devices: Optional[Sequence] = None,
+    **kw,
+) -> List[Dict]:
+    """DEPRECATED shim: use :mod:`repro_torch.api` with ``devices="auto"``.
+
+    ``devices`` defaults to every visible device of the spec's ``device``
+    type (the reference's ``jax.devices()``); on one device this is the
+    dense run.
+    """
+    _warn_legacy("run_grid_sharded")
+    from repro_torch import api
+
+    if devices is None:
+        devices = visible_devices(kw.get("device", api.ExperimentSpec.device))
+    return _legacy_grid(protocol, workload, configs, devices=list(devices), **kw)
+
+
+def run_cell_sharded(
+    protocol: str,
+    workload: str,
+    config: Optional[Dict] = None,
+    *,
+    node_shards: Optional[int] = None,
+    devices: Optional[Sequence] = None,
+    **kw,
+) -> Dict:
+    """DEPRECATED shim: use :mod:`repro_torch.api` with ``layout="node"``.
+
+    One run of ``config`` with the simulated ``n_nodes`` axis sharded over
+    ``devices``, or over the first ``node_shards`` visible devices (their
+    count must divide ``n_nodes``); returns the node row.
+    """
+    _warn_legacy("run_cell_sharded")
+    from repro_torch import api
+
+    spec = api.ExperimentSpec(
+        protocol=protocol,
+        workload=workload,
+        configs=(dict(config or {}),),
+        devices=tuple(devices) if devices is not None else None,
+        node_shards=node_shards,
+        layout=api.NODE,
+        **kw,
+    )
+    return api.execute(api.plan(spec)).rows[0]

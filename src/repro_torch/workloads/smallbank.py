@@ -16,6 +16,8 @@ from repro_torch.workloads.util import column, imin
 RW = 2  # record: (checking, savings)
 K = 2  # max ops per txn
 HOT_FRAC = 0.25  # fraction of accesses hitting the hot 100 accounts
+# the draw shapes of gen's batched pass: randint(k1, ()) twice, randint(k3 and k4, (2,)) twice each, uniform(k2, (2,))
+_SHAPES = ((),) * 2 + ((K,),) * 5
 
 
 def make_smallbank(n_records, hot_accounts: int = 100, exec_ticks=1) -> Workload:
@@ -28,14 +30,16 @@ def make_smallbank(n_records, hot_accounts: int = 100, exec_ticks=1) -> Workload
 
         The reference draws ``split(key, 5)``, ``randint`` three times and
         ``uniform`` once; here the independent threefry passes of those
-        draws run batched (four passes in all).  A shape-() draw is the
-        count-0 element of the same key's shape-(2,) draw, so every draw
-        takes the first one or two words of a 2-wide block.
+        draws run batched (four passes in all).  The last pass draws the
+        shape-() ``randint`` of k1 beside the (2,) draws, each row at its
+        own shape's counts (``prng.row_bits``: in the partitionable mode a
+        shape-() draw is the count-0 element of a shape-(2,) one, in the
+        legacy mode it is not).
         """
         sub = prng.split(keys, 5)  # k1..k5
         # randint's (higher, lower) keys of k1, k3, k4
         halves = prng.split(torch.stack((sub[:, 0], sub[:, 2], sub[:, 3]), dim=1), 2)
-        bits = prng.random_bits(torch.cat([halves.flatten(1, 2), sub[:, 1:2]], dim=1), (2,))
+        bits = prng.row_bits(torch.cat([halves.flatten(1, 2), sub[:, 1:2]], dim=1), _SHAPES)
         # bits rows: k1 hi/lo, k3 hi/lo, k4 hi/lo, k2
         n_rec = column(per_row, n_records)
         ttype = prng.randint_from_bits(bits[:, 0, 0], bits[:, 1, 0], 0, 6)

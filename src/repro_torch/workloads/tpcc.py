@@ -18,6 +18,8 @@ from repro_torch.workloads.util import column, dedup_keys, imax, map_configs
 
 RW = 4
 K = 15
+# the draw shapes of gen's batched pass: randint(k1, ()) twice, randint(k3 and k4, (K,)) twice each, uniform(k2, (K,))
+_SHAPES = ((),) * 2 + ((K,),) * 5
 
 
 def make_tpcc_neworder(
@@ -36,12 +38,14 @@ def make_tpcc_neworder(
 
         The reference draws ``split(key, 5)``, then ``randint(k1, ())``,
         ``uniform(k2)``, ``randint(k3)`` and ``randint(k4)`` of shape (K,);
-        their seven threefry passes run here as one.  The shape-() draw is
-        the count-0 element of the same key's shape-(K,) draw.
+        their seven threefry passes run here as one, each row at its own
+        shape's counts (``prng.row_bits``: in the partitionable mode the
+        shape-() draw is the count-0 element of a shape-(K,) one, in the
+        legacy mode it is not, and K = 15 pads the legacy blocks).
         """
         sub = prng.split(keys, 5)  # k1..k5 (k5 unused, as in the reference)
         halves = prng.split(sub[:, [0, 2, 3]], 2)  # randint's (higher, lower) keys of k1, k3, k4
-        bits = prng.random_bits(torch.cat([halves.flatten(1, 2), sub[:, 1:2]], dim=1), (K,))
+        bits = prng.row_bits(torch.cat([halves.flatten(1, 2), sub[:, 1:2]], dim=1), _SHAPES)
         # bits rows: k1 hi/lo, k3 hi/lo, k4 hi/lo, k2
         n_items = prng.randint_from_bits(bits[:, 0, 0], bits[:, 1, 0], 5, K + 1)
         wh = (slot * 7 + node) % n_warehouses  # home warehouse

@@ -38,7 +38,9 @@ def make_ycsb(
 
         The reference draws ``split(key, 4)``, then ``uniform(k1)``,
         ``randint(k2)``, ``randint(k3)`` and ``uniform(k4)``, each of shape
-        (K,); their six independent threefry passes run here as one.
+        (K,); their six independent threefry passes run here as one (in
+        the legacy mode each row's K words from K/2 blocks, as the
+        reference's).
         """
         sub = prng.split(keys, 4)  # k1..k4
         halves = prng.split(sub[:, 1:3], 2)  # randint's (higher, lower) keys of k2, k3
