@@ -84,7 +84,18 @@ Run from a checkout of the repository on a machine with one CUDA card and
    router, dispatch, expert products and combine, then the main path
    ``serve`` (4 x 2048 tokens, 32 each) on both planes, 6
    ``flash_attention`` launches per prefill, each plane's routing per layer;
-11. the SSM serving path, falcon-mamba-7b at full width and all 64 layers
+11. the same model on a 1 x 4 mesh of shards on the one card, on phase 10's
+   parameters (``sharding.AxisRules`` over ``launch.mesh.make_host_mesh(1,
+   4, devices=("cuda",) * 4)``: the expert-parallel MoE, 4 experts a shard,
+   and the sequence-sharded KV cache, through ``train.steps``' builders):
+   the golden-file run on its first two layers through the mesh (routing,
+   logits and decided tokens), then 4 x 2048 tokens x 32 with and without
+   the mesh in turns (prefill and decode times, a profiled prefill and
+   decode step's device busy and idle share, peak memory, 6
+   ``flash_attention`` launches per prefill, the paths' logits; the mesh
+   may not hold a second copy of a weight), then the dry run's 56 (arch x
+   shape x mesh) cells on the logical production meshes;
+12. the SSM serving path, falcon-mamba-7b at full width and all 64 layers
    (7.27 B float32 parameters), TF32 off: ``init_lm`` from seed 0 on the
    card (checked against the reference's weights), the golden-file run on
    the first two layers of the same model (one 2048-token prompt, 8 greedy
@@ -93,7 +104,7 @@ Run from a checkout of the repository on a machine with one CUDA card and
    x_proj/dt, scan and out_proj, then the main path ``serve`` (4 x 2048
    tokens, 32 each) beside its float32 bound; it launches no hand-written
    kernel, and without attention both planes compute the same thing;
-12. the hybrid serving path, recurrentgemma-2b at full width and all 26
+13. the hybrid serving path, recurrentgemma-2b at full width and all 26
    layers (3.31 B float32 parameters), TF32 off: ``init_lm`` from seed 0
    on the card (3,314,096,640 parameters, checked against the reference's
    weights, ``lam`` among them), the golden-file run on the first group of
@@ -104,7 +115,7 @@ Run from a checkout of the repository on a machine with one CUDA card and
    tokens, 32 each: the window's ring wraps) beside its float32 bound; it
    launches no hand-written kernel (local attention takes the reference's
    XLA route), and a torch-plane prefill gives its logits bitwise;
-13. the encoder-decoder serving path, whisper-small at full width and depth
+14. the encoder-decoder serving path, whisper-small at full width and depth
    (12 encoder and 12 decoder layers, 278,143,488 float32 parameters), TF32
    off: ``init_lm`` from seed 0 on the card (checked against the reference's
    weights, a cross-attention leaf among them, and the frames'
@@ -115,7 +126,7 @@ Run from a checkout of the repository on a machine with one CUDA card and
    not causal in the encoder, and never in decode), then the main path
    ``serve`` (4 x 1500 frames x 224 + 224 tokens) on both planes beside its
    float32 bounds;
-14. the M-RoPE VLM serving path, qwen2-vl-72b at full width, 12 of its 80
+15. the M-RoPE VLM serving path, qwen2-vl-72b at full width, 12 of its 80
    layers (13.02 B float32 parameters), TF32 off: ``init_lm`` from seed 0 on
    the card (its parameter count against the config's, checked against the
    reference's weights), the golden-file run on the first two layers of the
@@ -126,7 +137,7 @@ Run from a checkout of the repository on a machine with one CUDA card and
    launched 12 times in the prefill and never in decode), then the main path
    ``serve`` (4 x 2048 tokens, 32 each, the reference's text-only positions)
    on both planes beside its float32 bounds;
-15. the LM training path, stablelm-1.6b at full width in float32 with TF32
+16. the LM training path, stablelm-1.6b at full width in float32 with TF32
    off: 3 AdamW steps at the depth the reference's golden file was cut to
    (its pipeline tokens bitwise, losses, grad_norms and leaf sums within
    10x the port's CPU gap), then the main path at full width and depth,
@@ -243,6 +254,11 @@ SERVE_PATH = "serve/stablelm-1.6b"
 MOE_ARCH = "llama4-scout-17b-a16e"
 MOE_LAYERS = 6
 MOE_SERVE_PATH = "serve/llama4-scout-17b-a16e"
+# the same model and requests on a 1 x 4 mesh of shards on the one card (sharding.AxisRules over
+# launch.mesh.make_host_mesh(1, 4, devices=("cuda",) * 4)): the expert-parallel MoE (16 experts, 4 a shard) and
+# the sequence-sharded KV cache (S = prompt + generated tokens, 4 | S), through train.steps' builders
+MESH_SERVE_PATH = "serve/llama4-scout-17b-a16e@1x4"
+MESH_SHAPE = (1, 4)
 # the SSM serving main path: falcon-mamba-7b at full width and all 64 layers (7.27 B float32 parameters,
 # 29.1 GB), the same requests as SERVE
 SSM_ARCH = "falcon-mamba-7b"
@@ -1427,10 +1443,188 @@ def phase_serve_moe(counted):
     log(f"{MOE_SERVE_PATH}: prefill logits of the planes within {gap:.3e} (tolerance {tol}); "
         f"logits std {float(k.logits[0].std()):.3f}; prefill {k.prefill_ms / p_bound:.2f}x its bound "
         f"{p_bound:.3f} ms, decode {k.decode_ms_per_step / d_bound:.2f}x its bound {d_bound:.3f} ms")
-    del params, k, t, rk, rt
+    del k, t, rk, rt
     gc.collect()
     torch.cuda.empty_cache()
-    return got
+    return got, params
+
+
+def builder_serve(cfg, params, shd, B, P, G, seed=0):
+    """serve()'s requests and greedy loop through ``train.steps``'
+    builders on ``shd``'s mesh (None: one device), kernel plane: prompts
+    ``randint(PRNGKey(seed + 1))``, a prefill with G slots of headroom, G - 1
+    decode steps; the prefill and decode times of the loop, synchronised."""
+    import types
+
+    import torch
+
+    from repro_torch.core import prng
+    from repro_torch.train.steps import build_decode_step, build_prefill
+
+    prefill, decode = build_prefill(cfg, shd), build_decode_step(cfg, shd)
+    prompts = prng.randint(prng.prng_key(seed + 1, "cuda"), (B, P), 0, cfg.vocab_size)
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = prefill(params, {"tokens": prompts}, P + G, plane="kernel")
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        tok = logits.argmax(-1)
+        out, steps = [tok], [logits]
+        for _ in range(G - 1):
+            logits, cache = decode(params, cache, {"token": tok})
+            tok = logits.argmax(-1)
+            out.append(tok)
+            steps.append(logits)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    logits = torch.stack(steps)
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError("builder_serve: non-finite logits")
+    return types.SimpleNamespace(prompts=prompts, tokens=torch.stack(out, 1), logits=logits,
+                                 prefill_ms=(t1 - t0) * 1e3, decode_ms_per_step=(t2 - t1) * 1e3 / max(G - 1, 1))
+
+
+def phase_serve_moe_mesh(counted, params):
+    """llama4-scout at full width on a 1 x 4 mesh of shards on the one card,
+    on the MoE phase's parameters (no second init): the golden-file run on
+    the first two layers through the mesh (routing held where the
+    reference's margin allows, logits and decided tokens); then at 6 layers
+    and SERVE the builders' prefill and decode with and without the mesh in
+    turns (times, device busy and idle share of a profiled prefill and
+    decode step, peak memory, the paths' logits), the mesh path's launches
+    counted from 0: one flash_attention per prefill layer, no other kernel;
+    the mesh path may exceed the unsharded path's peak by less than one
+    shard's slice of one expert weight (so no shard copied a weight); then
+    the dry run over every (arch x shape x mesh) cell.  Returns the mesh
+    path's launches by kernel."""
+    import dataclasses
+    import gc
+
+    import torch
+
+    from repro_torch.configs import ARCH_IDS, SHAPES, get_config
+    from repro_torch.core import prng
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.layers import moe
+    from repro_torch.models.lm import LM
+    from repro_torch.sharding import AxisRules
+    from repro_torch.train.steps import build_decode_step, build_prefill
+
+    cfg = params.cfg
+    with open(os.path.join(ROOT, "src", "repro_torch", "data", "golden_serve_llama4_scout.json")) as f:
+        golden = json.load(f)
+    tol, router_gap = golden["tolerance"]["logits"], golden["port_cpu_gap"]["router_logits"]
+    shd = AxisRules(make_host_mesh(*MESH_SHAPE, devices=("cuda",) * (MESH_SHAPE[0] * MESH_SHAPE[1])),
+                    get_config(MOE_ARCH)[1])
+    home = params.embed.device
+    if any(d != home for d in shd.mesh.devices.flat):
+        raise AssertionError(f"{MESH_SERVE_PATH}: mesh {shd.mesh} is not all on the parameters' device {home}")
+    log(f"serve moe mesh: {shd.mesh}, {cfg.n_experts // MESH_SHAPE[1]} experts a shard")
+
+    # (a) the golden run through the mesh: the first two layers of the same model
+    cfg2 = dataclasses.replace(cfg, n_layers=golden["n_layers"])
+    two = LM(cfg2, params.embed, params.final_norm, params.lm_head, list(params.layers[: cfg2.n_layers]))
+    with moe.Record() as rec:
+        g = builder_serve(cfg2, two, shd, golden["batch"], golden["prompt_len"], golden["gen_len"], golden["seed"])
+    for layer, ref in enumerate(golden["routing"]):
+        mine = prefill_route(rec, cfg2, layer, golden["batch"] * golden["prompt_len"])
+        held = ref["margin"] > 10 * router_gap
+        same = (mine["loads"], mine["dropped"]) == (ref["loads"], ref["dropped"])
+        log(f"  golden routing on the mesh, layer {layer}: dropped {mine['dropped']} of {sum(mine['loads'])} "
+            f"(reference {ref['dropped']}), loads {'equal' if mine['loads'] == ref['loads'] else mine['loads']}"
+            + ("" if held else ": not held (margin)"))
+        if held and not same:
+            raise AssertionError(f"{MESH_SERVE_PATH} golden: layer {layer} routes {mine} where the reference routes "
+                                 f"{ref}")
+    err = check_golden(g, golden, tol)
+    log(f"{MESH_SERVE_PATH} golden ({golden['batch']} x {golden['prompt_len']}, {golden['gen_len']} steps, "
+        f"{cfg2.n_layers} layers, S = {golden['prompt_len'] + golden['gen_len']} over {MESH_SHAPE[1]} shards): "
+        f"logits within {err:.3e} of the JAX reference (tolerance {tol}), tokens {g.tokens.tolist()}")
+    del two, g, rec
+
+    # (b) the main path at 6 layers and SERVE, without and with the mesh, in turns (A B B A); a profiled
+    # prefill and decode step of each path before its first timed run
+    B, S, G = SERVE["batch"], SERVE["prompt_len"], SERVE["gen_len"]
+    if (S + G) % MESH_SHAPE[1]:
+        raise AssertionError(f"{MESH_SERVE_PATH}: S = {S + G} does not split over {MESH_SHAPE[1]} shards")
+    expect = {fn.__name__: 0 for fn in counted}
+    expect["flash_attention"] = cfg.n_layers
+    res, prof = {"unsharded": [], "1x4": []}, {}
+    for name, rules in (("unsharded", None), ("1x4", shd), ("1x4", shd), ("unsharded", None)):
+        if name not in prof:
+            prefill, decode = build_prefill(cfg, rules), build_decode_step(cfg, rules)
+            with torch.inference_mode():
+                prompts = prng.randint(prng.prng_key(1, "cuda"), (B, S), 0, cfg.vocab_size)
+                (logits, cache), p_wall, p_busy, p_ops, _, _ = device_busy(
+                    lambda: prefill(params, {"tokens": prompts}, S + G, plane="kernel"))
+                tok = logits.argmax(-1)
+                decode(params, cache, {"token": tok})  # warm-up: writes slot S, which the next call rewrites
+                _, d_wall, d_busy, d_ops, _, _ = device_busy(lambda: decode(params, cache, {"token": tok}))
+                del logits, cache
+            prof[name] = {"prefill_profiled_wall_ms": p_wall, "prefill_device_busy_ms": p_busy,
+                          "prefill_idle_share": 1 - p_busy / p_wall, "prefill_device_ops": p_ops,
+                          "decode_step_profiled_wall_ms": d_wall, "decode_step_device_busy_ms": d_busy,
+                          "decode_step_idle_share": 1 - d_busy / d_wall, "decode_step_device_ops": d_ops}
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        for fn in counted:
+            fn.launches = 0
+        r = builder_serve(cfg, params, rules, B, S, G)
+        got = {fn.__name__: fn.launches for fn in counted}
+        if got != expect:  # (c) one flash_attention per prefill layer, no other kernel, on either path
+            raise AssertionError(f"{MESH_SERVE_PATH if rules else MOE_SERVE_PATH}: launches {got} != {expect}")
+        if rules is not None and not res["1x4"]:
+            mesh_got = got
+        r.peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        res[name].append(r)
+        log(f"main path {MESH_SERVE_PATH if rules is not None else MOE_SERVE_PATH + ' (builders, no mesh)'} "
+            f"({cfg.n_layers} layers, B={B}, prompt {S}, {G} tokens each, kernel plane): prefill "
+            f"{r.prefill_ms:.3f} ms, decode {r.decode_ms_per_step:.3f} ms/step, peak {r.peak_gb:.3f} GB, "
+            f"launches {got}")
+    for name, runs in res.items():
+        prof[name].update(prefill_ms=[r.prefill_ms for r in runs], peak_gb=[r.peak_gb for r in runs],
+                          decode_ms_per_step=[r.decode_ms_per_step for r in runs])
+    log("serve moe mesh profile: " + json.dumps(prof))
+    u, m = res["unsharded"][0], res["1x4"][0]
+    gap_prefill = float((u.logits[0] - m.logits[0]).abs().max())
+    same_in = 1  # steps whose inputs (every earlier token) agree on both paths
+    while same_in < G and torch.equal(u.tokens[:, :same_in], m.tokens[:, :same_in]):
+        same_in += 1
+    gap = float((u.logits[:same_in] - m.logits[:same_in]).abs().max())
+    if gap > tol:
+        raise AssertionError(f"{MESH_SERVE_PATH}: logits {gap} off the unsharded path's (tolerance {tol})")
+    mg = margins(u.logits)
+    for b in range(B):
+        n = decided_steps(mg[:, b].tolist(), tol)
+        if u.tokens[b, :n].tolist() != m.tokens[b, :n].tolist():
+            raise AssertionError(f"{MESH_SERVE_PATH}: request {b}: greedy tokens differ within the first {n} steps")
+    # a shard that copied its expert weights would add at least one shard's slice of one layer's wg
+    slice_gb = params.layers[0].moe.wg[: cfg.n_experts // MESH_SHAPE[1]].nbytes / 1e9
+    extra = max(prof["1x4"]["peak_gb"]) - min(prof["unsharded"]["peak_gb"])
+    if extra >= slice_gb:
+        raise AssertionError(f"{MESH_SERVE_PATH}: peak {extra:.3f} GB over the unsharded path's: a weight copy")
+    log(f"{MESH_SERVE_PATH}: launches {mesh_got}; prefill logits within {gap_prefill:.3e} of the unsharded path's, "
+        f"logits of the first {same_in} steps within {gap:.3e} (tolerance {tol}); tokens equal over the decided "
+        f"steps ({int((u.tokens == m.tokens).sum())} of {B * G} equal); peak {extra:+.3f} GB against the unsharded "
+        f"path (one shard's expert slice {slice_gb:.3f} GB)")
+    del res, u, m
+
+    # (d) the dry run: every (arch x shape x mesh) cell laid out on the logical production meshes
+    t0 = time.perf_counter()
+    recs = [dryrun.run_cell(a, s, mp) for a in ARCH_IDS for s in SHAPES for mp in (False, True)]
+    wall = time.perf_counter() - t0
+    errors = [r for r in recs if r["status"] == "error"]
+    if errors or len(recs) != 56:
+        raise AssertionError(f"dry run: {len(recs)} records, errors "
+                             f"{[(r['arch'], r['shape'], r['error']) for r in errors]}")
+    n_ok = sum(r["status"] == "ok" for r in recs)
+    scout = next(r for r in recs if (r["arch"], r["shape"], r["mesh"]) == (MOE_ARCH, "train_4k", "16x16"))
+    log(f"dry run: {len(recs)} cells in {wall:.3f} s, {n_ok} ok, {len(recs) - n_ok} skip; {MOE_ARCH} train_4k 16x16: "
+        f"{scout['params_bytes_per_device']:,} parameter bytes a device, {scout['per_device_bytes']:,} in all")
+    return mesh_got
 
 
 def ssm_serve_work(cfg, n_params, B, S):
@@ -2848,10 +3042,16 @@ def main() -> int:
 
     lap("serve stablelm")
     # the MoE serving path (llama4-scout-17b-a16e at full width, 6 layers)
-    for name, n in phase_serve_moe(counted).items():
+    got, moe_params = phase_serve_moe(counted)
+    for name, n in got.items():
         launches[name][MOE_SERVE_PATH] = n
 
     lap("serve moe")
+    # the same model on a 1 x 4 mesh of shards on the one card, on the MoE phase's parameters
+    for name, n in phase_serve_moe_mesh(counted, moe_params).items():
+        launches[name][MESH_SERVE_PATH] = n
+    del moe_params
+    lap("serve moe 1x4")
     # the SSM serving path (falcon-mamba-7b at full width and depth)
     for name, n in phase_serve_ssm(counted).items():
         launches[name][SSM_SERVE_PATH] = n

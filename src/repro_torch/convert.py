@@ -96,34 +96,41 @@ def _put(tree: Dict, path, value):
     node[path[-1]] = value
 
 
-def stack_named(named: Dict[str, torch.Tensor], cfg: Optional[ArchConfig] = None) -> Dict:
+def _stack_tensors(ts):
+    return torch.stack([t.detach() for t in ts])
+
+
+def stack_named(named: Dict, cfg: Optional[ArchConfig] = None, stack=_stack_tensors) -> Dict:
     """The port's flat name map -> the reference's tree (layers stacked; a
     hybrid ``cfg``'s in groups and a tail), detached tensors on the map's
-    devices."""
+    devices.  ``stack`` makes a stacked leaf of its layers' values (a list;
+    ``models/lm.param_specs`` stacks specs); other leaves are taken as they
+    are (tensors detached)."""
     tree: Dict = {}
-    stacks: Dict[str, Dict[int, Dict]] = {}  # stack -> layer -> {path below it: tensor}
+    stacks: Dict[str, Dict[int, Dict]] = {}  # stack -> layer -> {path below it: leaf}
+    leaf = lambda t: t.detach() if isinstance(t, torch.Tensor) else t  # noqa: E731
     for name, t in named.items():
         parts = name.split(".")
         if parts[0] in STACKS:
-            stacks.setdefault(parts[0], {}).setdefault(int(parts[1]), {})[tuple(parts[2:])] = t.detach()
+            stacks.setdefault(parts[0], {}).setdefault(int(parts[1]), {})[tuple(parts[2:])] = leaf(t)
         else:
-            _put(tree, parts, t.detach())
+            _put(tree, parts, leaf(t))
     layers = stacks.pop("layers", None)
-    for stack, by_layer in stacks.items():
+    for name, by_layer in stacks.items():
         for path in by_layer[0]:
-            _put(tree, (stack,) + path, torch.stack([by_layer[i][path] for i in range(len(by_layer))]))
+            _put(tree, (name,) + path, stack([by_layer[i][path] for i in range(len(by_layer))]))
     if not layers:
         return tree
     if cfg is None or not cfg.is_hybrid:
         for path in layers[0]:
-            _put(tree, ("layers",) + path, torch.stack([layers[i][path] for i in range(len(layers))]))
+            _put(tree, ("layers",) + path, stack([layers[i][path] for i in range(len(layers))]))
         return tree
     pat = cfg.block_pattern
     n_full = cfg.n_layers // len(pat)
     for j, kind in enumerate(pat):
         for path in layers[j]:
             _put(tree, ("groups", f"g{j}_{kind}") + path,
-                 torch.stack([layers[len(pat) * l + j][path] for l in range(n_full)]))
+                 stack([layers[len(pat) * l + j][path] for l in range(n_full)]))
     tree["tail"] = [{} for _ in range(cfg.n_layers - len(pat) * n_full)]
     for i, node in enumerate(tree["tail"]):
         for path, t in layers[len(pat) * n_full + i].items():

@@ -13,8 +13,14 @@ kernel.  Local attention takes the reference's XLA route on every plane
 (``models.lm._attention``): no kernel takes a window.  So does an
 encoder-decoder's cross-attention (``flash_attention_xla`` over the
 encoder's states in the forward and prefill, ``decode_attn_cached``
-without a write over all of them in decode), as in the reference.  The
-sequence-sharded decode branch waits (ROADMAP.md A.12).
+without a write over all of them in decode), as in the reference.
+
+Given an ``AxisRules`` whose ``kv_seq`` resolves to a mesh axis, decode
+attention runs sequence-sharded (flash-decoding, the reference's
+``shard_map`` branch): shard i of n holds cache positions [i S/n,
+(i+1) S/n), each shard's partials (``_gqa_partials``) are computed on its
+device and combined on the cache's device (``combine_partials``).  The
+cache stays one tensor: a shard on the cache's device reads a view of it.
 """
 from __future__ import annotations
 
@@ -26,7 +32,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.layers.common import ParamSet
-from repro_torch.sharding import dense_init, zeros_init
+from repro_torch.sharding import P, dense_init, zeros_init
 
 
 class Attention(ParamSet):
@@ -42,17 +48,17 @@ def init_attn(key, cfg: ArchConfig, dtype=torch.float32, cross: bool = False) ->
     values (ROADMAP.md C.13), in tensors of its own."""
     D, H, KV, Dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     p = {
-        "wq": dense_init(key, "wq", (D, H * Dh), dtype),
-        "wk": dense_init(key, "wk", (D, KV * Dh), dtype),
-        "wv": dense_init(key, "wv", (D, KV * Dh), dtype),
-        "wo": dense_init(key, "wo", (H * Dh, D), dtype),
+        "wq": dense_init(key, "wq", (D, H * Dh), P("embed", "heads"), dtype),
+        "wk": dense_init(key, "wk", (D, KV * Dh), P("embed", "kv_heads"), dtype),
+        "wv": dense_init(key, "wv", (D, KV * Dh), P("embed", "kv_heads"), dtype),
+        "wo": dense_init(key, "wo", (H * Dh, D), P("heads", "embed"), dtype),
     }
     if cfg.qkv_bias:
-        p["bq"] = zeros_init("bq", (H * Dh,), dtype, key.device)
-        p["bk"] = zeros_init("bk", (KV * Dh,), dtype, key.device)
-        p["bv"] = zeros_init("bv", (KV * Dh,), dtype, key.device)
+        p["bq"] = zeros_init("bq", (H * Dh,), P("heads"), dtype, key.device)
+        p["bk"] = zeros_init("bk", (KV * Dh,), P("kv_heads"), dtype, key.device)
+        p["bv"] = zeros_init("bv", (KV * Dh,), P("kv_heads"), dtype, key.device)
     if cfg.mlp_bias:
-        p["bo"] = zeros_init("bo", (D,), dtype, key.device)
+        p["bo"] = zeros_init("bo", (D,), P("embed"), dtype, key.device)
     return Attention(p)
 
 
@@ -192,8 +198,10 @@ def _gqa_partials(q, k_cache, v_cache):
     return num, den, m
 
 
-def decode_attn_cached(q, k_new, v_new, k_cache, v_cache, cache_len: int, *, ring: bool = False):
-    """One-token attention against an unsharded KV cache.
+def decode_attn_cached(q, k_new, v_new, k_cache, v_cache, cache_len: int, *, ring: bool = False, shd=None):
+    """One-token attention against a KV cache, sequence-sharded when
+    ``shd`` (an ``AxisRules``) resolves the cache's ``kv_seq`` axis to a
+    mesh axis (``_decode_sharded``), whole otherwise.
 
     q (B,H,Dh) with rope applied; k_new/v_new (B,KV,Dh), or None for no
     write (a cross-attention over the encoder's cached states); k/v_cache
@@ -207,11 +215,82 @@ def decode_attn_cached(q, k_new, v_new, k_cache, v_cache, cache_len: int, *, rin
     """
     B, S, KV, Dh = k_cache.shape
     H = q.shape[1]
+    qg = q.reshape(B, KV, H // KV, Dh)
+    entry = shd.resolve(P("kv_seq"), (S,))[0] if shd is not None and shd.mesh is not None else None
+    if entry is not None:
+        out = _decode_sharded(shd.shard_devices(entry), qg, k_new, v_new, k_cache, v_cache, cache_len, ring)
+        return out.reshape(B, H, Dh).to(q.dtype), k_cache, v_cache
     if k_new is not None:
         slot = cache_len % S if ring else min(max(cache_len, 0), S - 1)
         k_cache[:, slot] = k_new
         v_cache[:, slot] = v_new
     n_valid = min(cache_len + (k_new is not None), S)
-    num, den, _ = _gqa_partials(q.reshape(B, KV, H // KV, Dh), k_cache[:, :n_valid], v_cache[:, :n_valid])
+    num, den, _ = _gqa_partials(qg, k_cache[:, :n_valid], v_cache[:, :n_valid])
     out = num / torch.clamp(den, min=1e-30)[..., None]
     return out.reshape(B, H, Dh).to(q.dtype), k_cache, v_cache
+
+
+def _decode_sharded(devices, qg, k_new, v_new, k_cache, v_cache, cache_len: int, ring: bool):
+    """The reference's sequence-sharded decode over len(devices) shards of
+    the cache's S positions, shard i at positions [i S/n, (i+1) S/n) on
+    ``devices[i]``: the new token goes into the shard that owns slot
+    ``cache_len`` (mod S for a ring; past the cache, none), then each shard
+    with valid entries computes its partials, (num, den, m) (B,KV,rep,...),
+    over them.  A shard with none is skipped: the reference's partials of a
+    fully masked shard carry the weight exp(-1e30 - m) = 0, so it adds
+    exact zeros.  The partials are combined on the cache's device in shard
+    order.  Returns the combined output (B,KV,rep,Dh) float32."""
+    S = k_cache.shape[1]
+    s_local = S // len(devices)
+    if k_new is not None:
+        slot = cache_len % S if ring else cache_len
+        if 0 <= slot < S:  # written into the owning shard's view
+            k_cache[:, slot] = k_new
+            v_cache[:, slot] = v_new
+    n_valid = min(cache_len + (k_new is not None), S)
+    home = k_cache.device
+    parts = []
+    for i, dev in enumerate(devices):
+        lo = i * s_local
+        hi = min(lo + s_local, n_valid)
+        if hi <= lo:
+            continue
+        num, den, m = _gqa_partials(qg.to(dev), k_cache[:, lo:hi].to(dev), v_cache[:, lo:hi].to(dev))
+        parts.append((num.to(home), den.to(home), m.to(home)))
+    return combine_partials(parts)
+
+
+def decode_attention_local(q, k_cache, v_cache, cache_len, *, pos_offset=0):
+    """Partial attention over a local cache chunk; returns (num, denom, max).
+
+    q (B,H,Dh); k/v_cache (B,C,H,Dh) — H pre-expanded.  Entries at global
+    position >= cache_len (the chunk starting at ``pos_offset``) are masked
+    with -1e30, as the reference masks them.  Returns float32 partials for
+    ``combine_partials``."""
+    Dh = q.shape[-1]
+    s = torch.einsum("bhd,bchd->bhc", q, k_cache).float() / math.sqrt(Dh)
+    pos = torch.arange(k_cache.shape[1], device=q.device) + pos_offset
+    s = torch.where((pos < cache_len)[None, None, :], s, -1e30)
+    m = s.amax(-1)  # (B,H)
+    p = torch.exp(s - m[..., None])
+    den = p.sum(-1)
+    num = torch.einsum("bhc,bchd->bhd", p.to(v_cache.dtype), v_cache).float()
+    return num, den, m
+
+
+def combine_partials(parts):
+    """lse-weighted combine of partial attention, the reference's
+    ``combine_partials`` over a mesh axis: ``parts`` is each shard's (num,
+    den, m), in shard order, on one device.  The global max g_m, then each
+    shard's num and den times exp(m - g_m), summed in shard order, then
+    num / den.  One shard's partials give num / den (the reference's
+    ``axis_name=None``): its correction is exp(0) = 1."""
+    g_m = parts[0][2]
+    for _, _, m in parts[1:]:
+        g_m = torch.maximum(g_m, m)
+    num = den = None
+    for n_i, d_i, m_i in parts:
+        corr = torch.exp(m_i - g_m)
+        num = n_i * corr[..., None] if num is None else num + n_i * corr[..., None]
+        den = d_i * corr if den is None else den + d_i * corr
+    return num / torch.clamp(den, min=1e-30)[..., None]

@@ -2,7 +2,9 @@
 M-RoPE), port of ``repro.layers.common``.
 
 A norm's parameters live in a :class:`Norm` module whose parameter names
-are the reference's keys (``scale``, ``bias``).
+are the reference's keys (``scale``, ``bias``).  A module built from
+initialisers' :class:`~repro_torch.sharding.Param` s keeps each leaf's
+logical spec in ``specs`` (``models/lm.param_specs``).
 """
 from __future__ import annotations
 
@@ -11,7 +13,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.core import prng
-from repro_torch.sharding import ones_init, zeros_init
+from repro_torch.sharding import P, Param, ones_init, zeros_init
 
 NORMS = ("rmsnorm", "layernorm", "layernorm_nobias")
 EPS = 1e-5
@@ -20,7 +22,9 @@ EPS = 1e-5
 class ParamSet(nn.Module):
     """A layer's parameters, named as the reference's parameter dict: every
     name in ``NAMES`` is a parameter, or None where absent.  Parameters are
-    built frozen, for serving; ``requires_grad_()`` turns them on."""
+    built frozen, for serving; ``requires_grad_()`` turns them on.  Given
+    :class:`Param` s (an initialiser's), ``specs`` maps each name to its
+    logical spec."""
 
     NAMES: tuple = ()
 
@@ -29,9 +33,18 @@ class ParamSet(nn.Module):
         unknown = set(tensors) - set(self.NAMES)
         if unknown:
             raise ValueError(f"{type(self).__name__}: unknown parameters {sorted(unknown)}")
+        self.specs = {}
         for name in self.NAMES:
-            t = tensors.get(name)
-            setattr(self, name, None if t is None else nn.Parameter(t, requires_grad=False))
+            setattr(self, name, frozen_parameter(self.specs, name, tensors.get(name)))
+
+
+def frozen_parameter(specs, name, t):
+    """A frozen ``nn.Parameter`` of ``t`` (a tensor, a :class:`Param` whose
+    spec goes to ``specs[name]``, or None)."""
+    if isinstance(t, Param):
+        specs[name] = t.spec
+        t = t.value
+    return None if t is None else nn.Parameter(t, requires_grad=False)
 
 
 class Norm(nn.Module):
@@ -44,14 +57,15 @@ class Norm(nn.Module):
         if ("bias" in tensors) != (kind == "layernorm"):
             raise ValueError(f"{kind} norm: parameters {sorted(tensors)}")
         self.kind = kind
-        self.scale = nn.Parameter(tensors["scale"], requires_grad=False)
-        self.bias = nn.Parameter(tensors["bias"], requires_grad=False) if "bias" in tensors else None
+        self.specs = {}
+        self.scale = frozen_parameter(self.specs, "scale", tensors["scale"])
+        self.bias = frozen_parameter(self.specs, "bias", tensors.get("bias"))
 
 
 def init_norm(kind: str, d: int, dtype=torch.float32, device=None) -> Norm:
-    p = {"scale": ones_init("scale", (d,), dtype, device)}
+    p = {"scale": ones_init("scale", (d,), P("embed"), dtype, device)}
     if kind == "layernorm":
-        p["bias"] = zeros_init("bias", (d,), dtype, device)
+        p["bias"] = zeros_init("bias", (d,), P("embed"), dtype, device)
     return Norm(kind, p)
 
 

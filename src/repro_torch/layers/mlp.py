@@ -6,7 +6,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.layers.common import ParamSet, activation
-from repro_torch.sharding import dense_init, zeros_init
+from repro_torch.sharding import P, dense_init, zeros_init
 
 
 class MLP(ParamSet):
@@ -20,12 +20,12 @@ def init_mlp(key, cfg: ArchConfig, dtype=torch.float32) -> MLP:
     D, F = cfg.d_model, cfg.d_ff
     p = {}
     if cfg.mlp_act in ("swiglu", "geglu"):
-        p["wg"] = dense_init(key, "wg", (D, F), dtype)
-    p["wu"] = dense_init(key, "wu", (D, F), dtype)
-    p["wd"] = dense_init(key, "wd", (F, D), dtype)
+        p["wg"] = dense_init(key, "wg", (D, F), P(("embed", "fsdp"), "ff"), dtype)
+    p["wu"] = dense_init(key, "wu", (D, F), P(("embed", "fsdp"), "ff"), dtype)
+    p["wd"] = dense_init(key, "wd", (F, D), P("ff", ("embed", "fsdp")), dtype)
     if cfg.mlp_bias:
-        p["bu"] = zeros_init("bu", (F,), dtype, key.device)
-        p["bd"] = zeros_init("bd", (D,), dtype, key.device)
+        p["bu"] = zeros_init("bu", (F,), P("ff"), dtype, key.device)
+        p["bd"] = zeros_init("bd", (D,), P("embed"), dtype, key.device)
     return MLP(p)
 
 

@@ -9,24 +9,30 @@ C depends on the T of the call, so a batch split in two routes differently:
 prefill runs the whole batch as one call, as the reference does.
 
 ``moe_local`` is the reference's ``_moe_local`` for the experts
-[e0, e0 + n_local); ``apply_moe`` is its single-device branch (all experts).
-The expert-parallel branch (``shard_map`` over ``model`` and a ``psum``)
-waits for the mesh layer (ROADMAP.md A.12.3): it would sum ``moe_local``'s
-shards.  A ``Record`` keeps what each call routed and splits its time by
-step in a trace.  Plain PyTorch on both kernel planes: the reference runs
-this layer through XLA, with no Pallas kernel.
+[e0, e0 + n_local).  ``apply_moe`` runs all experts in one call, or, given
+an ``AxisRules`` whose mesh has a ``model`` axis of n > 1 that divides the
+experts, expert-parallel as the reference's ``shard_map`` branch does: the
+batch split over its ``batch`` mesh axes (each batch shard routes its own
+tokens with its own capacity), and for each batch shard, model shard j runs
+``moe_local`` over its E/n experts on its device, the shards' outputs
+summed in shard order (the reference's ``psum``).  A shard's expert weights
+are views of the whole tensors where its device is theirs: the one-card
+mesh holds no second copy.  A ``Record`` keeps what each call routed and
+splits its time by step in a trace.  Plain PyTorch on both kernel planes:
+the reference runs this layer through XLA, with no Pallas kernel.
 """
 from __future__ import annotations
 
 import contextlib
-from typing import Dict
+from typing import Dict, NamedTuple, Optional
 
+import numpy as np
 import torch
 from torch.profiler import record_function
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.layers.common import ParamSet, activation
-from repro_torch.sharding import dense_init
+from repro_torch.sharding import P, AxisRules, dense_init
 
 
 class MoE(ParamSet):
@@ -41,10 +47,10 @@ def init_moe(key, cfg: ArchConfig, dtype=torch.float32) -> MoE:
     for the (E, D, F) expert tensors is E (so their std is about 0.88/sqrt(E))."""
     D, F, E = cfg.d_model, cfg.d_ff, cfg.n_experts
     return MoE({
-        "wr": dense_init(key, "wr", (D, E), torch.float32),
-        "wg": dense_init(key, "wg", (E, D, F), dtype),
-        "wu": dense_init(key, "wu", (E, D, F), dtype),
-        "wd": dense_init(key, "wd", (E, F, D), dtype),
+        "wr": dense_init(key, "wr", (D, E), P("embed", None), torch.float32),
+        "wg": dense_init(key, "wg", (E, D, F), P("expert", "fsdp", None), dtype),
+        "wu": dense_init(key, "wu", (E, D, F), P("expert", "fsdp", None), dtype),
+        "wd": dense_init(key, "wd", (E, F, D), P("expert", "fsdp", None), dtype),
     })
 
 
@@ -169,10 +175,18 @@ def _step(name):
     return record_function("moe:" + name) if Record.current is not None else contextlib.nullcontext()
 
 
-def moe_local(params: MoE, cfg: ArchConfig, x, e0: int, n_local: int):
-    """x (B, S, D) -> (B, S, D): the MoE over experts [e0, e0 + n_local)
-    (``params`` holds those experts' weights and the whole router): route,
-    dispatch, the experts, combine."""
+class Experts(NamedTuple):
+    """What ``moe_local`` reads of an MoE: the whole router and the experts
+    it runs (an :class:`MoE`, or one shard's views of its expert weights)."""
+
+    wr: torch.Tensor
+    wg: torch.Tensor
+    wu: torch.Tensor
+    wd: torch.Tensor
+
+
+def _moe_local(params, cfg: ArchConfig, x, e0: int, n_local: int):
+    """``moe_local``'s output and what it routed (``Record``'s call)."""
     B, S, D = x.shape
     x_flat = x.reshape(B * S, D)
     with _step("router"):
@@ -183,14 +197,60 @@ def moe_local(params: MoE, cfg: ArchConfig, x, e0: int, n_local: int):
         out = _expert_ffn(cfg, params.wg, params.wu, params.wd, buf)
     with _step("combine"):
         y = _combine(out, gates, keep, dest).reshape(B, S, D)
+    return y, {"logits": logits, "ids": idx, "keep": keep, "capacity": C}
+
+
+def moe_local(params, cfg: ArchConfig, x, e0: int, n_local: int):
+    """x (B, S, D) -> (B, S, D): the MoE over experts [e0, e0 + n_local)
+    (``params`` holds those experts' weights and the whole router): route,
+    dispatch, the experts, combine."""
+    y, call = _moe_local(params, cfg, x, e0, n_local)
     if Record.current is not None:
-        Record.current.calls.append({"logits": logits, "ids": idx, "keep": keep, "capacity": C})
+        Record.current.calls.append(call)
     return y
 
 
-def apply_moe(params: MoE, cfg: ArchConfig, x):
-    """x (B, S, D) -> (B, S, D) on one device: every expert is local."""
-    return moe_local(params, cfg, x, 0, cfg.n_experts)
+def apply_moe(params: MoE, cfg: ArchConfig, x, shd: Optional[AxisRules] = None):
+    """x (B, S, D) -> (B, S, D): every expert in one call, unless ``shd``
+    has a ``model`` mesh axis of n > 1 that divides the experts
+    (``_apply_moe_sharded``)."""
+    n = shd.axis_sizes.get("model", 1) if shd is not None else 1
+    if n == 1 or cfg.n_experts % n != 0:
+        return moe_local(params, cfg, x, 0, cfg.n_experts)
+    return _apply_moe_sharded(params, cfg, shd, x, n)
+
+
+def _apply_moe_sharded(params: MoE, cfg: ArchConfig, shd: AxisRules, x, n: int):
+    """The reference's expert-parallel branch: the batch split as its
+    ``batch`` spec resolves (each batch shard routes its own tokens at the
+    capacity of its own T), then for each batch shard the n model shards'
+    ``moe_local`` over experts [j E/n, (j+1) E/n) on their devices, summed
+    in shard order on x's device.  The reference's ``fsdp`` all-gather is
+    the identity here: a shard holds its experts whole.  An open ``Record``
+    gets one call, the batch shards' routing concatenated, an assignment
+    kept if its expert's shard kept it."""
+    n_local = cfg.n_experts // n
+    batch_entry = shd.resolve(P("batch"), (x.shape[0],))[0]
+    b_local = x.shape[0] // shd.shards(batch_entry)
+    names = () if batch_entry is None else (batch_entry,) if isinstance(batch_entry, str) else batch_entry
+    outs, calls = [], []
+    for b, coords in enumerate(np.ndindex(*(shd.axis_sizes[a] for a in names))):
+        x_b = x[b * b_local : (b + 1) * b_local]
+        y = keep = None
+        for j in range(n):
+            dev = shd.mesh.device(**dict(zip(names, coords)), model=j)
+            e = slice(j * n_local, (j + 1) * n_local)
+            shard = Experts(params.wr.to(dev), params.wg[e].to(dev), params.wu[e].to(dev), params.wd[e].to(dev))
+            y_j, call = _moe_local(shard, cfg, x_b.to(dev), j * n_local, n_local)
+            y = y_j.to(x.device) if y is None else y + y_j.to(x.device)
+            keep = call["keep"].to(x.device) if keep is None else keep | call["keep"].to(x.device)
+        outs.append(y)
+        calls.append(dict(call, logits=call["logits"].to(x.device), ids=call["ids"].to(x.device), keep=keep))
+    if Record.current is not None:
+        Record.current.calls.append({"logits": torch.cat([c["logits"] for c in calls]),
+                                     "ids": torch.cat([c["ids"] for c in calls]),
+                                     "keep": torch.cat([c["keep"] for c in calls]), "capacity": calls[0]["capacity"]})
+    return outs[0] if len(outs) == 1 else torch.cat(outs)
 
 
 def route_stats(cfg: ArchConfig, call: Dict) -> Dict:

@@ -26,7 +26,7 @@ from repro_torch.core import prng
 from repro_torch.layers import ssm
 from repro_torch.layers.common import ParamSet
 from repro_torch.layers.scan import associative_scan
-from repro_torch.sharding import dense_init, name_key, zeros_init
+from repro_torch.sharding import P, Param, dense_init, name_key, zeros_init
 
 _C = 8.0  # Griffin's fixed recurrence sharpness constant
 
@@ -60,19 +60,22 @@ def init_rglru(key, cfg: ArchConfig, dtype=torch.float32) -> RGLRU:
     ``init_rglru`` does, with XLA's CPU ``pow`` and ``log`` (``prng``)."""
     D, W, K = cfg.d_model, cfg.rnn_width, cfg.ssm_conv
     dev = key.device
-    u = prng.uniform(name_key(key, "lam"), (W,), 0.9, 0.999)
-    p = prng.powf(u, 1.0 / _C)
+    if dev.type == "meta":  # a spec walk: no draw
+        lam = torch.empty((W,), device=dev)
+    else:
+        p = prng.powf(prng.uniform(name_key(key, "lam"), (W,), 0.9, 0.999), 1.0 / _C)
+        lam = prng.log(p / (1.0 - p))
     return RGLRU({
-        "w_in": dense_init(key, "w_in", (D, W), dtype),
-        "w_gate": dense_init(key, "w_gate", (D, W), dtype),
-        "conv_w": dense_init(key, "conv_w", (K, W), dtype, scale=0.5),
-        "conv_b": zeros_init("conv_b", (W,), dtype, dev),
-        "wa": zeros_init("wa", (W,), torch.float32, dev),
-        "ba": zeros_init("ba", (W,), torch.float32, dev),
-        "wx": zeros_init("wx", (W,), torch.float32, dev),
-        "bx": zeros_init("bx", (W,), torch.float32, dev),
-        "lam": prng.log(p / (1.0 - p)),
-        "w_out": dense_init(key, "w_out", (W, D), dtype),
+        "w_in": dense_init(key, "w_in", (D, W), P("embed", "rnn"), dtype),
+        "w_gate": dense_init(key, "w_gate", (D, W), P("embed", "rnn"), dtype),
+        "conv_w": dense_init(key, "conv_w", (K, W), P(None, "rnn"), dtype, scale=0.5),
+        "conv_b": zeros_init("conv_b", (W,), P("rnn"), dtype, dev),
+        "wa": zeros_init("wa", (W,), P("rnn"), torch.float32, dev),
+        "ba": zeros_init("ba", (W,), P("rnn"), torch.float32, dev),
+        "wx": zeros_init("wx", (W,), P("rnn"), torch.float32, dev),
+        "bx": zeros_init("bx", (W,), P("rnn"), torch.float32, dev),
+        "lam": Param(lam, P("rnn")),
+        "w_out": dense_init(key, "w_out", (W, D), P("rnn", "embed"), dtype),
     })
 
 

@@ -25,7 +25,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core import prng
 from repro_torch.layers.common import ParamSet
 from repro_torch.layers.scan import associative_scan
-from repro_torch.sharding import dense_init, name_key, ones_init, zeros_init
+from repro_torch.sharding import P, Param, dense_init, name_key, ones_init, zeros_init
 
 # elements of one (B, S, chunk, N) float32 tensor of the scan: 1 GiB; the scan holds about 7 of them at once
 SCAN_CHUNK_ELEMS = 1 << 28
@@ -69,21 +69,24 @@ def init_ssm(key, cfg: ArchConfig, dtype=torch.float32) -> SSM:
     CPU ``exp`` and ``log`` (``prng``)."""
     D, di, N, R, K = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_dt_rank, cfg.ssm_conv
     dev = key.device
-    a_init = prng.log(torch.arange(1, N + 1, dtype=torch.float32, device=dev)).expand(di, N).contiguous()
-    lo, hi = prng.log(torch.tensor([0.001, 0.1], dtype=torch.float32, device=dev))  # jnp.log of the float32 values
-    u = prng.uniform(name_key(key, "dt_bias"), (di,))
-    dt = prng.exp(u * (hi - lo) + lo)
-    dt_bias = prng.log(prng.exp(dt) - 1.0 + float(np.float32(1e-9)))  # inverse-softplus of dt in [1e-3, 1e-1]
+    if dev.type == "meta":  # a spec walk: no draw
+        a_init, dt_bias = torch.empty((di, N), device=dev), torch.empty((di,), device=dev)
+    else:
+        a_init = prng.log(torch.arange(1, N + 1, dtype=torch.float32, device=dev)).expand(di, N).contiguous()
+        lo, hi = prng.log(torch.tensor([0.001, 0.1], dtype=torch.float32, device=dev))  # jnp.log of the float32 values
+        u = prng.uniform(name_key(key, "dt_bias"), (di,))
+        dt = prng.exp(u * (hi - lo) + lo)
+        dt_bias = prng.log(prng.exp(dt) - 1.0 + float(np.float32(1e-9)))  # inverse-softplus of dt in [1e-3, 1e-1]
     return SSM({
-        "in_proj": dense_init(key, "in_proj", (D, 2 * di), dtype),
-        "conv_w": dense_init(key, "conv_w", (K, di), dtype, scale=0.5),
-        "conv_b": zeros_init("conv_b", (di,), dtype, dev),
-        "x_proj": dense_init(key, "x_proj", (di, R + 2 * N), dtype),
-        "dt_proj": dense_init(key, "dt_proj", (R, di), dtype),
-        "dt_bias": dt_bias,
-        "A_log": a_init,
-        "Dp": ones_init("Dp", (di,), torch.float32, dev),
-        "out_proj": dense_init(key, "out_proj", (di, D), dtype),
+        "in_proj": dense_init(key, "in_proj", (D, 2 * di), P(("embed", "fsdp"), "d_inner"), dtype),
+        "conv_w": dense_init(key, "conv_w", (K, di), P(None, "d_inner"), dtype, scale=0.5),
+        "conv_b": zeros_init("conv_b", (di,), P("d_inner"), dtype, dev),
+        "x_proj": dense_init(key, "x_proj", (di, R + 2 * N), P("d_inner", None), dtype),
+        "dt_proj": dense_init(key, "dt_proj", (R, di), P(None, "d_inner"), dtype),
+        "dt_bias": Param(dt_bias, P("d_inner")),
+        "A_log": Param(a_init, P("d_inner", None)),
+        "Dp": ones_init("Dp", (di,), P("d_inner"), torch.float32, dev),
+        "out_proj": dense_init(key, "out_proj", (di, D), P("d_inner", ("embed", "fsdp")), dtype),
     })
 
 

@@ -41,6 +41,7 @@ from repro_torch.models.lm import (
     LM, _attn_in, _block_full, _block_out, _rope, _run_decoder_encdec, attn_window, check_ported, default_positions,
     embed_tokens, encode_audio, logits_fn, rotary,
 )
+from repro_torch.sharding import P
 
 
 def _entry(cfg: ArchConfig, kind: str, n: int, batch: int, slots: int, dtype, device) -> Dict[str, torch.Tensor]:
@@ -53,6 +54,31 @@ def _entry(cfg: ArchConfig, kind: str, n: int, batch: int, slots: int, dtype, de
     h, width = ((cfg.d_inner, cfg.ssm_state), cfg.d_inner) if kind == "ssm" else ((cfg.rnn_width,), cfg.rnn_width)
     return {"h": torch.zeros((n, batch) + h, dtype=torch.float32, device=device),
             "conv": torch.zeros((n, batch, K - 1, width), dtype=dtype, device=device)}
+
+
+_KV_SPEC = P(None, "batch", "kv_seq", None, None)  # (L, B, S, KV, Dh): S sequence-sharded (flash-decoding)
+# each kind of cache entry's logical specs, the reference's ``_{attn,ssm,rglru}_cache_struct``
+ENTRY_SPECS = {
+    "attn": {"k": _KV_SPEC, "v": _KV_SPEC},
+    "ssm": {"h": P(None, "batch", "d_inner", None), "conv": P(None, "batch", None, "d_inner")},
+    "rglru": {"h": P(None, "batch", "rnn"), "conv": P(None, "batch", None, "rnn")},
+}
+
+
+def cache_specs(cfg: ArchConfig) -> Dict:
+    """The logical specs of ``init_cache``'s tree, leaf for leaf (the
+    reference's ``init_cache`` Params): ``len`` replicated, attention k/v
+    sequence-sharded over ``kv_seq``, an encoder-decoder's cross k/v over
+    the batch only."""
+    check_ported(cfg)
+    if cfg.encoder_decoder:
+        cross = P(None, "batch", None, None, None)
+        return {"len": P(), "self": dict(ENTRY_SPECS["attn"]), "cross_k": cross, "cross_v": cross}
+    if not cfg.is_hybrid:
+        return {"len": P(), "layers": dict(ENTRY_SPECS["ssm" if cfg.is_ssm else "attn"])}
+    pat = cfg.block_pattern
+    return {"len": P(), "groups": {f"g{j}_{kind}": dict(ENTRY_SPECS[kind]) for j, kind in enumerate(pat)},
+            "tail": [dict(ENTRY_SPECS[pat[i]]) for i in range(cfg.n_layers % len(pat))]}
 
 
 def init_cache(cfg: ArchConfig, batch: int, s_max: int, dtype=torch.float32, device=None) -> Dict:
@@ -94,7 +120,7 @@ def layer_caches(cfg: ArchConfig, cache: Dict) -> List[Dict[str, torch.Tensor]]:
     return out + [{name: t[0] for name, t in entry.items()} for entry in cache["tail"]]
 
 
-def lm_prefill(params: LM, cfg: ArchConfig, batch, pad_to: Optional[int] = None, *, plane=ops.AUTO):
+def lm_prefill(params: LM, cfg: ArchConfig, batch, pad_to: Optional[int] = None, *, plane=ops.AUTO, shd=None):
     """Full forward building the cache. Returns (last-token logits (B,V), cache).
 
     pad_to: cache headroom — an attention cache holds max(S, pad_to) slots
@@ -110,7 +136,8 @@ def lm_prefill(params: LM, cfg: ArchConfig, batch, pad_to: Optional[int] = None,
     their self and cross entries: its decoder's self-attention goes through
     ``attention_op`` too, where the reference's prefill takes its XLA route.
     ``batch["positions"]`` as ``lm_hidden`` takes them: (B, S), or (B, 3, S)
-    under M-RoPE, ``default_positions`` without them.
+    under M-RoPE, ``default_positions`` without them.  ``shd``: an
+    ``AxisRules`` whose mesh runs the MoE expert-parallel (``lm._ffn``).
     """
     tokens = batch["tokens"]
     B, S = tokens.shape
@@ -127,24 +154,24 @@ def lm_prefill(params: LM, cfg: ArchConfig, batch, pad_to: Optional[int] = None,
     rot = rotary(cfg, positions)
     cache = init_cache(cfg, B, max(S, pad_to or 0, attn_window(cfg)), x.dtype, x.device)
     for lp, kind, cl in zip(params.layers, cfg.layer_kinds(), layer_caches(cfg, cache)):
-        x = _block_full(lp, cfg, kind, x, rot, plane=plane, cache_out=cl)
+        x = _block_full(lp, cfg, kind, x, rot, plane=plane, cache_out=cl, shd=shd)
     cache["len"] = S
     logits = logits_fn(params, cfg, x[:, -1:])
     return logits[:, 0], cache
 
 
-def _attn_block_step(lp, cfg: ArchConfig, x, kc, vc, pos: int, rot):
+def _attn_block_step(lp, cfg: ArchConfig, x, kc, vc, pos: int, rot, shd=None):
     """x (B,1,D); kc/vc (B,S,KV,Dh), written in place at ``pos`` (at
     ``pos mod S`` in a hybrid's window ring); q and k rotated at ``rot``
     (``step_rotary``). Returns x'."""
     h = _attn_in(lp, cfg, x)
     q, k, v = attn_lib._project_qkv(lp.attn, cfg, h)
     q, k = _rope(cfg, q, rot), _rope(cfg, k, rot)
-    out, _, _ = attn_lib.decode_attn_cached(q[:, 0], k[:, 0], v[:, 0], kc, vc, pos, ring=cfg.is_hybrid)
-    return _block_out(lp, cfg, x, h, attn_lib._out_proj(lp.attn, out[:, None], x.dtype))
+    out, _, _ = attn_lib.decode_attn_cached(q[:, 0], k[:, 0], v[:, 0], kc, vc, pos, ring=cfg.is_hybrid, shd=shd)
+    return _block_out(lp, cfg, x, h, attn_lib._out_proj(lp.attn, out[:, None], x.dtype), shd)
 
 
-def _block_step(lp, cfg: ArchConfig, kind: str, x, cl: Dict, pos: int, rot):
+def _block_step(lp, cfg: ArchConfig, kind: str, x, cl: Dict, pos: int, rot, shd=None):
     """One layer of a decode step on its cache views ``cl`` (the
     reference's ``_block_step``). Returns x'."""
     if kind == "ssm":
@@ -154,16 +181,16 @@ def _block_step(lp, cfg: ArchConfig, kind: str, x, cl: Dict, pos: int, rot):
         y, _ = apply_rglru_step(lp.rglru, cfg, apply_norm(cfg.norm, lp.norm1, x), cl)
         x = x + y
         return x + apply_mlp(lp.mlp, cfg, apply_norm(cfg.norm, lp.norm2, x))
-    return _attn_block_step(lp, cfg, x, cl["k"], cl["v"], pos, rot)
+    return _attn_block_step(lp, cfg, x, cl["k"], cl["v"], pos, rot, shd)
 
 
-def _dec_block_step(lp, cfg: ArchConfig, x, cl: Dict, pos: int):
+def _dec_block_step(lp, cfg: ArchConfig, x, cl: Dict, pos: int, shd=None):
     """One decoder layer of an encoder-decoder's decode step: self-attention
     without rotary on its cache (written at ``pos``), cross-attention over
     every cached frame (no write), the MLP. Returns x'."""
     B = x.shape[0]
     q, k, v = attn_lib._project_qkv(lp.attn, cfg, apply_norm(cfg.norm, lp.norm1, x))
-    out, _, _ = attn_lib.decode_attn_cached(q[:, 0], k[:, 0], v[:, 0], cl["k"], cl["v"], pos)
+    out, _, _ = attn_lib.decode_attn_cached(q[:, 0], k[:, 0], v[:, 0], cl["k"], cl["v"], pos, shd=shd)
     x = x + attn_lib._out_proj(lp.attn, out[:, None], x.dtype)
     hx = apply_norm(cfg.norm, lp.norm_x, x)
     qx = hx @ lp.xattn.wq.to(x.dtype)
@@ -171,7 +198,7 @@ def _dec_block_step(lp, cfg: ArchConfig, x, cl: Dict, pos: int):
         qx = qx + lp.xattn.bq.to(x.dtype)
     xk = cl["xk"]
     out, _, _ = attn_lib.decode_attn_cached(qx.reshape(B, cfg.n_heads, cfg.head_dim), None, None, xk, cl["xv"],
-                                            xk.shape[1])
+                                            xk.shape[1], shd=shd)
     x = x + attn_lib._out_proj(lp.xattn, out[:, None], x.dtype)
     return x + apply_mlp(lp.mlp, cfg, apply_norm(cfg.norm, lp.norm2, x))
 
@@ -191,7 +218,7 @@ def step_rotary(cfg: ArchConfig, pos: int, batch):
     return rotary(cfg, ids)
 
 
-def lm_decode_step(params: LM, cfg: ArchConfig, cache, batch):
+def lm_decode_step(params: LM, cfg: ArchConfig, cache, batch, shd=None):
     """One-token decode. batch: {"token": (B,) int [, "positions": (B, 3)
     int under M-RoPE]}: the token's k and v go to cache slot ``len``, and
     its rotary is ``step_rotary``'s.
@@ -199,17 +226,20 @@ def lm_decode_step(params: LM, cfg: ArchConfig, cache, batch):
     Returns (logits (B,V), new cache); the new cache shares the given
     cache's arrays, which this step has written in place.  An MoE layer
     sees the step's B tokens as one call, as the reference's does, so its
-    capacity is that of T = B."""
+    capacity is that of T = B.  ``shd``: an ``AxisRules`` whose mesh runs
+    the MoE expert-parallel and, where ``kv_seq`` resolves to a mesh axis,
+    the attention over a sequence-sharded cache
+    (``attention.decode_attn_cached``)."""
     pos = int(cache["len"])
     x = embed_tokens(params, cfg, batch["token"][:, None])
     if cfg.encoder_decoder:
         x = x + _encdec_pos(pos, cfg.d_model, x)
         for lp, cl in zip(params.dec_layers, layer_caches(cfg, cache)):
-            x = _dec_block_step(lp, cfg, x, cl, pos)
+            x = _dec_block_step(lp, cfg, x, cl, pos, shd)
     else:
         rot = step_rotary(cfg, pos, batch)
         for lp, kind, cl in zip(params.layers, cfg.layer_kinds(), layer_caches(cfg, cache)):
-            x = _block_step(lp, cfg, kind, x, cl, pos, rot)
+            x = _block_step(lp, cfg, kind, x, cl, pos, rot, shd)
     new_cache = dict(cache)
     new_cache["len"] = pos + 1
     logits = logits_fn(params, cfg, x)

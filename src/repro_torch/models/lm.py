@@ -20,6 +20,14 @@ Position ids are (B, S), or (B, 3, S) under M-RoPE (qwen2-vl: the
 temporal, height and width ids of each token); the layers take them as
 ``rotary`` makes them.  A hybrid pattern of block kinds the port does not
 run raises ``NotImplementedError``.
+
+Every leaf that ``init_lm`` builds keeps its logical spec (the reference's
+``Param`` specs): ``named_specs`` lists them by parameter name, and
+``param_specs`` gives the reference's tree of specs, from an ``init_lm`` on
+the ``meta`` device, which draws and allocates nothing.  The blocks of
+prefill and decode (``models/decode``) take an ``AxisRules`` (``shd``) for
+the MoE FFN: with a ``model`` mesh axis it runs expert-parallel
+(``layers/moe.apply_moe``).
 """
 from __future__ import annotations
 
@@ -36,13 +44,13 @@ from repro_torch.kernels import ops
 from repro_torch.layers import attention as attn_lib
 from repro_torch.layers.attention import Attention
 from repro_torch.layers.common import (
-    Norm, apply_norm, apply_rope, init_norm, mrope_rotation, rotate_halves, sinusoidal_positions,
+    Norm, apply_norm, apply_rope, frozen_parameter, init_norm, mrope_rotation, rotate_halves, sinusoidal_positions,
 )
 from repro_torch.layers.mlp import MLP, apply_mlp, init_mlp
 from repro_torch.layers.moe import MoE, apply_moe, init_moe
 from repro_torch.layers.rglru import RGLRU, apply_rglru, init_rglru
 from repro_torch.layers.ssm import SSM, apply_ssm, init_ssm
-from repro_torch.sharding import dense_init, name_key
+from repro_torch.sharding import P, dense_init, name_key
 
 
 def resolve_device(device) -> torch.device:
@@ -90,9 +98,10 @@ class LM(nn.Module):
                  enc_layers: Optional[List[Block]] = None, enc_norm: Optional[Norm] = None):
         super().__init__()
         self.cfg = cfg
-        self.embed = nn.Parameter(embed, requires_grad=False)
+        self.specs = {}  # the logical specs of embed and lm_head, given as Params
+        self.embed = frozen_parameter(self.specs, "embed", embed)
         self.final_norm = final_norm
-        self.lm_head = None if lm_head is None else nn.Parameter(lm_head, requires_grad=False)
+        self.lm_head = frozen_parameter(self.specs, "lm_head", lm_head)
         if cfg.encoder_decoder:
             self.enc_layers = nn.ModuleList(enc_layers)
             self.enc_norm = enc_norm
@@ -161,14 +170,17 @@ def layer_keys(key, cfg: ArchConfig) -> torch.Tensor:
 def init_lm(key, cfg: ArchConfig, dtype=torch.float32, *, device="cuda") -> LM:
     """The reference's ``init_lm`` from a ``prng.prng_key``: every tensor is
     drawn on ``device`` from the same per-name keys (``layer_keys``), so a
-    seed gives the reference's weights (``prng.truncated_normal``)."""
+    seed gives the reference's weights (``prng.truncated_normal``).  On
+    ``device="meta"`` it draws nothing: the leaves' shapes, dtypes and
+    specs (``param_specs``)."""
     check_ported(cfg)
-    dev = resolve_device(device)
+    dev = torch.device("meta") if str(device) == "meta" else resolve_device(device)
     key = key.to(dev)
     V, D = cfg.vocab_size, cfg.d_model
-    embed = dense_init(key, "embed", (V, D), dtype, scale=0.02)
+    # embed table: vocab-sharded only (an fsdp axis on D would force gathers in the reference's sharded lookup)
+    embed = dense_init(key, "embed", (V, D), P("vocab", None), dtype, scale=0.02)
     final_norm = init_norm(cfg.norm, D, dtype, dev)
-    lm_head = None if cfg.tie_embeddings else dense_init(key, "lm_head", (D, V), dtype)
+    lm_head = None if cfg.tie_embeddings else dense_init(key, "lm_head", (D, V), P(("embed", "fsdp"), "vocab"), dtype)
     keys = layer_keys(key, cfg)
     if cfg.encoder_decoder:
         enc = [_init_layer(k, cfg, "attn", dtype) for k in prng.split(name_key(key, "enc"), cfg.n_enc_layers)]
@@ -176,6 +188,32 @@ def init_lm(key, cfg: ArchConfig, dtype=torch.float32, *, device="cuda") -> LM:
                   enc, init_norm(cfg.norm, D, dtype, dev))
     layers = [_init_layer(keys[i], cfg, kind, dtype) for i, kind in enumerate(cfg.layer_kinds())]
     return LM(cfg, embed, final_norm, lm_head, layers)
+
+
+def named_specs(model: LM) -> Dict[str, P]:
+    """The logical spec of every leaf an initialiser built, by the name
+    ``model.state_dict()`` gives it (``layers.0.attn.wq``: one layer's, with
+    no layer axis)."""
+    return {f"{prefix}.{name}" if prefix else name: spec
+            for prefix, mod in model.named_modules() for name, spec in getattr(mod, "specs", {}).items()}
+
+
+def param_specs(cfg: ArchConfig, dtype=torch.float32):
+    """(the reference's tree of ``meta`` tensors, its tree of logical specs)
+    for ``cfg``, from an ``init_lm`` on the ``meta`` device: no draw and no
+    allocation (kimi-k2's expert leaves hold 5.6 B elements, more than
+    ``prng.truncated_normal`` takes).  A leaf stacked over layers takes a
+    leading None (the reference's ``_stack_init``); a hybrid's tail leaves
+    do not."""
+    from repro_torch import convert  # convert builds LMs: imported here, not at the top
+
+    model = init_lm(prng.prng_key(0), cfg, dtype, device="meta")
+    specs = named_specs(model)
+    state = model.state_dict()
+    if set(specs) != set(state):
+        raise AssertionError(f"{cfg.name}: leaves without a spec {sorted(set(state) - set(specs))}")
+    shapes = convert.stack_named(state, cfg)
+    return shapes, convert.stack_named(specs, cfg, stack=lambda ss: P(None, *ss[0]))
 
 
 def lm_from_state(cfg: ArchConfig, state: Dict[str, torch.Tensor]) -> LM:
@@ -241,21 +279,22 @@ def _attn_in(lp: Block, cfg: ArchConfig, x):
     return apply_norm(cfg.norm, lp.norm if cfg.parallel_block else lp.norm1, x)
 
 
-def _ffn(lp: Block, cfg: ArchConfig, x):
-    """The block's FFN: the MoE for an MoE config, the MLP otherwise."""
+def _ffn(lp: Block, cfg: ArchConfig, x, shd=None):
+    """The block's FFN: the MoE for an MoE config (expert-parallel on
+    ``shd``'s mesh, ``apply_moe``), the MLP otherwise."""
     if cfg.is_moe:
-        return apply_moe(lp.moe, cfg, x)
+        return apply_moe(lp.moe, cfg, x, shd)
     return apply_mlp(lp.mlp, cfg, x)
 
 
-def _block_out(lp: Block, cfg: ArchConfig, x, h, attn_out):
+def _block_out(lp: Block, cfg: ArchConfig, x, h, attn_out, shd=None):
     """The block's output from its input x, the normed h and the attention's
     output: a parallel block adds the FFN of h, a sequential one the FFN of
     its second norm after the attention's residual."""
     if cfg.parallel_block:
-        return x + attn_out + _ffn(lp, cfg, h)
+        return x + attn_out + _ffn(lp, cfg, h, shd)
     x = x + attn_out
-    return x + _ffn(lp, cfg, apply_norm(cfg.norm, lp.norm2, x))
+    return x + _ffn(lp, cfg, apply_norm(cfg.norm, lp.norm2, x), shd)
 
 
 TRAIN = "train"  # the attention route of training (``_attention``)
@@ -319,14 +358,15 @@ def attn_window(cfg: ArchConfig) -> int:
 
 
 def _block_full(lp: Block, cfg: ArchConfig, kind: str, x, positions, *, plane=ops.AUTO, cache_out=None,
-                causal: bool = True):
+                causal: bool = True, shd=None):
     """One block of ``kind`` (``cfg.layer_kinds()``) over a full sequence,
     causal unless told (an encoder's block is not). x (B,S,D).  With
     ``cache_out``, this layer's cache views, the block also writes its
     prefill cache entry: an attention block its k/v
     (``_attn_full``), an SSM or RG-LRU block its final state h and conv
     tail (the reference's ``_attn_block_prefill``).  The recurrent blocks
-    compute the same on every plane and take no positions."""
+    compute the same on every plane and take no positions.  ``shd``: the
+    MoE's ``AxisRules`` (``_ffn``)."""
     if kind in ("ssm", "rglru"):
         ssm = kind == "ssm"
         apply, params = (apply_ssm, lp.ssm) if ssm else (apply_rglru, lp.rglru)
@@ -342,7 +382,7 @@ def _block_full(lp: Block, cfg: ArchConfig, kind: str, x, positions, *, plane=op
     h = _attn_in(lp, cfg, x)
     attn_out = _attn_full(lp.attn, cfg, h, positions, plane=plane, window=attn_window(cfg), cache_out=cache_out,
                           causal=causal)
-    return _block_out(lp, cfg, x, h, attn_out)
+    return _block_out(lp, cfg, x, h, attn_out, shd)
 
 
 def _save_weight_products(ctx, op, *args, **kwargs):
@@ -447,7 +487,9 @@ def _run_decoder_encdec(params: LM, cfg: ArchConfig, x, enc, *, plane=ops.AUTO, 
 
 
 def embed_tokens(params: LM, cfg: ArchConfig, tokens):
-    """Unsharded table lookup: tokens (B,S) -> (B,S,D)."""
+    """Table lookup: tokens (B,S) -> (B,S,D).  The reference's
+    vocab-sharded lookup on a mesh (a masked gather per shard and a
+    ``psum``) adds one row to zeros: the same values, so it runs whole."""
     return F.embedding(tokens, params.embed)
 
 

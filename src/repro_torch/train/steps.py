@@ -8,9 +8,11 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import prng
+from repro_torch.kernels import ops
 from repro_torch.models.decode import lm_decode_step, lm_prefill
 from repro_torch.models.lm import LM, check_ported, lm_loss
 from repro_torch.optim import make_optimizer
+from repro_torch.sharding import AxisRules
 
 
 def build_train_step(cfg: ArchConfig, opt_name: Optional[str] = None):
@@ -60,16 +62,21 @@ def build_train_step(cfg: ArchConfig, opt_name: Optional[str] = None):
     return train_step, optimizer
 
 
-def build_prefill(cfg: ArchConfig):
-    def prefill(params, batch):
-        return lm_prefill(params, cfg, batch)
+def build_prefill(cfg: ArchConfig, shd: Optional[AxisRules] = None):
+    """``prefill(params, batch, pad_to=None, *, plane)`` -> (last logits,
+    cache): ``lm_prefill`` on ``shd``'s mesh (None: one device).  The
+    reference's takes no ``pad_to``: its cache holds the prompt only."""
+    def prefill(params, batch, pad_to=None, *, plane=ops.AUTO):
+        return lm_prefill(params, cfg, batch, pad_to, plane=plane, shd=shd)
 
     return prefill
 
 
-def build_decode_step(cfg: ArchConfig):
+def build_decode_step(cfg: ArchConfig, shd: Optional[AxisRules] = None):
+    """``decode(params, cache, batch)`` -> (logits, cache): one
+    ``lm_decode_step`` on ``shd``'s mesh (None: one device)."""
     def decode(params, cache, batch):
-        return lm_decode_step(params, cfg, cache, batch)
+        return lm_decode_step(params, cfg, cache, batch, shd)
 
     return decode
 
