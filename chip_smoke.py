@@ -146,7 +146,20 @@ Run from a checkout of the repository on a machine with one CUDA card and
    torch-plane forward, one step profiled beside its bound; no hand-written
    kernel may launch: training takes the reference's XLA attention route),
    and a reduced ``TrainRunner`` whose injected failure leaves the loss
-   stream of the run without it, bitwise.
+   stream of the run without it, bitwise;
+17. the MoE training path on meshes of shards on the one card,
+   llama4-scout-17b-a16e at full width, 1 of its 48 layers (4.15 B float32
+   parameters), TF32 off: ``init_lm`` from seed 0 on the card, the mesh
+   golden file's gradient of ``lm_loss`` (B = 2 x 512) on (1, 1), (1, 4)
+   and (2, 2) (``devices=("cuda",) * 4``: the expert-parallel MoE, each
+   data shard routing at its own capacity; loss, gradient norm and the sums
+   of every gradient leaf within 10x the port's CPU gap, each data shard's
+   loads and drops where the reference's router margin allows), then on
+   each mesh 3 ``momentum_bf16`` steps of ``build_train_step(cfg, ...,
+   shd=...)`` at B = 2 x 2048 (ms per step, tokens/s, peak memory beside
+   the reckoned state, one profiled step's device busy time, idle share and
+   operations, each beside the (1, 1) mesh's; no hand-written kernel may
+   launch).
 
 Every path's kernel launches are counted from 0 just before it runs and
 read just after.  It prints each phase's wall seconds (``phase walls``),
@@ -2266,6 +2279,11 @@ TRAIN_PATH = "train/stablelm-1.6b"
 # route's scan-flash attention and chunked loss against naive attention and whole logits)
 TRAIN_LOSS_TOL = 1e-4
 TRAIN_RUNNER = dict(batch=4, seq=32, steps=14, ckpt_every=5, fail_at=9)  # reduced config, tests/test_substrate.py
+# the MoE training path on meshes of shards on the one card: llama4-scout-17b-a16e at full width, depth cut to 1 of
+# 48 layers (4.15 B float32 parameters, 16.6 GB), bf16 momentum (an AdamW step's five float32 copies, 83 GB, do not
+# fit the card), B x S = 2 x 2048, on each (data, model) mesh with every shard on the card
+MOE_TRAIN = dict(layers=1, batch=2, seq=2048, steps=3, optimizer="momentum_bf16", meshes=("1x1", "1x4", "2x2"))
+MOE_TRAIN_PATH = "train/llama4-scout-17b-a16e@"  # + the mesh
 
 
 def train_bound_ms(cfg, params, B, S):
@@ -2404,6 +2422,126 @@ def phase_train(counted):
     log(f"train runner ({red.name} reduced, {r['steps']} steps, failure at {r['fail_at']}, checkpoints every "
         f"{r['ckpt_every']}): losses equal to the run without the failure, bitwise ({c[-1]} last)")
     return got
+
+
+def phase_train_moe_mesh(counted):
+    """The MoE training path on meshes of shards on the one card:
+    llama4-scout at full width, MOE_TRAIN's layers, init_lm from seed 0;
+    the mesh golden file's gradient of lm_loss on each of its meshes (loss,
+    gradient norm and leaf sums within its tolerances, each data shard's
+    routing held where the reference's margin allows); then on each mesh
+    build_train_step(cfg, "momentum_bf16", shd=...) for MOE_TRAIN's steps,
+    launches counted from 0 (none: the training route runs no hand-written
+    kernel), ms per step, tokens/s, peak memory beside the reckoning of
+    parameters, gradients, clipped gradients and momentum, and one step
+    profiled, each beside the (1, 1) mesh's.  The meshes train the same
+    parameters in turn.  Returns each mesh path's launches by kernel."""
+    import gc
+
+    import torch
+
+    from repro_torch.core import prng
+    from repro_torch.data.pipeline import make_pipeline
+    from repro_torch.models.lm import init_lm
+    from repro_torch.train import golden as tg
+    from repro_torch.train.steps import build_train_step
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    with open(tg.GOLDEN_TRAIN_MESH) as f:
+        golden = json.load(f)
+    cfg = tg.mesh_config(golden)
+    if cfg.n_layers != MOE_TRAIN["layers"]:
+        raise AssertionError(f"{tg.GOLDEN_TRAIN_MESH} holds {cfg.n_layers} layers, the phase {MOE_TRAIN['layers']}")
+    tol, router_gap = golden["tolerance"], golden["port_cpu_gap"]["router_logits"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = init_lm(prng.prng_key(golden["seed"]), cfg, torch.float32, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    log(f"train moe mesh: init_lm({cfg.name}, {cfg.n_layers} of 48 layers, seed {golden['seed']}) on the card: "
+        f"{n_params:,} parameters in {time.perf_counter() - t0:.3f} s, {torch.cuda.memory_allocated() / 1e9:.3f} GB")
+    if n_params != cfg.param_count() + cfg.d_model:
+        raise AssertionError(f"init_lm: {n_params} parameters, config {cfg.param_count()} + the final norm")
+
+    # (a) the golden file: one value_and_grad of lm_loss on each of its meshes
+    tokens = tg.mesh_tokens(golden, "cuda")
+    if tokens.tolist() != golden["tokens"]:
+        raise AssertionError("train moe mesh golden: the card's tokens differ from the reference's")
+    for mesh, want in golden["meshes"].items():
+        t0 = time.perf_counter()
+        rec, _ = tg.mesh_record(params, cfg, tg.mesh_rules(golden, mesh, "cuda"), tokens)
+        gaps = tg.mesh_gaps(rec, want, cfg)
+        log(f"train moe mesh golden {mesh} (B={golden['batch']} x S={golden['seq']}, {time.perf_counter() - t0:.3f} "
+            f"s): loss {rec['loss']} (reference {want['loss']}), grad_norm {rec['grad_norm']} (reference "
+            f"{want['grad_norm']}); relative gaps {gaps}, tolerances {tol}")
+        for key, gap in gaps.items():
+            if not gap <= tol[key]:
+                raise AssertionError(f"train moe mesh golden {mesh}: {key} off by {gap} > {tol[key]}")
+        for c in tg.routing_checks(rec["routing"], want["routing"], router_gap):
+            log(f"  golden routing {mesh}, layer {c['layer']}, data shard {c['shard']}: dropped "
+                f"{c['got']['dropped']} of {sum(c['got']['loads'])} (reference {c['want']['dropped']}), capacity "
+                f"{c['got']['capacity']}, loads {'equal' if c['got']['loads'] == c['want']['loads'] else c['got']['loads']}"
+                + ("" if c["held"] else f": not held (reference margin {c['want']['margin']:.3e} <= 10x {router_gap:.3e})"))
+            if c["held"] and not c["equal"]:
+                raise AssertionError(f"train moe mesh golden {mesh}: layer {c['layer']} shard {c['shard']} routes "
+                                     f"{c['got']} where the reference routes {c['want']}")
+
+    # (b) the main path on each mesh: MOE_TRAIN's steps of build_train_step, one more profiled
+    B, S, n = MOE_TRAIN["batch"], MOE_TRAIN["seq"], MOE_TRAIN["steps"]
+    init, nxt = make_pipeline(cfg.vocab_size, B, S, seed=0, device="cuda")
+    batches, ds = [], init()
+    for _ in range(n + 1):
+        ds, b = nxt(ds)
+        batches.append(b)
+    # what a step holds besides its activations: parameters, gradients and their clipped copies (float32), momentum
+    reckoned = n_params * (4 + 4 + 4 + 2) / 1e9
+    got_by_path, res = {}, {}
+    for mesh in MOE_TRAIN["meshes"]:
+        shd = tg.mesh_rules(golden, mesh, "cuda")
+        step_fn, opt = build_train_step(cfg, MOE_TRAIN["optimizer"], shd=shd)
+        state = opt.init(dict(params.named_parameters()))
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for fn in counted:
+            fn.launches = 0
+        step_ms, losses, gnorms = [], [], []
+        for step in range(n):
+            t0 = time.perf_counter()
+            params, state, m = step_fn(params, state, step, batches[step])
+            losses.append(float(m["loss"]))
+            gnorms.append(float(m["grad_norm"]))
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        got = {fn.__name__: fn.launches for fn in counted}
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        _, p_wall, p_busy, p_ops, p_top, _ = device_busy(lambda: step_fn(params, state, n, batches[n]))
+        ms = sum(step_ms[1:]) / (n - 1)
+        res[mesh] = {"ms_per_step": ms, "tokens_per_s": B * S / ms * 1e3, "peak_gb": peak, "step_ms": step_ms,
+                     "losses": losses, "grad_norms": gnorms, "step_wall_ms": p_wall, "step_device_busy_ms": p_busy,
+                     "step_idle_share": 1 - p_busy / p_wall, "step_device_ops": p_ops, "top_launches_and_ms": p_top}
+        base = res[MOE_TRAIN["meshes"][0]]
+        log(f"main path {MOE_TRAIN_PATH}{mesh} ({cfg.n_layers} layer, B={B} x S={S}, {MOE_TRAIN['optimizer']}, "
+            f"float32, remat {cfg.remat}): {ms:.3f} ms/step over steps 1-{n - 1} (step 0 {step_ms[0]:.3f}; "
+            f"{MOE_TRAIN['meshes'][0]}: {base['ms_per_step']:.3f}), {B * S / ms * 1e3:.1f} tokens/s, peak "
+            f"{peak:.3f} GB allocated ({MOE_TRAIN['meshes'][0]}: {base['peak_gb']:.3f}; parameters, gradients, "
+            f"clipped gradients and momentum reckoned {reckoned:.3f}), profiled step: busy {p_busy:.3f} of "
+            f"{p_wall:.3f} ms, idle {1 - p_busy / p_wall:.4f}, {p_ops} device operations ({MOE_TRAIN['meshes'][0]}: "
+            f"busy {base['step_device_busy_ms']:.3f} of {base['step_wall_ms']:.3f}, {base['step_device_ops']}); "
+            f"losses {losses}, grad_norms {gnorms}, launches {got}")
+        if not all(map(math.isfinite, losses + gnorms)):
+            raise AssertionError(f"{MOE_TRAIN_PATH}{mesh}: a loss or grad_norm is not finite")
+        if any(got.values()):
+            raise AssertionError(f"{MOE_TRAIN_PATH}{mesh}: launched {got}; the training route runs no hand-written "
+                                 "kernel")
+        got_by_path[MOE_TRAIN_PATH + mesh] = got
+        del step_fn, opt, state
+    log("train moe mesh profile: " + json.dumps(res))
+    del params, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return got_by_path
 
 
 def main_path_spec(protocol, workload, plane, codes=CODES):
@@ -3076,6 +3214,12 @@ def main() -> int:
     for name, n in phase_train(counted).items():
         launches[name][TRAIN_PATH] = n
 
+    lap("train")
+    # the MoE training path on meshes of shards (llama4-scout-17b-a16e at full width, 1 of 48 layers)
+    for path, got in phase_train_moe_mesh(counted).items():
+        for name, n in got.items():
+            launches[name][path] = n
+
     for k in kernels:  # launches summed over the main paths' runs; times weighted by them
         k["launches"] = sum(launches[k["name"]].values())
         k["launches_by_path"] = launches[k["name"]]
@@ -3087,7 +3231,7 @@ def main() -> int:
         lib = [(n, r) for n, r in weighted if r.get("library_ms") is not None]
         k.update({key: mix(lib)[key] if lib else None for key in ("library_ms", "library_host_ms")})
         k["ms_library_paths"] = mix(lib)["ms"] if lib else None
-    lap("train")
+    lap("train moe mesh")
     log("phase walls (s): " + json.dumps(walls))
     log(card)  # again, so that the card and its power limit stand beside the numbers in a tail of the output
     log(f"smoke wall: {time.perf_counter() - t_start:.1f} s")

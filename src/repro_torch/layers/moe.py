@@ -17,14 +17,17 @@ tokens with its own capacity), and for each batch shard, model shard j runs
 ``moe_local`` over its E/n experts on its device, the shards' outputs
 summed in shard order (the reference's ``psum``).  A shard's expert weights
 are views of the whole tensors where its device is theirs: the one-card
-mesh holds no second copy.  A ``Record`` keeps what each call routed and
-splits its time by step in a trace.  Plain PyTorch on both kernel planes:
-the reference runs this layer through XLA, with no Pallas kernel.
+mesh holds no second copy.  Under autograd the gradients follow the views:
+the router's from every (batch shard, model shard) pair that used it, each
+shard's expert slices into the one full-size gradient of each weight.  A
+``Record`` keeps what each call routed and splits its time by step in a
+trace.  Plain PyTorch on both kernel planes: the reference runs this layer
+through XLA, with no Pallas kernel.
 """
 from __future__ import annotations
 
 import contextlib
-from typing import Dict, NamedTuple, Optional
+from typing import Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -155,7 +158,9 @@ class Record:
     call computes anyway, so recording adds no device work; and each call
     runs its four steps inside ``record_function`` ranges ``moe:router``,
     ``moe:dispatch``, ``moe:expert products`` and ``moe:combine``, so that a
-    trace splits the layer's time by step.  ``route_stats`` reads a call."""
+    trace splits the layer's time by step.  ``route_stats`` reads a call.
+    A block that a checkpoint recomputes in the backward pass (``remat``)
+    records nothing the second time: a call is one forward of the layer."""
 
     current = None  # the open record, if any
 
@@ -170,9 +175,16 @@ class Record:
         Record.current = None
 
 
+def _recording() -> bool:
+    """A Record is open and this is not a recomputation: a checkpointed
+    block's forward runs again inside the backward pass, where autograd's
+    engine has a graph task."""
+    return Record.current is not None and torch._C._current_graph_task_id() == -1
+
+
 def _step(name):
     """A profiler range around one step of the MoE while a Record is open."""
-    return record_function("moe:" + name) if Record.current is not None else contextlib.nullcontext()
+    return record_function("moe:" + name) if _recording() else contextlib.nullcontext()
 
 
 class Experts(NamedTuple):
@@ -197,7 +209,7 @@ def _moe_local(params, cfg: ArchConfig, x, e0: int, n_local: int):
         out = _expert_ffn(cfg, params.wg, params.wu, params.wd, buf)
     with _step("combine"):
         y = _combine(out, gates, keep, dest).reshape(B, S, D)
-    return y, {"logits": logits, "ids": idx, "keep": keep, "capacity": C}
+    return y, {"logits": logits.detach(), "ids": idx, "keep": keep, "capacity": C}
 
 
 def moe_local(params, cfg: ArchConfig, x, e0: int, n_local: int):
@@ -205,7 +217,7 @@ def moe_local(params, cfg: ArchConfig, x, e0: int, n_local: int):
     (``params`` holds those experts' weights and the whole router): route,
     dispatch, the experts, combine."""
     y, call = _moe_local(params, cfg, x, e0, n_local)
-    if Record.current is not None:
+    if _recording():
         Record.current.calls.append(call)
     return y
 
@@ -226,8 +238,11 @@ def _apply_moe_sharded(params: MoE, cfg: ArchConfig, shd: AxisRules, x, n: int):
     capacity of its own T), then for each batch shard the n model shards'
     ``moe_local`` over experts [j E/n, (j+1) E/n) on their devices, summed
     in shard order on x's device.  The reference's ``fsdp`` all-gather is
-    the identity here: a shard holds its experts whole.  An open ``Record``
-    gets one call, the batch shards' routing concatenated, an assignment
+    the identity here: a shard holds its experts whole, and the gather's
+    transpose, a reduce-scatter of the batch shards' gradients, is the sum
+    that autograd makes where the batch shards use the same views.  An open
+    ``Record`` gets one call, the batch shards' routing concatenated in
+    shard order (``batch_shards`` of them, ``split_call``), an assignment
     kept if its expert's shard kept it."""
     n_local = cfg.n_experts // n
     batch_entry = shd.resolve(P("batch"), (x.shape[0],))[0]
@@ -246,11 +261,20 @@ def _apply_moe_sharded(params: MoE, cfg: ArchConfig, shd: AxisRules, x, n: int):
             keep = call["keep"].to(x.device) if keep is None else keep | call["keep"].to(x.device)
         outs.append(y)
         calls.append(dict(call, logits=call["logits"].to(x.device), ids=call["ids"].to(x.device), keep=keep))
-    if Record.current is not None:
+    if _recording():
         Record.current.calls.append({"logits": torch.cat([c["logits"] for c in calls]),
                                      "ids": torch.cat([c["ids"] for c in calls]),
-                                     "keep": torch.cat([c["keep"] for c in calls]), "capacity": calls[0]["capacity"]})
+                                     "keep": torch.cat([c["keep"] for c in calls]), "capacity": calls[0]["capacity"],
+                                     "batch_shards": len(calls)})
     return outs[0] if len(outs) == 1 else torch.cat(outs)
+
+
+def split_call(call: Dict) -> List[Dict]:
+    """A recorded call as its batch shards' calls, each routed at the
+    call's capacity (a call of one device is one shard)."""
+    n = call.get("batch_shards", 1)
+    parts = {k: call[k].chunk(n) for k in ("logits", "ids", "keep")}
+    return [dict(call, batch_shards=1, **{k: v[i] for k, v in parts.items()}) for i in range(n)]
 
 
 def route_stats(cfg: ArchConfig, call: Dict) -> Dict:

@@ -143,9 +143,9 @@ def lm_prefill(params: LM, cfg: ArchConfig, batch, pad_to: Optional[int] = None,
     B, S = tokens.shape
     x = embed_tokens(params, cfg, tokens)
     if cfg.encoder_decoder:
-        enc = encode_audio(params, cfg, batch["frames"], plane=plane)
+        enc = encode_audio(params, cfg, batch["frames"], plane=plane, shd=shd)
         cache = init_cache(cfg, B, max(S, pad_to or 0), x.dtype, x.device)
-        x = _run_decoder_encdec(params, cfg, x, enc, plane=plane, caches=layer_caches(cfg, cache))
+        x = _run_decoder_encdec(params, cfg, x, enc, plane=plane, caches=layer_caches(cfg, cache), shd=shd)
         cache["len"] = S
         return logits_fn(params, cfg, x[:, -1:])[:, 0], cache
     positions = batch.get("positions")

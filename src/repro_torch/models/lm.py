@@ -9,12 +9,13 @@ hybrid's layer P l + j is its ``groups/g{j}_{kind}/…[l]`` for a pattern of
 length P, and its tail layers follow the groups; an encoder-decoder's are
 ``enc_layers.{l}.…`` and ``dec_layers.{l}.…``), so ``convert`` is a name
 map.  The functions mirror the reference's
-(``lm_apply(params, cfg, batch)``, without the sharding rules) and take a
-``plane`` for attention: a kernel plane (``kernels.ops.attention_op``, for
-serving) or ``TRAIN``, the reference's XLA route that autograd
-differentiates.  Parameters are built frozen, for serving; training turns
-them on with ``LM.requires_grad_()`` (``train.steps`` does) and runs
-``lm_loss``, whose blocks are checkpointed as ``cfg.remat`` says.
+(``lm_apply(params, cfg, batch, shd=...)``: the sharding rules are a
+keyword, None for one device) and take a ``plane`` for attention: a kernel
+plane (``kernels.ops.attention_op``, for serving) or ``TRAIN``, the
+reference's XLA route that autograd differentiates.  Parameters are built
+frozen, for serving; training turns them on with ``LM.requires_grad_()``
+(``train.steps`` does) and runs ``lm_loss``, whose blocks are checkpointed
+as ``cfg.remat`` says.
 
 Position ids are (B, S), or (B, 3, S) under M-RoPE (qwen2-vl: the
 temporal, height and width ids of each token); the layers take them as
@@ -24,10 +25,12 @@ run raises ``NotImplementedError``.
 Every leaf that ``init_lm`` builds keeps its logical spec (the reference's
 ``Param`` specs): ``named_specs`` lists them by parameter name, and
 ``param_specs`` gives the reference's tree of specs, from an ``init_lm`` on
-the ``meta`` device, which draws and allocates nothing.  The blocks of
-prefill and decode (``models/decode``) take an ``AxisRules`` (``shd``) for
-the MoE FFN: with a ``model`` mesh axis it runs expert-parallel
-(``layers/moe.apply_moe``).
+the ``meta`` device, which draws and allocates nothing.  The forward, the
+loss and the blocks of prefill and decode (``models/decode``) take an
+``AxisRules`` (``shd``) for the MoE FFN: with a ``model`` mesh axis of n > 1
+that divides the experts it runs expert-parallel
+(``layers/moe.apply_moe``), under autograd and its checkpoints too; any
+other ``shd`` computes what None computes.
 """
 from __future__ import annotations
 
@@ -412,12 +415,13 @@ def _remat(f, cfg: ArchConfig):
     raise ValueError(f"remat={cfg.remat!r}: pass 'full', 'save_attn' or 'none'")
 
 
-def _run_stack(params: LM, cfg: ArchConfig, x, positions, *, plane=ops.AUTO):
+def _run_stack(params: LM, cfg: ArchConfig, x, positions, *, plane=ops.AUTO, shd=None):
     """The decoder stack over x (B,S,D), layer by layer; while autograd
-    records, each block runs under ``cfg.remat``."""
+    records, each block runs under ``cfg.remat``.  ``shd``: the MoE's
+    ``AxisRules`` (``_ffn``)."""
     block = _remat(_block_full, cfg) if torch.is_grad_enabled() else _block_full
     for lp, kind in zip(params.layers, cfg.layer_kinds()):
-        x = block(lp, cfg, kind, x, positions, plane=plane)
+        x = block(lp, cfg, kind, x, positions, plane=plane, shd=shd)
     return x
 
 
@@ -426,17 +430,18 @@ def _run_stack(params: LM, cfg: ArchConfig, x, positions, *, plane=ops.AUTO):
 # ---------------------------------------------------------------------------
 
 
-def encode_audio(params: LM, cfg: ArchConfig, frames, *, plane=ops.AUTO):
+def encode_audio(params: LM, cfg: ArchConfig, frames, *, plane=ops.AUTO, shd=None):
     """frames (B, T_enc, D) -> the encoder's states: the sinusoid added,
     then ``enc_layers``' non-causal attention blocks (rotary, as the
     reference's: ROADMAP.md C.14; on a kernel plane the ``flash_attention``
-    kernel, one launch a layer), then ``enc_norm``."""
+    kernel, one launch a layer), then ``enc_norm``.  ``shd`` reaches the
+    blocks (``_block_full``)."""
     T = frames.shape[1]
     x = frames + sinusoidal_positions(T, cfg.d_model, frames.device).to(frames.dtype)[None]
     positions = torch.arange(T, dtype=torch.int32, device=frames.device)[None]
     block = _remat(_block_full, cfg) if torch.is_grad_enabled() else _block_full
     for lp in params.enc_layers:
-        x = block(lp, cfg, "attn", x, positions, plane=plane, causal=False)
+        x = block(lp, cfg, "attn", x, positions, plane=plane, causal=False, shd=shd)
     return apply_norm(cfg.norm, params.enc_norm, x)
 
 
@@ -465,11 +470,13 @@ def _dec_block_full(lp: Block, cfg: ArchConfig, x, enc, *, plane=ops.AUTO, cache
     return x + apply_mlp(lp.mlp, cfg, apply_norm(cfg.norm, lp.norm2, x))
 
 
-def _run_decoder_encdec(params: LM, cfg: ArchConfig, x, enc, *, plane=ops.AUTO, caches=None):
+def _run_decoder_encdec(params: LM, cfg: ArchConfig, x, enc, *, plane=ops.AUTO, caches=None, shd=None):
     """The decoder over the token embeddings x (B,S,D): the sinusoid of
     positions 0..S-1 added (the reference's stand-in for whisper's learned
     table), then ``dec_layers``.  With ``caches`` (each layer's cache views,
-    ``decode.layer_caches``) each layer writes its prefill entry."""
+    ``decode.layer_caches``) each layer writes its prefill entry.  ``shd``
+    is taken as the reference takes it: a decoder layer's FFN is the dense
+    MLP, on which the rules change no value (``AxisRules.constrain``)."""
     x = x + sinusoidal_positions(x.shape[1], cfg.d_model, x.device).to(x.dtype)[None]
     if caches is not None:
         for lp, cl in zip(params.dec_layers, caches):
@@ -487,9 +494,13 @@ def _run_decoder_encdec(params: LM, cfg: ArchConfig, x, enc, *, plane=ops.AUTO, 
 
 
 def embed_tokens(params: LM, cfg: ArchConfig, tokens):
-    """Table lookup: tokens (B,S) -> (B,S,D).  The reference's
-    vocab-sharded lookup on a mesh (a masked gather per shard and a
-    ``psum``) adds one row to zeros: the same values, so it runs whole."""
+    """Table lookup: tokens (B,S) -> (B,S,D), on every mesh.  The
+    reference's vocab-sharded lookup on a mesh (a masked gather per vocab
+    shard and a ``psum``) adds the one shard's row that holds a token to
+    zeros from the others: the same values as the whole lookup, and the
+    same gradient, each token's output gradient added into its looked-up
+    row (the masked gathers' transpose scatters into the owning shard's
+    rows, the others' are masked to zero)."""
     return F.embedding(tokens, params.embed)
 
 
@@ -510,26 +521,28 @@ def default_positions(cfg: ArchConfig, tokens):
     return ids.expand(B, 3, S) if cfg.mrope_sections is not None else ids.expand(B, S)
 
 
-def lm_hidden(params: LM, cfg: ArchConfig, batch, *, plane=ops.AUTO):
+def lm_hidden(params: LM, cfg: ArchConfig, batch, *, plane=ops.AUTO, shd=None):
     """Backbone forward -> final hidden states (B,S,D); an encoder-decoder
     encodes ``batch["frames"]`` first.  ``batch["positions"]``: (B, S), or
-    (B, 3, S) under M-RoPE; ``default_positions`` without it."""
+    (B, 3, S) under M-RoPE; ``default_positions`` without it.  ``shd``: the
+    ``AxisRules`` of a mesh (None: one device), which an MoE FFN runs on
+    (``_ffn``)."""
     tokens = batch["tokens"]
     x = embed_tokens(params, cfg, tokens)
     if cfg.encoder_decoder:
-        enc = encode_audio(params, cfg, batch["frames"], plane=plane)
-        return _run_decoder_encdec(params, cfg, x, enc, plane=plane)
+        enc = encode_audio(params, cfg, batch["frames"], plane=plane, shd=shd)
+        return _run_decoder_encdec(params, cfg, x, enc, plane=plane, shd=shd)
     positions = batch.get("positions")
     if positions is None:
         positions = default_positions(cfg, tokens)
-    return _run_stack(params, cfg, x, rotary(cfg, positions), plane=plane)
+    return _run_stack(params, cfg, x, rotary(cfg, positions), plane=plane, shd=shd)
 
 
-def lm_apply(params: LM, cfg: ArchConfig, batch, *, plane=ops.AUTO):
+def lm_apply(params: LM, cfg: ArchConfig, batch, *, plane=ops.AUTO, shd=None):
     """Full forward -> logits (B,S,V). batch: tokens (+positions (B, S), or
     (B, 3, S) under M-RoPE, or the frames (B, T_enc, D) of an
-    encoder-decoder)."""
-    return logits_fn(params, cfg, lm_hidden(params, cfg, batch, plane=plane))
+    encoder-decoder); ``shd`` as ``lm_hidden`` takes it."""
+    return logits_fn(params, cfg, lm_hidden(params, cfg, batch, plane=plane, shd=shd))
 
 
 def _nll(logits, labels):
@@ -554,14 +567,16 @@ def _chunk_nll(params: LM, cfg: ArchConfig, xc, yc):
     return _nll(logits_fn(params, cfg, xc), yc).sum()
 
 
-def lm_loss(params: LM, cfg: ArchConfig, batch, loss_chunk: int = 1024):
+def lm_loss(params: LM, cfg: ArchConfig, batch, loss_chunk: int = 1024, *, shd=None):
     """Causal LM loss with a sequence-chunked head and cross-entropy: each
     chunk of ``loss_chunk`` positions is checkpointed, so its (B, chunk, V)
     logits are recomputed in the backward and the (B, S, V) logits never
     exist (the reference's ``lm_loss``; its padded last chunk is shorter
-    here)."""
+    here).  ``shd`` as ``lm_hidden`` takes it: the head and the loss run
+    whole on every mesh, as the reference's vocab-sharded ones give the
+    same values."""
     labels = batch["labels"]
-    x = lm_hidden(params, cfg, batch, plane=TRAIN)
+    x = lm_hidden(params, cfg, batch, plane=TRAIN, shd=shd)
     xs, ys = x[:, :-1], labels[:, 1:]
     B, S1, _ = xs.shape
     chunk = min(loss_chunk, S1)

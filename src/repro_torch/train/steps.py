@@ -15,7 +15,7 @@ from repro_torch.optim import make_optimizer
 from repro_torch.sharding import AxisRules
 
 
-def build_train_step(cfg: ArchConfig, opt_name: Optional[str] = None):
+def build_train_step(cfg: ArchConfig, opt_name: Optional[str] = None, *, shd: Optional[AxisRules] = None):
     """Returns (train_step, optimizer).
 
     ``train_step(params, opt_state, step, batch) -> (params, opt_state,
@@ -27,6 +27,9 @@ def build_train_step(cfg: ArchConfig, opt_name: Optional[str] = None):
     B_micro, S) for gradient accumulation: float32 for AdamW, bfloat16
     otherwise, then divided by ``n_micro``.  ``metrics``: ``loss`` and
     ``grad_norm`` (float32 tensors on the model's device) and ``step + 1``.
+    ``shd``: the ``AxisRules`` of a mesh that ``lm_loss`` runs on (None:
+    one device), for a (B, S) batch and for each microbatch alike; the
+    optimizer does not depend on it, as the reference's does not.
     """
     check_ported(cfg)
     name = opt_name or cfg.optimizer
@@ -35,7 +38,7 @@ def build_train_step(cfg: ArchConfig, opt_name: Optional[str] = None):
 
     def value_and_grad(params: LM, named, mb):
         with torch.enable_grad():
-            loss = lm_loss(params, cfg, mb)
+            loss = lm_loss(params, cfg, mb, shd=shd)
             grads = torch.autograd.grad(loss, list(named.values()))
         return loss.detach(), dict(zip(named, grads))
 

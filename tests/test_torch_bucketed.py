@@ -11,6 +11,7 @@ reference's.  CALVIN's bucketed cases are in ``tests/test_torch_calvin.py``.
 """
 import numpy as np
 import pytest
+import torch
 
 from repro import api as japi
 from repro.core import sweep as jsweep
@@ -23,6 +24,16 @@ EXACT = ("commits", "aborts", "abort_rate", "throughput_mtps", "avg_round_trips"
 LATENCY = ("avg_latency_us", "stage_us_per_commit")
 META = ("hybrid", "protocol", "workload", "grid_size", "n_buckets", "bucket", "coroutines", "records_per_node", "ticks")
 RTOL = 1e-5
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The port's CPU ops on one thread while this file runs (tier-1 runs
+    several test workers on one machine's cores)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _compare(protocol, workload, configs, plane="torch", **over):

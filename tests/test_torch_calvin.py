@@ -43,6 +43,16 @@ RTOL = 1e-5
 GOLDEN = os.path.join(os.path.dirname(__file__), "..", "src", "repro_torch", "data", "golden_calvin.json")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The port's CPU ops on one thread while this file runs (tier-1 runs
+    several test workers on one machine's cores)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _assert_rows(j_rows, t_rows, label):
     assert len(j_rows) == len(t_rows)
     for a, b in zip(j_rows, t_rows):

@@ -35,6 +35,16 @@ RTOL = 1e-5  # float32 sums in another order
 _JTICKS = {}
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The port's CPU ops on one thread while this file runs (tier-1 runs
+    several test workers on one machine's cores)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _jtick(proto):
     """The JAX protocol tick, jitted once per protocol for the whole module."""
     if proto not in _JTICKS:

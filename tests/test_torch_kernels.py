@@ -33,6 +33,16 @@ from repro_torch.kernels.ref import mvcc_version_select_ref
 I32_MIN, I32_MAX = -(2**31), 2**31 - 1
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The port's CPU ops on one thread while this file runs (tier-1 runs
+    several test workers on one machine's cores)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _arbiter_case(G, M, n_keys, seed, *, ties=False, pad=False):
     """Random arbitration batch: unique (hi, lo) per group unless ``ties``
     (then pairs share a priority and several requests win), inactive rows,

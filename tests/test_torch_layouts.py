@@ -19,6 +19,7 @@ import sys
 import jax
 import numpy as np
 import pytest
+import torch
 
 from repro import api as japi
 from repro_torch import api as tapi
@@ -34,6 +35,16 @@ CONFIGS = [{"hybrid": 21, "coroutines": 3, "ticks": 24}, {"hybrid": 63}, {"hybri
 LAYOUT_CELLS = [("nowait", "smallbank"), ("waitdie", "smallbank"), ("occ", "smallbank"), ("mvcc", "smallbank"),
                 ("sundial", "smallbank"), ("calvin", "smallbank"), ("mvcc", "ycsb")]
 _JROWS = {}
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The port's CPU ops on one thread while this file runs (tier-1 runs
+    several test workers on one machine's cores)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _jax_rows(proto, workload):

@@ -40,6 +40,16 @@ GOLDEN = os.path.join(os.path.dirname(__file__), "..", "src", "repro_torch", "da
 GOLDEN_SPEC = dict(protocol="mvcc", workload="ycsb")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The port's CPU ops on one thread while this file runs (tier-1 runs
+    several test workers on one machine's cores)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _wts_case(N, K, S, seed):
     """Narrow timestamps, so empty slots, ties and ctts == wts all occur."""
     rng = np.random.default_rng(seed)

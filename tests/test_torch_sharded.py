@@ -13,6 +13,7 @@ framework).  The front door's layouts are in ``test_torch_layouts.py``.
 """
 import numpy as np
 import pytest
+import torch
 
 from repro.core import engine as jeng
 from repro.core.costmodel import CostModel as JCostModel
@@ -39,6 +40,16 @@ ENGINE_CELLS = [
     ("mvcc", "ycsb", 63, dict(hot_prob=0.6)),
 ]
 _JRUNS = {}
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The port's CPU ops on one thread while this file runs (tier-1 runs
+    several test workers on one machine's cores)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _common(proto, code, wl):
