@@ -19,9 +19,10 @@ Run from a checkout of the repository on a machine with one CUDA card and
    host issues them eagerly, its bound, the plain version's times and a
    library call's times (``flash_attention``: SDPA, at both serving
    paths' prefill calls, Dh = 64 and 128, at qwen2-vl-72b's (H = 64 after
-   the GQA repeat, Dh = 128), at whisper-small's two (the encoder's, not
-   causal over 1500 frames, and the decoder's over a 224-token prompt) and
-   at kimi-k2's Dh = 112;
+   the GQA repeat, Dh = 128), at nemotron-4-15b's (H = 48; qwen2.5-32b's
+   call is llama4-scout's and command-r-35b's qwen2-vl's), at
+   whisper-small's two (the encoder's, not causal over 1500 frames, and
+   the decoder's over a 224-token prompt) and at kimi-k2's Dh = 112;
    ``multi_read``: the per-array ``a[keys]`` of the torch plane).  ``multi_read`` and
    ``mvcc_version_select`` are timed as the whole ops-level call
    (``ops.gather_many``, ``ops.version_read``), which must be one launch
@@ -93,7 +94,7 @@ Run from a checkout of the repository on a machine with one CUDA card and
    the mesh in turns (prefill and decode times, a profiled prefill and
    decode step's device busy and idle share, peak memory, 6
    ``flash_attention`` launches per prefill, the paths' logits; the mesh
-   may not hold a second copy of a weight), then the dry run's 56 (arch x
+   may not hold a second copy of a weight), then the dry run's 80 (arch x
    shape x mesh) cells on the logical production meshes;
 12. the SSM serving path, falcon-mamba-7b at full width and all 64 layers
    (7.27 B float32 parameters), TF32 off: ``init_lm`` from seed 0 on the
@@ -137,7 +138,19 @@ Run from a checkout of the repository on a machine with one CUDA card and
    launched 12 times in the prefill and never in decode), then the main path
    ``serve`` (4 x 2048 tokens, 32 each, the reference's text-only positions)
    on both planes beside its float32 bounds;
-16. the LM training path, stablelm-1.6b at full width in float32 with TF32
+16. the last three dense configs at full width, one after another, TF32
+   off: nemotron-4-15b (all 32 layers, 15.63 B float32 parameters; squared
+   ReLU, half of each head rotated), qwen2.5-32b (16 of 64 layers, 9.36 B;
+   QKV biases, theta 1e6) and command-r-35b (12 of 40 layers, 10.55 B;
+   parallel block, the head tied to the embedding, theta 8e6), each as
+   phase 15: ``init_lm`` from seed 0 on the card (its parameter count
+   against the config's, leaf corners against the reference's), the
+   golden-file run on the model's first two layers (one 2048-token prompt,
+   8 greedy tokens, logits within 10x the port's CPU gap), a profiled
+   prefill and decode step (``flash_attention`` launched once a layer in
+   the prefill and never in decode), then the main path ``serve`` (4 x 2048
+   tokens, 32 each) on both planes beside its float32 bounds;
+17. the LM training path, stablelm-1.6b at full width in float32 with TF32
    off: 3 AdamW steps at the depth the reference's golden file was cut to
    (its pipeline tokens bitwise, losses, grad_norms and leaf sums within
    10x the port's CPU gap), then the main path at full width and depth,
@@ -147,7 +160,7 @@ Run from a checkout of the repository on a machine with one CUDA card and
    kernel may launch: training takes the reference's XLA attention route),
    and a reduced ``TrainRunner`` whose injected failure leaves the loss
    stream of the run without it, bitwise;
-17. the MoE training path on meshes of shards on the one card,
+18. the MoE training path on meshes of shards on the one card,
    llama4-scout-17b-a16e at full width, 1 of its 48 layers (4.15 B float32
    parameters), TF32 off: ``init_lm`` from seed 0 on the card, the mesh
    golden file's gradient of ``lm_loss`` (B = 2 x 512) on (1, 1), (1, 4)
@@ -174,6 +187,7 @@ exits 1 at once.  It imports neither JAX nor the JAX package.
 """
 from __future__ import annotations
 
+import functools
 import json
 import math
 import os
@@ -295,6 +309,12 @@ WHISPER_PARAMS = 278_143_488
 VLM_ARCH = "qwen2-vl-72b"
 VLM_LAYERS = 12
 VLM_SERVE_PATH = "serve/qwen2-vl-72b"
+# the last three dense serving main paths, at full width, each at the depth that fits the card in float32 (layers
+# of the config's: nemotron-4-15b all 32, 15.63 B parameters, 62.5 GB; qwen2.5-32b 16 of 64, 9.36 B; command-r-35b
+# 12 of 40, 10.55 B), the same requests as SERVE, and each one's golden file (the first 2 layers)
+DENSE_LAYERS = {"nemotron-4-15b": 32, "qwen2.5-32b": 16, "command-r-35b": 12}
+DENSE_GOLDEN = {"nemotron-4-15b": "golden_serve_nemotron.json", "qwen2.5-32b": "golden_serve_qwen2_5.json",
+                "command-r-35b": "golden_serve_command_r.json"}
 # logits tolerance of the serving phase (absolute; logits have std 0.88).  The port
 # on the CPU is within 7.9e-6 of the JAX reference at full width (the golden file's
 # port_cpu_max_abs_logit_gap); 1e-4 leaves 12x that for the card's other summation
@@ -870,13 +890,41 @@ def attn_work(B, H, Sq, Sk, Dh, causal, elem):
     return elem * B * H * Dh * (2 * Sq + 2 * Sk), 4 * B * H * Dh * pairs
 
 
+def flash_timing(gen, label, B, H, S, Dh, causal=True):
+    """flash_attention at a prefill's call, as attention_op makes it (inputs
+    from ``gen``), beside its plain version and SDPA, and its float32 bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ref import flash_attention_ref
+
+    q, k, v = attn_inputs(B, H, S, S, Dh, torch.float32, gen, bshd=True)
+    qc, kc, vc = (t.contiguous() for t in (q, k, v))
+    fn = lambda: flash_attention(q, k, v, causal=causal)  # noqa: E731
+    plain = lambda: flash_attention_ref(q, k, v, causal=causal)  # noqa: E731
+    sdpa = lambda: F.scaled_dot_product_attention(qc, kc, vc, is_causal=causal)  # noqa: E731
+    t = {"ms": time_graph_ms(fn, reps=10), "plain_ms": time_graph_ms(plain, reps=3),
+         "library_ms": time_graph_ms(sdpa, reps=10), "host_ms": time_ms(fn, reps=10, warm=2),
+         "plain_host_ms": time_ms(plain, reps=3, warm=1), "library_host_ms": time_ms(sdpa, reps=10, warm=2)}
+    sdpa_err = float((sdpa().float() - plain().float()).abs().max())
+    n_bytes, n_flops = attn_work(B, H, S, S, Dh, causal, 4)
+    t["bound_ms"], t["bound_by"] = bound_ms(n_bytes, n_flops, FP32_FLOPS_PER_S)
+    mask = "causal" if causal else "not causal"
+    log(f"flash_attention ({label}: B={B}, H={H}, S={S}, Dh={Dh}, {mask}, float32): {t['ms']:.6f} ms/call "
+        f"on the device ({t['host_ms']:.6f} issued eagerly), plain {t['plain_ms']:.6f} ms "
+        f"({t['plain_host_ms']:.6f}), SDPA {t['library_ms']:.6f} ms ({t['library_host_ms']:.6f}; max |err| vs "
+        f"plain {sdpa_err:.3e}), bound {t['bound_ms']:.6f} ms ({t['bound_by']}: {n_flops / 1e9:.2f} GFLOP, "
+        f"{n_bytes / 1e6:.1f} MB), {n_flops / t['ms'] / 1e9:.2f} TFLOP/s")
+    return dict(t, B=B, H=H, S=S, Dh=Dh, causal=causal)
+
+
 def phase_flash(gen):
     """flash_attention against its plain version on the card, in the
     working dtype (1e-5 in float32, 3e-2 in bfloat16, the reference's
     tolerances: |err| <= tol + tol*|want|), then timed at the serving shape
     with the SDPA call as a yardstick."""
     import torch
-    import torch.nn.functional as F
 
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import flash_attention
@@ -903,8 +951,9 @@ def phase_flash(gen):
     # whisper-small's prefill calls: the encoder's over 1500 frames (not causal; 1500 is a multiple of neither the
     # 128-row q tile nor the 64-key tile) and the decoder's self-attention over the 224-token prompt
     cases += [(4, 12, 1500, 1500, 64, False, torch.float32, True), (4, 12, 224, 224, 64, True, torch.float32, True)]
-    # qwen2-vl-72b's prefill call: B = 4, H = 64 after the GQA repeat, S = 2048, Dh = 128, causal
-    cases += [(4, 64, 2048, 2048, 128, True, torch.float32, True)]
+    # qwen2-vl-72b's prefill call (B = 4, H = 64 after the GQA repeat, S = 2048, Dh = 128, causal; command-r-35b's
+    # too) and nemotron-4-15b's (H = 48)
+    cases += [(4, 64, 2048, 2048, 128, True, torch.float32, True), (4, 48, 2048, 2048, 128, True, torch.float32, True)]
     worst = {dt: 0.0 for dt in tols}
     for B, H, Sq, Sk, Dh, causal, dt, bshd in cases:
         q, k, v = attn_inputs(B, H, Sq, Sk, Dh, dt, gen, bshd=bshd)
@@ -921,27 +970,7 @@ def phase_flash(gen):
     log(f"  flash_attention: {len(cases)} cases within tolerance; max |err| float32 {worst[torch.float32]:.3e}, "
         f"bfloat16 {worst[torch.bfloat16]:.3e}")
 
-    def timing(label, B, H, S, Dh, causal=True):
-        """The kernel at a prefill's call, as attention_op makes it, beside its
-        plain version and SDPA, and its float32 bound."""
-        q, k, v = attn_inputs(B, H, S, S, Dh, torch.float32, gen, bshd=True)
-        qc, kc, vc = (t.contiguous() for t in (q, k, v))
-        fn = lambda: flash_attention(q, k, v, causal=causal)  # noqa: E731
-        plain = lambda: flash_attention_ref(q, k, v, causal=causal)  # noqa: E731
-        sdpa = lambda: F.scaled_dot_product_attention(qc, kc, vc, is_causal=causal)  # noqa: E731
-        t = {"ms": time_graph_ms(fn, reps=10), "plain_ms": time_graph_ms(plain, reps=3),
-             "library_ms": time_graph_ms(sdpa, reps=10), "host_ms": time_ms(fn, reps=10, warm=2),
-             "plain_host_ms": time_ms(plain, reps=3, warm=1), "library_host_ms": time_ms(sdpa, reps=10, warm=2)}
-        sdpa_err = float((sdpa().float() - plain().float()).abs().max())
-        n_bytes, n_flops = attn_work(B, H, S, S, Dh, causal, 4)
-        t["bound_ms"], t["bound_by"] = bound_ms(n_bytes, n_flops, FP32_FLOPS_PER_S)
-        mask = "causal" if causal else "not causal"
-        log(f"flash_attention ({label}: B={B}, H={H}, S={S}, Dh={Dh}, {mask}, float32): {t['ms']:.6f} ms/call "
-            f"on the device ({t['host_ms']:.6f} issued eagerly), plain {t['plain_ms']:.6f} ms "
-            f"({t['plain_host_ms']:.6f}), SDPA {t['library_ms']:.6f} ms ({t['library_host_ms']:.6f}; max |err| vs "
-            f"plain {sdpa_err:.3e}), bound {t['bound_ms']:.6f} ms ({t['bound_by']}: {n_flops / 1e9:.2f} GFLOP, "
-            f"{n_bytes / 1e6:.1f} MB), {n_flops / t['ms'] / 1e9:.2f} TFLOP/s")
-        return dict(t, B=B, H=H, S=S, Dh=Dh, causal=causal)
+    timing = functools.partial(flash_timing, gen)
 
     # whisper's prefill launches the kernel once per encoder layer and once per decoder layer: its path's row is the
     # two calls' launch-weighted mean, and each call's own row stands beside it
@@ -955,6 +984,12 @@ def phase_flash(gen):
                VLM_SERVE_PATH: timing(VLM_SERVE_PATH, SERVE["batch"], vlm.n_heads, SERVE["prompt_len"], vlm.head_dim),
                WHISPER_SERVE_PATH: mix([(cfg.n_enc_layers, whisper_calls["encoder"]),
                                         (cfg.n_layers, whisper_calls["decoder"])])}
+    # the dense paths' calls: a shape timed above is not timed again
+    for arch in DENSE_LAYERS:
+        c = get_config(arch)[0]
+        same = next((r for r in by_path.values() if (r.get("H"), r.get("Dh")) == (c.n_heads, c.head_dim)), None)
+        by_path[f"serve/{arch}"] = same or timing(f"serve/{arch}", SERVE["batch"], c.n_heads, SERVE["prompt_len"],
+                                                  c.head_dim)
     return dict(
         name="flash_attention", route="cuda", source="src/repro_torch/kernels/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:70", max_abs_err=worst[torch.float32],
@@ -1101,7 +1136,9 @@ def check_init(params, golden):
         rows = t.reshape(-1, t.shape[-1])
         sample = rows[:2, :8] if ref["corner"] == "head" else rows[-2:, -8:]
         d = ulps(sample.cpu().numpy(), ref["sample"])
-        total = float(t.double().abs().sum())
+        # float64 sums of slabs of at most 2**26 elements: a whole float64 copy of a large leaf (nemotron-4-15b's
+        # embedding, 12.6 GB) does not fit beside a 62.5 GB model
+        total = sum(float(c.double().abs().sum()) for c in rows.split(max(1, (1 << 26) // rows.shape[1])))
         rel = abs(total - ref["abs_sum"]) / ref["abs_sum"]
         log(f"  init {name}: sample within {d} ulp, sum |w| {total:.6f} vs {ref['abs_sum']:.6f} (rel {rel:.2e})")
         if d > 2 or rel > 1e-6:
@@ -1630,7 +1667,7 @@ def phase_serve_moe_mesh(counted, params):
     recs = [dryrun.run_cell(a, s, mp) for a in ARCH_IDS for s in SHAPES for mp in (False, True)]
     wall = time.perf_counter() - t0
     errors = [r for r in recs if r["status"] == "error"]
-    if errors or len(recs) != 56:
+    if errors or len(recs) != 8 * len(ARCH_IDS):
         raise AssertionError(f"dry run: {len(recs)} records, errors "
                              f"{[(r['arch'], r['shape'], r['error']) for r in errors]}")
     n_ok = sum(r["status"] == "ok" for r in recs)
@@ -2107,25 +2144,30 @@ def phase_serve_whisper(counted):
     return got
 
 
-def vlm_serve_work(cfg, n_params, B, S, G):
-    """(flops, bytes) a float32 prefill of B x S tokens needs on the dense
-    M-RoPE model, and the bytes of one decode step at the run's mean cache
-    length S + G / 2.  Operations: 2 per weight of a layer's matrices per
-    token (q, k, v, o and the SwiGLU's three), 4 Dh per causal (query, key)
-    pair and head (after the GQA repeat), the head on the last token only;
-    biases, norms and the rotary are not counted.  Bytes: every weight read
-    once (of the embedding only the B x S rows the tokens read, at most),
-    the KV cache written (prefill), or the weights and the head read, B
-    embedding rows, the valid KV cache read and one token's k/v written
-    (decode)."""
+def dense_serve_work(cfg, n_params, B, S, G):
+    """(flops, bytes) a float32 prefill of B x S tokens needs on a dense
+    model (the M-RoPE one too), and the bytes of one decode step at the
+    run's mean cache length S + G / 2.  Operations: 2 per weight of a
+    layer's matrices per token (q, k, v, o and the MLP's three, or two
+    without a gate), 4 Dh per causal (query, key) pair and head (after the
+    GQA repeat), the head on the last token only; biases, norms and the
+    rotary are not counted.  Bytes: every weight read once (of an embedding
+    apart from the head only the B x S rows the tokens read, at most; a
+    tied one is the head, read whole), the KV cache written (prefill), or
+    the weights and the head read, B embedding rows, the valid KV cache read
+    and one token's k/v written (decode)."""
     D, F, H, KV, Dh, V, L = (cfg.d_model, cfg.d_ff, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.vocab_size,
                              cfg.n_layers)
-    layer_w = 2 * D * H * Dh + 2 * D * KV * Dh + 3 * D * F
+    n_mat = 3 if cfg.mlp_act in ("swiglu", "geglu") else 2
+    layer_w = 2 * D * H * Dh + 2 * D * KV * Dh + n_mat * D * F
     flops = 2 * B * S * L * layer_w + L * 4 * Dh * B * H * (S * (S + 1) // 2) + 2 * B * D * V
     kv = 4 * 2 * L * B * KV * Dh  # bytes of one token's k and v over the layers
-    weights = 4 * (n_params - V * D)  # all but the embedding (not tied to the head)
-    p_bytes = weights + 4 * min(B * S, V) * D + kv * S
-    d_bytes = weights + 4 * B * D + kv * (S + G // 2) + kv
+    if cfg.tie_embeddings:
+        weights, rows = 4 * n_params, 0
+    else:
+        weights, rows = 4 * (n_params - V * D), 4 * D
+    p_bytes = weights + rows * min(B * S, V) + kv * S
+    d_bytes = weights + rows * B + kv * (S + G // 2) + kv
     return flops, p_bytes, d_bytes
 
 
@@ -2147,10 +2189,8 @@ def phase_serve_vlm(counted):
 
     from repro_torch.configs import get_config
     from repro_torch.core import prng
-    from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.launch.serve import serve
-    from repro_torch.models.decode import lm_decode_step, lm_prefill
-    from repro_torch.models.lm import LM, default_positions, init_lm
+    from repro_torch.models.lm import LM, init_lm
 
     gc.collect()
     torch.cuda.empty_cache()
@@ -2191,21 +2231,49 @@ def phase_serve_vlm(counted):
         f"{g.tokens.tolist()} ({'all equal' if same else 'reference ' + str(golden['tokens'])})")
     del two, g
 
+    got = serve_dense_model(counted, VLM_SERVE_PATH, cfg, params, n_params, tol, "of 80 layers")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return got
+
+
+def serve_dense_model(counted, path, cfg, params, n_params, tol, depth):
+    """A dense model's profiled prefill and decode step at the main path's
+    shape (flash_attention launches counted in each), then the main path:
+    serve() at SERVE on the kernel plane, launches counted from 0 (one
+    flash_attention a prefill layer, none in decode), and the same requests
+    on the torch plane, whose prefill logits and decided tokens must agree
+    within ``tol``.  An M-RoPE model takes the text-only positions.  Returns
+    the launches by kernel."""
+    import torch
+
+    from repro_torch.core import prng
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch.serve import serve
+    from repro_torch.models.decode import lm_decode_step, lm_prefill
+    from repro_torch.models.lm import default_positions
+
     # where the time goes: one prefill and one decode step at the main path's shape, profiled, launches counted
     B, S, G = SERVE["batch"], SERVE["prompt_len"], SERVE["gen_len"]
-    flops, p_bytes, d_bytes = vlm_serve_work(cfg, n_params, B, S, G)
+    flops, p_bytes, d_bytes = dense_serve_work(cfg, n_params, B, S, G)
     p_bound = max(flops / FP32_FLOPS_PER_S, p_bytes / HBM_BYTES_PER_S) * 1e3
     d_bound = d_bytes / HBM_BYTES_PER_S * 1e3
+    mrope = cfg.mrope_sections is not None
     with torch.inference_mode():
         prompts = prng.randint(prng.prng_key(1, "cuda"), (B, S), 0, cfg.vocab_size)
-        batch = {"tokens": prompts, "positions": default_positions(cfg, prompts)}
+        batch = {"tokens": prompts}
+        if mrope:
+            batch["positions"] = default_positions(cfg, prompts)
         lm_prefill(params, cfg, {"tokens": prompts[:, :64]}, pad_to=96, plane="kernel")  # warm-up
         flash_attention.launches = 0
         (logits, cache), p_wall, p_busy, p_ops, p_top, _ = device_busy(
             lambda: lm_prefill(params, cfg, batch, pad_to=S + G, plane="kernel"))
         p_launches = flash_attention.launches
         tok = logits.argmax(-1)
-        step = {"token": tok, "positions": torch.full((B, 3), S, dtype=torch.int32, device="cuda")}
+        step = {"token": tok}
+        if mrope:
+            step["positions"] = torch.full((B, 3), S, dtype=torch.int32, device="cuda")
         lm_decode_step(params, cfg, cache, step)  # warm-up: writes slot S, which the next call rewrites
         flash_attention.launches = 0
         _, d_wall, d_busy, d_ops, d_top, _ = device_busy(lambda: lm_decode_step(params, cfg, cache, step))
@@ -2219,9 +2287,9 @@ def phase_serve_vlm(counted):
             "decode_step_idle_share": 1 - d_busy / d_wall, "decode_step_device_ops": d_ops,
             "decode_step_flash_attention_launches": d_launches, "decode_step_bound_ms": d_bound,
             "prefill_top_launches_and_ms": p_top, "decode_step_top_launches_and_ms": d_top}
-    log("serve vlm profile: " + json.dumps(prof))
+    log(f"{path} profile: " + json.dumps(prof))
     if (p_launches, d_launches) != (cfg.n_layers, 0):
-        raise AssertionError(f"{VLM_SERVE_PATH}: flash_attention launched {p_launches} times in a prefill and "
+        raise AssertionError(f"{path}: flash_attention launched {p_launches} times in a prefill and "
                              f"{d_launches} in a decode step, not {cfg.n_layers} and 0")
 
     # the main path: counts from 0, then read
@@ -2231,7 +2299,7 @@ def phase_serve_vlm(counted):
     k = serve(cfg, **SERVE, seed=0, device="cuda", plane="kernel", params=params)
     got = {fn.__name__: fn.launches for fn in counted}
     peak = torch.cuda.max_memory_allocated() / 1e9
-    log(f"main path {VLM_SERVE_PATH} (kernel plane, {cfg.n_layers} of 80 layers, B={B}, prompt {S}, {G} tokens each, "
+    log(f"main path {path} (kernel plane, {cfg.n_layers} {depth}, B={B}, prompt {S}, {G} tokens each, "
         f"float32): prefill {k.prefill_ms:.3f} ms ({k.prefill_ms / p_bound:.2f}x its bound {p_bound:.3f} ms: "
         f"{flops / 1e12:.3f} TFLOP at {FP32_FLOPS_PER_S / 1e12:.0f} TFLOP/s, {p_bytes / 1e9:.3f} GB), decode "
         f"{k.decode_ms_per_step:.3f} ms/step ({k.decode_ms_per_step / d_bound:.2f}x its bound {d_bound:.3f} ms: "
@@ -2241,34 +2309,99 @@ def phase_serve_vlm(counted):
     expect = {fn.__name__: 0 for fn in counted}
     expect["flash_attention"] = cfg.n_layers
     if got != expect:
-        raise AssertionError(f"{VLM_SERVE_PATH}: kernel launches {got} != {expect} (one flash_attention per prefill "
+        raise AssertionError(f"{path}: kernel launches {got} != {expect} (one flash_attention per prefill "
                              "layer, none in decode)")
-    if not (torch.equal(k.prompts, prompts) and torch.equal(k.positions, batch["positions"])):
-        raise AssertionError(f"{VLM_SERVE_PATH}: serve's prompts or positions are not randint(PRNGKey(1)) and the "
+    if not torch.equal(k.prompts, prompts) or (mrope and not torch.equal(k.positions, batch["positions"])):
+        raise AssertionError(f"{path}: serve's prompts or positions are not randint(PRNGKey(1)) and the "
                              "text-only layout")
     gap = float((k.logits[0] - prof_logits).abs().max())
     if gap > tol:
-        raise AssertionError(f"{VLM_SERVE_PATH}: prefill logits {gap} from the profiled prefill's > {tol}")
+        raise AssertionError(f"{path}: prefill logits {gap} from the profiled prefill's > {tol}")
 
     t = serve(cfg, **SERVE, seed=0, device="cuda", plane="torch", params=params)
-    log(f"main path {VLM_SERVE_PATH} (torch plane): prefill {t.prefill_ms:.3f} ms, decode "
+    log(f"main path {path} (torch plane): prefill {t.prefill_ms:.3f} ms, decode "
         f"{t.decode_ms_per_step:.3f} ms/step, {t.tokens_per_s:.1f} tok/s")
     gap = float((k.logits[0] - t.logits[0]).abs().max())
     if gap > tol:
-        raise AssertionError(f"{VLM_SERVE_PATH}: prefill logits of the planes differ by {gap} > {tol}")
+        raise AssertionError(f"{path}: prefill logits of the planes differ by {gap} > {tol}")
     m = margins(t.logits)
     for b in range(B):
         n = decided_steps(m[:, b].tolist(), tol)
         if k.tokens[b, :n].tolist() != t.tokens[b, :n].tolist():
-            raise AssertionError(f"{VLM_SERVE_PATH}: request {b}: greedy tokens differ within the first {n} steps")
+            raise AssertionError(f"{path}: request {b}: greedy tokens differ within the first {n} steps")
         log(f"  request {b}: tokens equal over the {n} decided steps of {G} "
             f"({int((k.tokens[b] == t.tokens[b]).sum())} equal in all)")
-    log(f"{VLM_SERVE_PATH}: prefill logits of the planes within {gap:.3e} (tolerance {tol}); logits std "
+    log(f"{path}: prefill logits of the planes within {gap:.3e} (tolerance {tol}); logits std "
         f"{float(k.logits[0].std()):.3f}")
-    del params, k, t, prof_logits
+    return got
+
+
+def phase_serve_dense(counted):
+    """The last three dense serving paths at full width on the card, one
+    arch after another (``DENSE_LAYERS``: nemotron-4-15b, qwen2.5-32b,
+    command-r-35b), each as ``phase_serve_vlm`` runs its model: init_lm
+    from seed 0 (its parameter count and leaf corners against the
+    reference's), the golden-file run on the model's first two layers (one
+    2048-token prompt, 8 greedy tokens), a profiled prefill and decode step
+    (flash_attention launches counted in each), then the main path: serve()
+    at SERVE on the kernel plane, launches counted from 0 (one
+    flash_attention a prefill layer, none in decode), and the same requests
+    on the torch plane.  Each model is freed before the next.  Returns the
+    launches by kernel of each path."""
+    import dataclasses
+    import gc
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import prng
+    from repro_torch.launch.serve import serve
+    from repro_torch.models.lm import LM, init_lm
+
+    out = {}
+    for arch, n_layers in DENSE_LAYERS.items():
+        path = f"serve/{arch}"
+        gc.collect()
+        torch.cuda.empty_cache()
+        full = get_config(arch)[0]
+        cfg = dataclasses.replace(full, n_layers=n_layers)
+        with open(os.path.join(ROOT, "src", "repro_torch", "data", DENSE_GOLDEN[arch])) as f:
+            golden = json.load(f)
+        tol = golden["tolerance"]["logits"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params = init_lm(prng.prng_key(0), cfg, torch.float32, device="cuda")
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        n_params = sum(p.numel() for p in params.parameters())
+        log(f"serve dense: init_lm({arch}, {n_layers} of {full.n_layers} layers, seed 0) on the card: "
+            f"{n_params:,} parameters (the config's analytic count {cfg.param_count():,}) in {init_s:.3f} s, "
+            f"{torch.cuda.memory_allocated() / 1e9:.3f} GB")
+        # the analytic count takes two d_model norm scales a layer, a parallel block has one, and the final norm
+        # is not counted (no norm here has a bias)
+        want = cfg.param_count() + cfg.d_model - (cfg.d_model * n_layers if cfg.parallel_block else 0)
+        if n_params != want:
+            raise AssertionError(f"{path}: init_lm made {n_params} parameters, not {want}")
+        check_init(params, golden)
+
+        # the golden run: the first layers of the same model (layer l's key does not depend on the depth)
+        cfg2 = dataclasses.replace(cfg, n_layers=golden["n_layers"])
+        two = LM(cfg2, params.embed, params.final_norm, params.lm_head, list(params.layers[: cfg2.n_layers]))
+        g = serve(cfg2, batch=golden["batch"], prompt_len=golden["prompt_len"], gen_len=golden["gen_len"],
+                  page_size=16, seed=golden["seed"], device="cuda", plane="kernel", params=two)
+        err = check_golden(g, golden, tol)
+        same = g.tokens.tolist() == golden["tokens"]
+        log(f"{path} golden ({golden['batch']} x {golden['prompt_len']}, {golden['gen_len']} steps, "
+            f"{cfg2.n_layers} layers, kernel plane): logits within {err:.3e} of the JAX reference (tolerance {tol}, "
+            f"10x the port's CPU gap {golden['port_cpu_gap']['logits']:.3e}), tokens {g.tokens.tolist()} "
+            f"({'all equal' if same else 'reference ' + str(golden['tokens'])})")
+        del two, g
+
+        out[path] = serve_dense_model(counted, path, cfg, params, n_params, tol, f"of {full.n_layers} layers")
+        del params
     gc.collect()
     torch.cuda.empty_cache()
-    return got
+    return out
 
 
 # the LM training main path: stablelm-1.6b at full width and depth, float32, AdamW, remat "full"
@@ -3210,6 +3343,12 @@ def main() -> int:
         launches[name][VLM_SERVE_PATH] = n
 
     lap("serve vlm")
+    # the last three dense configs (nemotron-4-15b, qwen2.5-32b, command-r-35b at full width)
+    for path, got in phase_serve_dense(counted).items():
+        for name, n in got.items():
+            launches[name][path] = n
+
+    lap("serve dense")
     # phase 8: the LM training path (stablelm-1.6b at full width and depth)
     for name, n in phase_train(counted).items():
         launches[name][TRAIN_PATH] = n

@@ -1,12 +1,11 @@
 """Architecture config registry (``--arch <id>``), port of ``repro.configs``.
 
-Only the architectures whose families the port runs are listed: the dense
-decoder stablelm-1.6b, the MoE decoders llama4-scout-17b-a16e and
-kimi-k2-1t-a32b, the Mamba-1 SSM falcon-mamba-7b, the RG-LRU +
-local-attention hybrid recurrentgemma-2b, the audio encoder-decoder
-whisper-small and the M-RoPE VLM backbone qwen2-vl-72b.  The other
-configs (dense decoders of families the port runs) wait for their
-``model_config`` PRs (ROADMAP.md A.12.1).
+Every architecture of the reference, in its order: the dense decoders
+nemotron-4-15b, command-r-35b, qwen2.5-32b and stablelm-1.6b, the RG-LRU
++ local-attention hybrid recurrentgemma-2b, the MoE decoders
+llama4-scout-17b-a16e and kimi-k2-1t-a32b, the Mamba-1 SSM
+falcon-mamba-7b, the audio encoder-decoder whisper-small and the M-RoPE
+VLM backbone qwen2-vl-72b.
 """
 from __future__ import annotations
 
@@ -17,11 +16,14 @@ from typing import Dict, Tuple
 from repro_torch.configs.base import SHAPES, ArchConfig, ShapeSpec, cell_supported  # noqa: F401
 
 ARCH_MODULES = {
+    "nemotron-4-15b": "nemotron_4_15b",
+    "command-r-35b": "command_r_35b",
+    "qwen2.5-32b": "qwen2_5_32b",
     "stablelm-1.6b": "stablelm_1_6b",
+    "recurrentgemma-2b": "recurrentgemma_2b",
     "llama4-scout-17b-a16e": "llama4_scout_17b_a16e",
     "kimi-k2-1t-a32b": "kimi_k2_1t_a32b",
     "falcon-mamba-7b": "falcon_mamba_7b",
-    "recurrentgemma-2b": "recurrentgemma_2b",
     "whisper-small": "whisper_small",
     "qwen2-vl-72b": "qwen2_vl_72b",
 }
@@ -32,7 +34,7 @@ ARCH_IDS = tuple(ARCH_MODULES)
 def get_config(arch_id: str) -> Tuple[ArchConfig, Dict]:
     """Returns (ArchConfig, sharding-rule overrides)."""
     if arch_id not in ARCH_MODULES:
-        raise KeyError(f"arch {arch_id!r} is not ported yet (ROADMAP.md A.12); ported: {ARCH_IDS}")
+        raise KeyError(f"unknown arch {arch_id!r}; known: {ARCH_IDS}")
     mod = importlib.import_module(f"repro_torch.configs.{ARCH_MODULES[arch_id]}")
     return mod.CONFIG, getattr(mod, "SHARDING_OVERRIDES", {})
 

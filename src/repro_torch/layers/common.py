@@ -98,11 +98,26 @@ def activation(name: str, x: torch.Tensor) -> torch.Tensor:
     raise ValueError(name)
 
 
+_ROPE_TABLES = {}
+
+
 def rope_freqs(head_dim: int, rope_pct: float, theta: float, device=None) -> torch.Tensor:
-    """Inverse frequencies for the rotated slice of the head dim (float32)."""
+    """Inverse frequencies for the rotated slice of the head dim (float32,
+    (rot/2,)): the reference's ``1 / theta ** (2i / rot)`` as its launchers
+    run it, under ``jit``, which is ``jit_freqs(rot, theta)`` bit for bit
+    (ROADMAP.md C.20, the ordinary rotary's case of C.14).  The eager
+    table and torch's ``pow`` miss up to 24 of 64 bands by an ulp (qwen2.5's
+    theta 1e6), which moved ``apply_rope`` up to 4.7e-4 from the jitted
+    reference at positions up to 2079.  Made once per (rot, theta, device), outside
+    inference mode, so that a training step may take it after a serve."""
     rot = int(head_dim * rope_pct)
     rot -= rot % 2
-    return 1.0 / (theta ** (torch.arange(0, rot, 2, dtype=torch.float32, device=device) / rot))
+    key = (rot, float(theta), torch.device(device if device is not None else "cpu"))
+    table = _ROPE_TABLES.get(key)
+    if table is None:
+        with torch.inference_mode(False):
+            table = _ROPE_TABLES[key] = jit_freqs(rot, theta, key[2])
+    return table
 
 
 def rotate_halves(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
@@ -128,7 +143,7 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, rope_pct: float, theta:
 def jit_freqs(d: int, theta: float, device=None) -> torch.Tensor:
     """(d/2,) float32 ``1 / theta ** (2i / d)`` as the reference computes it
     under ``jit``, where XLA rewrites ``1 / pow(b, e)`` into ``pow(b, -e)``
-    (ROADMAP.md C.14; eagerly, its ``1 /`` moves a third of the bands by an
+    (ROADMAP.md C.14, C.20; eagerly, its ``1 /`` moves a third of the bands by an
     ulp, 25 of 64 at qwen2-vl's theta 1e6 and Dh 128): glibc's ``powf``
     (``prng.powf``), XLA's CPU ``pow``.  ``torch.pow`` misses bands too, and
     one ulp of a band's frequency moves its angle at position p by p ulps

@@ -2,7 +2,7 @@
 dryrun}``) against the JAX reference's, on the CPU.
 
 * Spec trees: ``param_structs`` and ``cache_structs`` (every prefill and
-  decode shape) of all 7 ported archs at their full configs, leaf paths,
+  decode shape) of all 10 archs at their full configs, leaf paths,
   shapes, dtypes and logical specs equal to the reference's
   (``jax.eval_shape``: neither side draws or allocates).
 * Resolution: one subprocess with 512 forced host devices, where the
@@ -11,7 +11,7 @@ dryrun}``) against the JAX reference's, on the CPU.
   specs, shard shapes of the parameters, cache and inputs, and
   ``per_device_param_bytes`` equal them exactly.
 * The dry run: ``python -m repro_torch.launch.dryrun --mesh both`` without
-  a card writes 56 records and no ``error``, every ``skip`` where the
+  a card writes 80 records and no ``error``, every ``skip`` where the
   reference's ``cell_supported`` skips; ``--append`` skips the cells done.
 """
 import json
@@ -225,7 +225,7 @@ def test_host_mesh_takes_repeated_devices():
 
 
 def test_dryrun_cli_writes_every_cell_without_a_card(tmp_path):
-    """``python -m repro_torch.launch.dryrun --mesh both``: 56 records (7
+    """``python -m repro_torch.launch.dryrun --mesh both``: 80 records (10
     archs x 4 shapes x 2 meshes), no ``error``, a ``skip`` exactly where the
     reference's ``cell_supported`` says so; each ``ok`` record's
     per-device total the sum of its parts.  Then ``--append`` over a file
@@ -237,7 +237,7 @@ def test_dryrun_cli_writes_every_cell_without_a_card(tmp_path):
     assert r.returncode == 0, r.stdout[-2000:] + r.stderr[-2000:]
     with open(out) as f:
         recs = json.load(f)
-    assert len(recs) == 56
+    assert len(recs) == 80
     assert {(x["arch"], x["shape"], x["mesh"]) for x in recs} == {
         (a, s, m) for a in ARCH_IDS for s in SHAPES for m in MESHES}
     for rec in recs:
@@ -252,7 +252,7 @@ def test_dryrun_cli_writes_every_cell_without_a_card(tmp_path):
         assert {k[: -len("_bytes_per_device")] for k in parts} == want
         assert rec["per_device_bytes"] == sum(rec[k] for k in parts)
     n_skip = sum(r["status"] == "skip" for r in recs)
-    assert f"dryrun complete: {56 - n_skip} ok, {n_skip} skip, 0 error" in r.stdout
+    assert f"dryrun complete: {80 - n_skip} ok, {n_skip} skip, 0 error" in r.stdout
 
     part = tmp_path / "part.json"
     with open(part, "w") as f:
@@ -260,6 +260,6 @@ def test_dryrun_cli_writes_every_cell_without_a_card(tmp_path):
     assert dryrun.main(["--mesh", "both", "--out", str(part), "--append"]) == 0
     with open(part) as f:
         again = json.load(f)
-    assert len(again) == 56 and again[:48] == [x for x in recs if x["arch"] != "whisper-small"]
-    assert [(x["arch"], x["shape"], x["mesh"]) for x in again[48:]] == [
+    assert len(again) == 80 and again[:72] == [x for x in recs if x["arch"] != "whisper-small"]
+    assert [(x["arch"], x["shape"], x["mesh"]) for x in again[72:]] == [
         (x["arch"], x["shape"], x["mesh"]) for x in recs if x["arch"] == "whisper-small"]
