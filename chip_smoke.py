@@ -22,7 +22,8 @@ Run from a checkout of the repository on a machine with one CUDA card and
    the GQA repeat, Dh = 128), at nemotron-4-15b's (H = 48; qwen2.5-32b's
    call is llama4-scout's and command-r-35b's qwen2-vl's), at
    whisper-small's two (the encoder's, not causal over 1500 frames, and
-   the decoder's over a 224-token prompt) and at kimi-k2's Dh = 112;
+   the decoder's over a 224-token prompt) and at kimi-k2-1t-a32b's (B = 1,
+   H = 64 after the GQA repeat, Dh = 112);
    ``multi_read``: the per-array ``a[keys]`` of the torch plane).  ``multi_read`` and
    ``mvcc_version_select`` are timed as the whole ops-level call
    (``ops.gather_many``, ``ops.version_read``), which must be one launch
@@ -96,8 +97,8 @@ Run from a checkout of the repository on a machine with one CUDA card and
    ``flash_attention`` launches per prefill, the paths' logits; the mesh
    may not hold a second copy of a weight), then the dry run's 80 (arch x
    shape x mesh) cells on the logical production meshes;
-12. the SSM serving path, falcon-mamba-7b at full width and all 64 layers
-   (7.27 B float32 parameters), TF32 off: ``init_lm`` from seed 0 on the
+12. the SSM serving path, falcon-mamba-7b at full width, 32 of its 64
+   layers (3.90 B float32 parameters), TF32 off: ``init_lm`` from seed 0 on the
    card (checked against the reference's weights), the golden-file run on
    the first two layers of the same model (one 2048-token prompt, 8 greedy
    tokens, logits within 10x the port's CPU gap), a profiled prefill and
@@ -127,21 +128,21 @@ Run from a checkout of the repository on a machine with one CUDA card and
    not causal in the encoder, and never in decode), then the main path
    ``serve`` (4 x 1500 frames x 224 + 224 tokens) on both planes beside its
    float32 bounds;
-15. the M-RoPE VLM serving path, qwen2-vl-72b at full width, 12 of its 80
-   layers (13.02 B float32 parameters), TF32 off: ``init_lm`` from seed 0 on
+15. the M-RoPE VLM serving path, qwen2-vl-72b at full width, 6 of its 80
+   layers (7.76 B float32 parameters), TF32 off: ``init_lm`` from seed 0 on
    the card (its parameter count against the config's, checked against the
    reference's weights), the golden-file run on the first two layers of the
    same model (one 2048-token request holding a 1 x 32 x 32 image grid at
    Qwen2-VL's three position ids, 8 greedy tokens whose positions run behind
    the cache length, logits within 10x the port's CPU gap, every decided
    token equal), a profiled prefill and decode step (``flash_attention``
-   launched 12 times in the prefill and never in decode), then the main path
+   launched 6 times in the prefill and never in decode), then the main path
    ``serve`` (4 x 2048 tokens, 32 each, the reference's text-only positions)
    on both planes beside its float32 bounds;
 16. the last three dense configs at full width, one after another, TF32
-   off: nemotron-4-15b (all 32 layers, 15.63 B float32 parameters; squared
-   ReLU, half of each head rotated), qwen2.5-32b (16 of 64 layers, 9.36 B;
-   QKV biases, theta 1e6) and command-r-35b (12 of 40 layers, 10.55 B;
+   off: nemotron-4-15b (16 of 32 layers, 9.39 B float32 parameters; squared
+   ReLU, half of each head rotated), qwen2.5-32b (8 of 64 layers, 5.46 B;
+   QKV biases, theta 1e6) and command-r-35b (6 of 40 layers, 6.33 B;
    parallel block, the head tied to the embedding, theta 8e6), each as
    phase 15: ``init_lm`` from seed 0 on the card (its parameter count
    against the config's, leaf corners against the reference's), the
@@ -150,7 +151,18 @@ Run from a checkout of the repository on a machine with one CUDA card and
    prefill and decode step (``flash_attention`` launched once a layer in
    the prefill and never in decode), then the main path ``serve`` (4 x 2048
    tokens, 32 each) on both planes beside its float32 bounds;
-17. the LM training path, stablelm-1.6b at full width in float32 with TF32
+17. kimi-k2-1t-a32b at full width, 1 of its 61 layers (19.38 B float32
+   parameters, 77.5 GB: 384 experts top-8, each expert leaf 5.64 B elements,
+   drawn with 64-bit threefry counts), TF32 off: ``init_lm`` from seed 0 on
+   the card (every leaf's sample and |w| sum, and raw windows of the expert
+   leaves at their heads, around flat index 2**32 and at their tails,
+   against the reference's), a profiled prefill and decode step
+   (``flash_attention`` launched once in the prefill at Dh 112, never in
+   decode), then the main path ``serve`` (1 x 2048 tokens, 32 each) on the
+   kernel plane, whose first steps are the golden file's run (logits within
+   10x the port's CPU gap, every decided token, layer 0's routing where the
+   reference's margin allows), and on the torch plane;
+18. the LM training path, stablelm-1.6b at full width in float32 with TF32
    off: 3 AdamW steps at the depth the reference's golden file was cut to
    (its pipeline tokens bitwise, losses, grad_norms and leaf sums within
    10x the port's CPU gap), then the main path at full width and depth,
@@ -160,7 +172,7 @@ Run from a checkout of the repository on a machine with one CUDA card and
    kernel may launch: training takes the reference's XLA attention route),
    and a reduced ``TrainRunner`` whose injected failure leaves the loss
    stream of the run without it, bitwise;
-18. the MoE training path on meshes of shards on the one card,
+19. the MoE training path on meshes of shards on the one card,
    llama4-scout-17b-a16e at full width, 1 of its 48 layers (4.15 B float32
    parameters), TF32 off: ``init_lm`` from seed 0 on the card, the mesh
    golden file's gradient of ``lm_loss`` (B = 2 x 512) on (1, 1), (1, 4)
@@ -286,9 +298,10 @@ MOE_SERVE_PATH = "serve/llama4-scout-17b-a16e"
 # the sequence-sharded KV cache (S = prompt + generated tokens, 4 | S), through train.steps' builders
 MESH_SERVE_PATH = "serve/llama4-scout-17b-a16e@1x4"
 MESH_SHAPE = (1, 4)
-# the SSM serving main path: falcon-mamba-7b at full width and all 64 layers (7.27 B float32 parameters,
-# 29.1 GB), the same requests as SERVE
+# the SSM serving main path: falcon-mamba-7b at full width, depth cut to SSM_LAYERS of 64 (3.90 B float32
+# parameters, 15.6 GB; all 64, 29.1 GB, fit the card: cut for the smoke's time limit), the same requests as SERVE
 SSM_ARCH = "falcon-mamba-7b"
+SSM_LAYERS = 32
 SSM_SERVE_PATH = "serve/falcon-mamba-7b"
 SSM_STEPS = ("in_proj", "conv", "x_proj/dt", "scan", "out_proj")  # ssm.Record's profiler ranges
 # the hybrid serving main path: recurrentgemma-2b at full width and all 26 layers (3.31 B float32 parameters,
@@ -304,17 +317,24 @@ WHISPER_ARCH = "whisper-small"
 WHISPER_SERVE = dict(batch=4, prompt_len=224, gen_len=224, page_size=16)
 WHISPER_SERVE_PATH = "serve/whisper-small"
 WHISPER_PARAMS = 278_143_488
-# the M-RoPE VLM serving main path: qwen2-vl-72b at full width, depth cut to VLM_LAYERS of 80 (13,023,641,600
-# float32 parameters, 52.1 GB), the same requests as SERVE (text-only positions, as the reference's serve passes them)
+# the M-RoPE VLM serving main path: qwen2-vl-72b at full width, depth cut to VLM_LAYERS of 80 (7,757,524,992
+# float32 parameters, 31.0 GB; 12 fit the card: cut for the smoke's time limit), the same requests as SERVE
+# (text-only positions, as the reference's serve passes them)
 VLM_ARCH = "qwen2-vl-72b"
-VLM_LAYERS = 12
+VLM_LAYERS = 6
 VLM_SERVE_PATH = "serve/qwen2-vl-72b"
-# the last three dense serving main paths, at full width, each at the depth that fits the card in float32 (layers
-# of the config's: nemotron-4-15b all 32, 15.63 B parameters, 62.5 GB; qwen2.5-32b 16 of 64, 9.36 B; command-r-35b
-# 12 of 40, 10.55 B), the same requests as SERVE, and each one's golden file (the first 2 layers)
-DENSE_LAYERS = {"nemotron-4-15b": 32, "qwen2.5-32b": 16, "command-r-35b": 12}
+# the last three dense serving main paths, at full width, each at half the depth that fits the card in float32, for
+# the smoke's time limit (layers of the config's: nemotron-4-15b 16 of 32, 9.39 B parameters; qwen2.5-32b 8 of 64,
+# 5.46 B; command-r-35b 6 of 40, 6.33 B), the same requests as SERVE, and each one's golden file (the first 2 layers)
+DENSE_LAYERS = {"nemotron-4-15b": 16, "qwen2.5-32b": 8, "command-r-35b": 6}
 DENSE_GOLDEN = {"nemotron-4-15b": "golden_serve_nemotron.json", "qwen2.5-32b": "golden_serve_qwen2_5.json",
                 "command-r-35b": "golden_serve_command_r.json"}
+# kimi-k2-1t-a32b at full width, the depth cut to 1 of 61 layers (19.38 B float32 parameters, 77.5 GB: a second layer
+# does not fit the card), one request of 2048 tokens, 32 each (4 requests would add about 10 GB of MoE buffers)
+KIMI_ARCH = "kimi-k2-1t-a32b"
+KIMI_LAYERS = 1
+KIMI_SERVE = dict(batch=1, prompt_len=2048, gen_len=32, page_size=16)
+KIMI_SERVE_PATH = "serve/kimi-k2-1t-a32b"
 # logits tolerance of the serving phase (absolute; logits have std 0.88).  The port
 # on the CPU is within 7.9e-6 of the JAX reference at full width (the golden file's
 # port_cpu_max_abs_logit_gap); 1e-4 leaves 12x that for the card's other summation
@@ -946,7 +966,7 @@ def phase_flash(gen):
                                                                               (200, 128, True), (150, 112, True))
               for dt in tols]
     cases += [(1, 2, 70, 0, 64, causal, dt, False) for causal in (True, False) for dt in tols]  # Sk = 0: zeros
-    # llama4-scout's prefill call (B = 4, Dh = 128, H = 40 after the GQA repeat) and kimi-k2's head dim, one batch row
+    # llama4-scout's prefill call (B = 4, Dh = 128, H = 40 after the GQA repeat) and kimi-k2's (B = 1, H = 64, Dh = 112)
     cases += [(4, 40, 2048, 2048, 128, True, torch.float32, True), (1, 64, 2048, 2048, 112, True, torch.float32, True)]
     # whisper-small's prefill calls: the encoder's over 1500 frames (not causal; 1500 is a multiple of neither the
     # 128-row q tile nor the 64-key tile) and the decoder's self-attention over the 224-token prompt
@@ -990,12 +1010,13 @@ def phase_flash(gen):
         same = next((r for r in by_path.values() if (r.get("H"), r.get("Dh")) == (c.n_heads, c.head_dim)), None)
         by_path[f"serve/{arch}"] = same or timing(f"serve/{arch}", SERVE["batch"], c.n_heads, SERVE["prompt_len"],
                                                   c.head_dim)
+    kimi = get_config(KIMI_ARCH)[0]
+    by_path[KIMI_SERVE_PATH] = timing(KIMI_SERVE_PATH, KIMI_SERVE["batch"], kimi.n_heads, KIMI_SERVE["prompt_len"],
+                                      kimi.head_dim)
     return dict(
         name="flash_attention", route="cuda", source="src/repro_torch/kernels/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:70", max_abs_err=worst[torch.float32],
         max_abs_err_bf16=worst[torch.bfloat16], by_path=by_path, whisper_calls=whisper_calls,
-        # kimi-k2's head dim: not on a main path yet (its full width does not fit the card)
-        dh112=timing("kimi-k2-1t-a32b head dim, not a main path", 1, 64, 2048, 112),
     )
 
 
@@ -1697,8 +1718,8 @@ def ssm_serve_work(cfg, n_params, B, S):
 
 
 def phase_serve_ssm(counted):
-    """The SSM serving path at full width and depth on the card:
-    falcon-mamba-7b's 64 layers, init_lm from seed 0 (checked against the
+    """The SSM serving path at full width on the card: falcon-mamba-7b
+    cut to SSM_LAYERS layers, init_lm from seed 0 (checked against the
     reference's weights), the golden-file run on the first two layers of the
     same model, a profiled prefill and decode step with the SSM layer's
     device time split by step, then the main path: serve() at SERVE,
@@ -1719,7 +1740,7 @@ def phase_serve_ssm(counted):
 
     gc.collect()
     torch.cuda.empty_cache()
-    cfg, _ = get_config(SSM_ARCH)
+    cfg = dataclasses.replace(get_config(SSM_ARCH)[0], n_layers=SSM_LAYERS)
     with open(os.path.join(ROOT, "src", "repro_torch", "data", "golden_serve_falcon_mamba.json")) as f:
         golden = json.load(f)
     tol = golden["tolerance"]["logits"]
@@ -1728,7 +1749,7 @@ def phase_serve_ssm(counted):
     params = init_lm(prng.prng_key(0), cfg, torch.float32, device="cuda")
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in params.parameters())
-    log(f"serve ssm: init_lm({cfg.name}, all {cfg.n_layers} layers, seed 0) on the card: {n_params:,} parameters "
+    log(f"serve ssm: init_lm({cfg.name}, {cfg.n_layers} of 64 layers, seed 0) on the card: {n_params:,} parameters "
         f"in {time.perf_counter() - t0:.3f} s, {torch.cuda.memory_allocated() / 1e9:.3f} GB")
     # an SSM block holds norm (D), in_proj (D x 2 di), conv_w (K x di), conv_b (di), x_proj (di x (R + 2N)),
     # dt_proj (R x di), dt_bias (di), A_log (di x N), Dp (di) and out_proj (di x D): 105,312,256 parameters at
@@ -2402,6 +2423,190 @@ def phase_serve_dense(counted):
     gc.collect()
     torch.cuda.empty_cache()
     return out
+
+
+def check_windows(params, golden):
+    """The card's expert leaves at the golden file's raw windows (a leaf's
+    head, the elements around flat index 2**32, its tail: float32,
+    base64) within 2 ulp of the reference's.  Returns the largest distance."""
+    import base64
+
+    import numpy as np
+
+    worst = 0
+    for name, wins in golden["windows"].items():
+        t = params.layers[0]
+        for part in name.split("/")[1:]:
+            t = getattr(t, part)
+        flat = t.reshape(-1)
+        for w in wins:
+            want = np.frombuffer(base64.b64decode(w["values"]), dtype="<f4")
+            d = ulps(flat[w["start"]:w["start"] + w["n"]].cpu().numpy(), want)
+            worst = max(worst, d)
+            if d > 2:
+                raise AssertionError(f"init_lm on the card differs from the reference at {name}[{w['start']}:]: {d} ulp")
+        log(f"  init {name}: {len(wins)} windows of {wins[0]['n']} at flat "
+            f"{[w['start'] for w in wins]} within {worst} ulp")
+    return worst
+
+
+def phase_serve_kimi(counted):
+    """kimi-k2-1t-a32b at full width on the card, 1 of its 61 layers:
+    init_lm from seed 0 (every leaf and the expert leaves' raw windows
+    against the reference's), a profiled prefill and decode step at
+    KIMI_SERVE's shape (flash_attention launches counted in each, the MoE
+    split by step), then the main path: serve() at KIMI_SERVE on the kernel
+    plane, launches counted from 0, whose first steps are the golden run
+    (the same seed, prompt and length: logits, decided tokens, layer 0's
+    routing), and the same request on the torch plane.  Returns the kernel
+    plane's launches by kernel."""
+    import dataclasses
+    import gc
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import prng
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch.serve import serve
+    from repro_torch.layers import moe
+    from repro_torch.models.decode import lm_decode_step, lm_prefill
+    from repro_torch.models.lm import init_lm
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    full = get_config(KIMI_ARCH)[0]
+    cfg = dataclasses.replace(full, n_layers=KIMI_LAYERS)
+    with open(os.path.join(ROOT, "src", "repro_torch", "data", "golden_serve_kimi_k2.json")) as f:
+        golden = json.load(f)
+    tol, router_gap = golden["tolerance"]["logits"], golden["port_cpu_gap"]["router_logits"]
+    B, S, G = KIMI_SERVE["batch"], KIMI_SERVE["prompt_len"], KIMI_SERVE["gen_len"]
+    if (golden["batch"], golden["prompt_len"], golden["n_layers"]) != (B, S, KIMI_LAYERS) or golden["gen_len"] > G:
+        raise AssertionError("golden_serve_kimi_k2.json holds another run than the main path's first steps")
+    free, total = torch.cuda.mem_get_info()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = init_lm(prng.prng_key(0), cfg, torch.float32, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in params.parameters())
+    log(f"serve kimi: init_lm({KIMI_ARCH}, {KIMI_LAYERS} of {full.n_layers} layers, seed 0) on the card: "
+        f"{n_params:,} parameters (the config's analytic count {cfg.param_count():,}) in {init_s:.3f} s, "
+        f"{torch.cuda.memory_allocated() / 1e9:.3f} GB allocated of the card's {total / 1e9:.3f} GB "
+        f"({free / 1e9:.3f} GB free before)")
+    # the analytic count takes one d_model vector per rmsnorm; the final norm is not counted
+    if n_params != cfg.param_count() + cfg.d_model:
+        raise AssertionError(f"init_lm: {n_params} parameters, config {cfg.param_count()} + the final norm")
+    check_init(params, golden)
+    check_windows(params, golden)
+
+    # where the time goes: one prefill and one decode step at the main path's shape, profiled, the MoE by step
+    with torch.inference_mode():
+        prompts = prng.randint(prng.prng_key(1, "cuda"), (B, S), 0, cfg.vocab_size)
+        lm_prefill(params, cfg, {"tokens": prompts[:, :64]}, pad_to=96, plane="kernel")  # warm-up
+        with moe.Record() as rec:
+            flash_attention.launches = 0
+            (logits, cache), p_wall, p_busy, p_ops, p_top, p_split = device_busy(
+                lambda: lm_prefill(params, cfg, {"tokens": prompts}, pad_to=S + G, plane="kernel"))
+            p_launches = flash_attention.launches
+            tok = logits.argmax(-1)
+            lm_decode_step(params, cfg, cache, {"token": tok})  # warm-up: writes slot S, which the next call rewrites
+            flash_attention.launches = 0
+            _, d_wall, d_busy, d_ops, d_top, d_split = device_busy(
+                lambda: lm_decode_step(params, cfg, cache, {"token": tok}))
+            d_launches = flash_attention.launches
+        n_rows = int(prompts.unique().numel())
+        prof_logits = logits.float()
+        del cache, logits
+    if (p_launches, d_launches) != (cfg.n_layers, 0):
+        raise AssertionError(f"{KIMI_SERVE_PATH}: flash_attention launched {p_launches} times in a prefill and "
+                             f"{d_launches} in a decode step, not {cfg.n_layers} and 0")
+    kept = [sum(r["loads"]) - r["dropped"] for r in (prefill_route(rec, cfg, i, B * S) for i in range(cfg.n_layers))]
+    del rec
+    flops, p_bytes, d_bytes = moe_serve_work(cfg, B, S, kept, n_rows)
+    p_bound = max(flops / FP32_FLOPS_PER_S, p_bytes / HBM_BYTES_PER_S) * 1e3
+    d_bound = d_bytes / HBM_BYTES_PER_S * 1e3
+    expert_bytes = 4 * cfg.n_layers * 3 * cfg.n_experts * cfg.d_model * cfg.d_ff
+    prof = {"prefill_wall_ms": p_wall, "prefill_device_busy_ms": p_busy, "prefill_idle_share": 1 - p_busy / p_wall,
+            "prefill_device_ops": p_ops, "prefill_flash_attention_launches": p_launches,
+            "prefill_bound_ms": p_bound, "prefill_tflop": flops / 1e12, "prefill_kept_assignments_per_layer": kept,
+            "prefill_moe_launches_and_ms_by_step": p_split,
+            "decode_step_wall_ms": d_wall, "decode_step_device_busy_ms": d_busy,
+            "decode_step_idle_share": 1 - d_busy / d_wall, "decode_step_device_ops": d_ops,
+            "decode_step_flash_attention_launches": d_launches, "decode_step_bound_ms": d_bound,
+            "decode_step_expert_bytes_bound_ms": expert_bytes / HBM_BYTES_PER_S * 1e3,
+            "decode_step_moe_launches_and_ms_by_step": d_split,
+            "prefill_top_launches_and_ms": p_top, "decode_step_top_launches_and_ms": d_top}
+    log(f"{KIMI_SERVE_PATH} profile: " + json.dumps(prof))
+
+    # the main path: counts from 0, then read
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counted:
+        fn.launches = 0
+    with moe.Record() as rk:
+        k = serve(cfg, **KIMI_SERVE, seed=0, device="cuda", plane="kernel", params=params)
+    got = {fn.__name__: fn.launches for fn in counted}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    log(f"main path {KIMI_SERVE_PATH} (kernel plane, {cfg.n_layers} of {full.n_layers} layers, B={B}, prompt {S}, "
+        f"{G} tokens each, float32): prefill {k.prefill_ms:.3f} ms ({k.prefill_ms / p_bound:.2f}x its bound "
+        f"{p_bound:.3f} ms: {flops / 1e12:.3f} TFLOP at {FP32_FLOPS_PER_S / 1e12:.0f} TFLOP/s, {p_bytes / 1e9:.3f} GB), "
+        f"decode {k.decode_ms_per_step:.3f} ms/step ({k.decode_ms_per_step / d_bound:.2f}x its bound {d_bound:.3f} ms: "
+        f"{d_bytes / 1e9:.3f} GB at {HBM_BYTES_PER_S / 1e12:.2f} TB/s; the expert weights alone "
+        f"{expert_bytes / 1e9:.3f} GB, {expert_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms), {k.tokens_per_s:.1f} tok/s, "
+        f"peak {peak:.3f} GB allocated, page table {k.pages_used}/{k.pages_total} used, "
+        f"{k.pages_used_after_release} after release, launches {got}")
+    expect = {fn.__name__: 0 for fn in counted}
+    expect["flash_attention"] = cfg.n_layers
+    if got != expect:
+        raise AssertionError(f"{KIMI_SERVE_PATH}: kernel launches {got} != {expect} (one flash_attention per prefill "
+                             "layer, none in decode)")
+    gap = float((k.logits[0] - prof_logits).abs().max())
+    if gap > tol:
+        raise AssertionError(f"{KIMI_SERVE_PATH}: prefill logits {gap} from the profiled prefill's > {tol}")
+
+    # the golden file: the reference's run is the main path's first steps (the same seed, prompt and length)
+    ref = golden["routing"][0]
+    mine = prefill_route(rk, cfg, 0, B * S)
+    held = ref["margin"] > 10 * router_gap
+    log(f"  golden routing layer 0: dropped {mine['dropped']} of {sum(mine['loads'])} (reference {ref['dropped']}), "
+        f"loads {'equal' if mine['loads'] == ref['loads'] else mine['loads']}, reference margin {ref['margin']:.3e} "
+        f"{'>' if held else '<='} 10x the CPU router-logit gap {router_gap:.3e}" + ("" if held else ": not held"))
+    if held and (mine["loads"], mine["dropped"]) != (ref["loads"], ref["dropped"]):
+        raise AssertionError(f"golden: layer 0 routes {mine} where the reference routes {ref}")
+    err = check_golden(k, golden, tol)
+    same = k.tokens[:, :golden["gen_len"]].tolist() == golden["tokens"]
+    log(f"{KIMI_SERVE_PATH} golden ({golden['batch']} x {golden['prompt_len']}, the first {golden['gen_len']} steps, "
+        f"kernel plane): logits within {err:.3e} of the JAX reference (tolerance {tol}, 10x the port's CPU gap "
+        f"{golden['port_cpu_gap']['logits']:.3e}), tokens {k.tokens[:, :golden['gen_len']].tolist()} "
+        f"({'all equal' if same else 'reference ' + str(golden['tokens'])})")
+
+    with moe.Record() as rt:
+        t = serve(cfg, **KIMI_SERVE, seed=0, device="cuda", plane="torch", params=params)
+    log(f"main path {KIMI_SERVE_PATH} (torch plane): prefill {t.prefill_ms:.3f} ms, decode "
+        f"{t.decode_ms_per_step:.3f} ms/step, {t.tokens_per_s:.1f} tok/s")
+    a, b = prefill_route(rk, cfg, 0, B * S), prefill_route(rt, cfg, 0, B * S)
+    rgap = float((rk.calls[0]["logits"] - rt.calls[0]["logits"]).abs().max())
+    log(f"  {KIMI_SERVE_PATH} layer 0: dropped {a['dropped']} of {sum(a['loads'])} (capacity {a['capacity']}), "
+        f"smallest router margin {a['margin']:.3e}; planes' router logits within {rgap:.3e}, routing "
+        f"{'equal' if (a['loads'], a['dropped']) == (b['loads'], b['dropped']) else b}")
+    if a["margin"] > 10 * rgap and (a["loads"], a["dropped"]) != (b["loads"], b["dropped"]):
+        raise AssertionError(f"{KIMI_SERVE_PATH}: the planes route differently: {a} vs {b}")
+    gap = float((k.logits[0] - t.logits[0]).abs().max())
+    if gap > tol:
+        raise AssertionError(f"{KIMI_SERVE_PATH}: prefill logits of the planes differ by {gap} > {tol}")
+    m = margins(t.logits)
+    for r in range(B):
+        n = decided_steps(m[:, r].tolist(), tol)
+        if k.tokens[r, :n].tolist() != t.tokens[r, :n].tolist():
+            raise AssertionError(f"{KIMI_SERVE_PATH}: request {r}: greedy tokens differ within the first {n} steps")
+        log(f"  request {r}: tokens equal over the {n} decided steps of {G} "
+            f"({int((k.tokens[r] == t.tokens[r]).sum())} equal in all)")
+    log(f"{KIMI_SERVE_PATH}: prefill logits of the planes within {gap:.3e} (tolerance {tol}); logits std "
+        f"{float(k.logits[0].std()):.3f}; peak {peak:.3f} GB; init {init_s:.3f} s")
+    del k, t, rk, rt, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return got
 
 
 # the LM training main path: stablelm-1.6b at full width and depth, float32, AdamW, remat "full"
@@ -3338,7 +3543,7 @@ def main() -> int:
         launches[name][WHISPER_SERVE_PATH] = n
 
     lap("serve whisper")
-    # the M-RoPE VLM serving path (qwen2-vl-72b at full width, 12 of 80 layers)
+    # the M-RoPE VLM serving path (qwen2-vl-72b at full width, 6 of 80 layers)
     for name, n in phase_serve_vlm(counted).items():
         launches[name][VLM_SERVE_PATH] = n
 
@@ -3349,6 +3554,11 @@ def main() -> int:
             launches[name][path] = n
 
     lap("serve dense")
+    # kimi-k2-1t-a32b at full width, 1 of 61 layers
+    for name, n in phase_serve_kimi(counted).items():
+        launches[name][KIMI_SERVE_PATH] = n
+
+    lap("serve kimi")
     # phase 8: the LM training path (stablelm-1.6b at full width and depth)
     for name, n in phase_train(counted).items():
         launches[name][TRAIN_PATH] = n

@@ -13,8 +13,9 @@ lowering, ``threefry_seed``, ``iota_2x32_shape``, ``_threefry_fold_in``;
 flag:
 
 * partitionable (``True``, jax's default): ``_threefry_split_foldlike`` and
-  ``_threefry_random_bits_partitionable`` hash the count pair ``(0, i)``
-  of element i and take ``y0 ^ y1`` (``split`` takes both words);
+  ``_threefry_random_bits_partitionable`` hash the 64-bit count of element
+  i as the pair ``(i >> 32, i & 0xffffffff)`` (``iota_2x32_shape``) and
+  take ``y0 ^ y1`` (``split`` takes both words);
 * legacy (``False``, inside ``with threefry_partitionable(False):``):
   ``_threefry_split_original`` and ``_threefry_random_bits_original``
   hash ``iota(n)`` through ``threefry_2x32``, which pads an odd n with one
@@ -22,6 +23,10 @@ flag:
   ``concat(y0, y1)[:n]``: element i < h = ceil(n/2) is ``y0`` at
   ``(i, i + h)``, element i >= h is ``y1`` at ``(i - h, i)``.  So a
   shape-() draw is not the first element of a shape-(2,) draw there.
+  ``iota`` is uint32, so a draw of n >= 2**32 - 1 elements runs in blocks:
+  ``nb, rem = divmod(n, 2**32 - 1)``, block b < nb is the draw of 2**32 - 1
+  elements under ``split(key, nb + 1)[b]`` and the last ``rem`` elements
+  are the draw of ``rem`` under ``split(key, nb + 1)[nb]``.
 
 ``prng_key`` and ``fold_in`` are the same in both modes.  The
 transaction stage-graph counters in ``tests/data/stage_graph_golden.json``
@@ -88,14 +93,22 @@ def threefry2x32(k1, k2, x0, x1) -> Tuple[torch.Tensor, torch.Tensor]:
     return x0, x1
 
 
-def _hash_counts(keys, counts):
-    """threefry2x32 of each key in ``keys`` (..., 2) at the uint64 counts
-    ``counts`` (whose high words are zero), broadcast over ``counts``'
-    trailing dims; returns both output words, shaped ``(...,) + counts.shape``."""
+# jax's legacy draw hashes ``iota(n)`` in uint32: from this many elements on it runs in blocks of this size
+_LEGACY_BLOCK = 2**32 - 1
+
+
+def _hash_counts(keys, counts, top: int):
+    """threefry2x32 of each key in ``keys`` (..., 2) at the 64-bit counts
+    ``counts`` (int64, each below ``top``) as the pair (high word, low
+    word), broadcast over ``counts``' trailing dims; returns both output
+    words, shaped ``(...,) + counts.shape``.  While ``top`` <= 2**32 every
+    high word is 0 and the counts are the low words as they are."""
     extra = (1,) * counts.dim()
     k1 = keys[..., 0].reshape(keys.shape[:-1] + extra)
     k2 = keys[..., 1].reshape(keys.shape[:-1] + extra)
-    return threefry2x32(k1, k2, 0, counts)
+    if top <= 2**32:
+        return threefry2x32(k1, k2, 0, counts)
+    return threefry2x32(k1, k2, counts >> 32, counts & _M)
 
 
 def _legacy_blocks(n: int, device, start: int = 0, stop: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -108,16 +121,46 @@ def _legacy_blocks(n: int, device, start: int = 0, stop: Optional[int] = None) -
     return x0, torch.where(x1 < n, x1, 0)
 
 
-def _legacy_bits(keys, n: int) -> torch.Tensor:
+def _legacy_block(keys, n: int) -> torch.Tensor:
     """``threefry_2x32(key, iota(n))`` for keys (..., 2) -> (..., n): both
     words of ceil(n/2) blocks, ``concat(y0, y1)[:n]``."""
-    if n >= 2**32 - 1:
-        raise ValueError(f"legacy threefry: {n} elements need jax's multi-block path, which is not implemented")
     x0, x1 = _legacy_blocks(n, keys.device)
     extra = (1,) * x0.dim()
     y0, y1 = threefry2x32(keys[..., 0].reshape(keys.shape[:-1] + extra),
                           keys[..., 1].reshape(keys.shape[:-1] + extra), x0, x1)
     return torch.cat([y0, y1], dim=-1)[..., :n]
+
+
+def _legacy_split(keys, num: int) -> torch.Tensor:
+    """``_threefry_split_original``: keys (..., 2) -> (..., num, 2), one
+    ``threefry_2x32`` of ``iota(2 num)``."""
+    return _legacy_block(keys, 2 * num).reshape(keys.shape[:-1] + (num, 2))
+
+
+def _legacy_bits(keys, n: int) -> torch.Tensor:
+    """``_threefry_random_bits_original`` of n 32-bit draws for keys (..., 2)
+    -> (..., n): one block below 2**32 - 1 elements, else blocks of 2**32 - 1
+    under ``split(key, nb + 1)`` and the remainder under its last key."""
+    if n < _LEGACY_BLOCK:
+        return _legacy_block(keys, n)
+    nb, rem = divmod(n, _LEGACY_BLOCK)
+    sub = _legacy_split(keys, nb + 1)
+    parts = [_legacy_block(sub[..., b, :], _LEGACY_BLOCK) for b in range(nb)]
+    return torch.cat(parts + [_legacy_block(sub[..., nb, :], rem)], dim=-1)
+
+
+def _legacy_spans(key, n: int, start: int, stop: int):
+    """The legacy blocks of one key's draw of n elements that elements
+    [start, stop) fall in: (first flat element of the block, its size m,
+    its key (2,))."""
+    if n < _LEGACY_BLOCK:
+        yield 0, n, key
+        return
+    nb, rem = divmod(n, _LEGACY_BLOCK)
+    first, last = start // _LEGACY_BLOCK, min((stop - 1) // _LEGACY_BLOCK, nb)
+    sub = _legacy_split(key, nb + 1)
+    for b in range(first, last + 1):
+        yield b * _LEGACY_BLOCK, (_LEGACY_BLOCK if b < nb else rem), sub[b]
 
 
 def prng_key(seed: int, device=None) -> torch.Tensor:
@@ -146,9 +189,9 @@ def split(keys, num: int = 2) -> torch.Tensor:
     """``jax.random.split``: keys (..., 2) -> (..., num, 2); in the legacy
     mode ``threefry_2x32(key, iota(2 num))`` in rows of two words."""
     if not partitionable():
-        return _legacy_bits(keys, 2 * num).reshape(keys.shape[:-1] + (num, 2))
+        return _legacy_split(keys, num)
     counts = torch.arange(num, dtype=torch.int64, device=keys.device)
-    y0, y1 = _hash_counts(keys, counts)
+    y0, y1 = _hash_counts(keys, counts, num)
     return torch.stack([y0, y1], dim=-1)
 
 
@@ -159,24 +202,34 @@ def random_bits(keys, shape: Sequence[int]) -> torch.Tensor:
     shape = tuple(shape)
     if not partitionable():
         return _legacy_bits(keys, math.prod(shape)).reshape(keys.shape[:-1] + shape)
-    counts = torch.arange(math.prod(shape), dtype=torch.int64, device=keys.device).reshape(shape)
-    y0, y1 = _hash_counts(keys, counts)
+    n = math.prod(shape)
+    counts = torch.arange(n, dtype=torch.int64, device=keys.device).reshape(shape)
+    y0, y1 = _hash_counts(keys, counts, n)
     return y0 ^ y1
 
 
 @functools.lru_cache(maxsize=None)
 def _legacy_rows(shapes: Tuple[Tuple[int, ...], ...], device: str):
     """``draw_counts``' legacy counts and picks, built once per pass layout and device."""
+    half = (_LEGACY_BLOCK + 1) // 2  # the count pairs of one whole block
     sizes = [math.prod(sh) for sh in shapes]
-    halves = torch.tensor([(n + 1) // 2 for n in sizes], dtype=torch.int64)[:, None]
     n = torch.tensor(sizes, dtype=torch.int64)[:, None]
-    block = torch.arange(max(int(halves.max()), 1), dtype=torch.int64)[None, :]
-    c1 = block + halves
-    c1 = torch.where(c1 < n, c1, 0)
+    nb = n // _LEGACY_BLOCK
+    # the pairs of block b < nb at columns [b half, (b + 1) half), the last block's after them
+    width = max(max(s // _LEGACY_BLOCK * half + (s % _LEGACY_BLOCK + 1) // 2 for s in sizes), 1)
+    col = torch.arange(width, dtype=torch.int64)[None, :]
+    b = torch.minimum(col // half, nb)
+    m = torch.where(b < nb, _LEGACY_BLOCK, n % _LEGACY_BLOCK)  # the block's size
+    c0 = col - b * half
+    c1 = c0 + (m + 1) // 2
+    c1 = torch.where(c1 < m, c1, 0)
     i = torch.arange(max(sizes), dtype=torch.int64)[None, :]
-    pick = torch.where(i < halves, i, block.shape[1] + i - halves)
+    bi = i // _LEGACY_BLOCK
+    r = i - bi * _LEGACY_BLOCK
+    h = (torch.where(bi < nb, _LEGACY_BLOCK, n % _LEGACY_BLOCK) + 1) // 2
+    pick = torch.where(r < h, bi * half + r, width + bi * half + r - h)
     pick = torch.where(i < n, pick, 0)
-    return block.to(device), c1.to(device), pick.to(device)
+    return c0.to(device), c1.to(device), pick.to(device)
 
 
 def draw_counts(shapes: Sequence[Sequence[int]], device=None) -> Tuple[object, torch.Tensor, Optional[torch.Tensor]]:
@@ -185,19 +238,40 @@ def draw_counts(shapes: Sequence[Sequence[int]], device=None) -> Tuple[object, t
     count pairs ``(c0, c1)`` (broadcast to (R, B)) and how its output words
     make the draws (L = the largest size).
 
-    Partitionable: c0 = 0 and c1 = arange(L) for every row, pick None:
-    element i is ``y0 ^ y1`` at count i, so a smaller draw is the head of a
-    larger one.  Legacy: row j hashes its ceil(n_j/2) blocks at
-    ``(b, b + h_j)``, a count past n_j - 1 padded to 0, and element i is
-    ``concat(y0, y1)[pick[j, i]]``: y0 of block i below h_j, y1 of block
-    i - h_j above (pick (R, L); elements past n_j pick 0).
+    Partitionable: c0 = i >> 32 (0 while L <= 2**32) and c1 = i & 0xffffffff
+    for i in arange(L), the same for every row, pick None: element i is
+    ``y0 ^ y1`` at count i, so a smaller draw is the head of a larger one.
+    Legacy: row j hashes its ceil(n_j/2) blocks at ``(b, b + h_j)``, a count
+    past n_j - 1 padded to 0, and element i is ``concat(y0, y1)[pick[j,
+    i]]``: y0 of block i below h_j, y1 of block i - h_j above (pick (R, L);
+    elements past n_j pick 0).  A row of n_j >= 2**32 - 1 elements lays out
+    its legacy blocks one after another, 2**31 columns each: the columns of
+    block b hash under ``split(key, n_j // (2**32 - 1) + 1)[b]`` (``row_bits``
+    gives them those keys).
     """
     shapes = tuple(tuple(int(d) for d in sh) for sh in shapes)
     if partitionable():
-        return 0, torch.arange(max(math.prod(sh) for sh in shapes), dtype=torch.int64, device=device), None
-    if max(math.prod(sh) for sh in shapes) >= 2**32 - 1:
-        raise ValueError("legacy threefry: a draw of 2**32 - 1 elements or more is not implemented")
+        top = max(math.prod(sh) for sh in shapes)
+        i = torch.arange(top, dtype=torch.int64, device=device)
+        return (0, i, None) if top <= 2**32 else (i >> 32, i & _M, None)
     return _legacy_rows(shapes, str(torch.device(device or "cpu")))
+
+
+def _block_keys(keys, shapes, width: int) -> torch.Tensor:
+    """Legacy: the key of each count column of ``draw_counts`` for keys
+    (..., R, 2): (..., R, width, 2), row j's own key unless its draw runs in
+    blocks, then the split key of each column's block."""
+    half = (_LEGACY_BLOCK + 1) // 2
+    col = torch.arange(width, device=keys.device) // half
+    rows = []
+    for j, sh in enumerate(shapes):
+        nb = math.prod(sh) // _LEGACY_BLOCK
+        k = keys[..., j, :]
+        if nb == 0:
+            rows.append(k[..., None, :].expand(k.shape[:-1] + (width, 2)))
+        else:
+            rows.append(_legacy_split(k, nb + 1)[..., col.clamp(max=nb), :])
+    return torch.stack(rows, dim=-3)
 
 
 def row_bits(keys, shapes: Sequence[Sequence[int]]) -> torch.Tensor:
@@ -207,7 +281,11 @@ def row_bits(keys, shapes: Sequence[Sequence[int]]) -> torch.Tensor:
     flattened, and the rest are not defined.  In the partitionable mode
     this is ``random_bits(keys, (L,))``, op for op."""
     c0, c1, pick = draw_counts(shapes, keys.device)
-    y0, y1 = threefry2x32(keys[..., 0:1], keys[..., 1:2], c0, c1)
+    k1, k2 = keys[..., 0:1], keys[..., 1:2]
+    if pick is not None and max(math.prod(sh) for sh in shapes) >= _LEGACY_BLOCK:
+        k = _block_keys(keys, shapes, c1.shape[-1])
+        k1, k2 = k[..., 0], k[..., 1]
+    y0, y1 = threefry2x32(k1, k2, c0, c1)
     if pick is None:
         return y0 ^ y1
     words = torch.cat([y0, y1], dim=-1)
@@ -520,56 +598,90 @@ def _erf32(x) -> np.float32:
     return np.float32(torch.erf(torch.tensor(x, dtype=torch.float32)).item())
 
 
-def truncated_normal(key, lower: float, upper: float, shape: Sequence[int], *, chunk: int = 1 << 24) -> torch.Tensor:
-    """``jax.random.truncated_normal(key, lower, upper, shape, float32)`` for
-    one key (2,): the uniform on ``[erf(lower/sqrt2), erf(upper/sqrt2))``
-    from the key's 32-bit draws, ``sqrt2 * erf_inv(u)``, then the clip to
-    the open interval (``nextafter`` of each bound).  Bitwise JAX's on almost every
-    element (``erf_inv``'s float64 multiply-adds round twice in rare cases).  The draws run ``chunk`` elements at a time, so a
-    (100352, 2048) table needs no more than a few chunk-sized temporaries.
-    """
+def _truncated_normal_fn(lower: float, upper: float):
+    """``truncated_normal``'s float32 map of 32 random bits onto (lower, upper)."""
     sqrt2 = np.float32(np.sqrt(2))
     lo, hi = np.float32(lower), np.float32(upper)
     a, b = _erf32(lo / sqrt2), _erf32(hi / sqrt2)
     clip_lo = float(np.nextafter(lo, np.float32(np.inf)))
     clip_hi = float(np.nextafter(hi, np.float32(-np.inf)))
-    return _chunked_draw(key, shape, chunk, "truncated_normal", lambda bits: torch.clamp(
-        erf_inv(uniform_from_bits(bits, a, b)) * float(sqrt2), clip_lo, clip_hi))
+    return lambda bits: torch.clamp(erf_inv(uniform_from_bits(bits, a, b)) * float(sqrt2), clip_lo, clip_hi)
 
 
-def _chunked_draw(key, shape, chunk: int, name: str, fn) -> torch.Tensor:
-    """float32 ``fn(bits)`` of one key's (2,) 32-bit draws over ``shape``,
-    ``chunk`` elements at a time; in the legacy mode, chunks of ``chunk // 2``
-    blocks, each giving its y0 words to the first half of the draw and its
-    y1 words to the second.  ``fn`` must act elementwise."""
+def truncated_normal(key, lower: float, upper: float, shape: Sequence[int], *,
+                     chunk: Optional[int] = None) -> torch.Tensor:
+    """``jax.random.truncated_normal(key, lower, upper, shape, float32)`` for
+    one key (2,): the uniform on ``[erf(lower/sqrt2), erf(upper/sqrt2))``
+    from the key's 32-bit draws, ``sqrt2 * erf_inv(u)``, then the clip to
+    the open interval (``nextafter`` of each bound).  Bitwise JAX's on
+    almost every element (``erf_inv``'s float64 multiply-adds round twice in
+    rare cases).  The draws run ``chunk`` elements at a time
+    (``_chunked_draw``), so a (100352, 2048) table needs no more than a few
+    chunk-sized temporaries.
+    """
     shape = tuple(int(d) for d in shape)
-    n = math.prod(shape)
-    legacy = not partitionable()
-    if n >= (2**32 - 1 if legacy else 2**32):  # the legacy iota is uint32: jax takes another path from 2**32 - 1 on
-        raise ValueError(f"{name}: {n} elements need 64-bit counts, which are not implemented")
-    out = torch.empty(n, dtype=torch.float32, device=key.device)
-    if legacy:
-        h = (n + 1) // 2
-        step = max(chunk // 2, 1)
-        for start in range(0, h, step):
-            blocks, c1 = _legacy_blocks(n, key.device, start, min(h, start + step))
-            y0, y1 = threefry2x32(key[..., 0], key[..., 1], blocks, c1)
-            out[start : start + blocks.numel()] = fn(y0)
-            tail = min(n, h + start + blocks.numel()) - (h + start)  # an odd n's last block has no y1 element
-            out[h + start : h + start + tail] = fn(y1[:tail])
-        return out.reshape(shape)
-    for start in range(0, n, chunk):
-        counts = torch.arange(start, min(n, start + chunk), dtype=torch.int64, device=key.device)
-        y0, y1 = _hash_counts(key, counts)
-        out[start : start + counts.numel()] = fn(y0 ^ y1)
-    return out.reshape(shape)
+    return _chunked_draw(key, shape, _truncated_normal_fn(lower, upper), chunk=chunk).reshape(shape)
 
 
-def normal(key, shape: Sequence[int], *, chunk: int = 1 << 24) -> torch.Tensor:
+def _chunked_draw(key, shape, fn, start: int = 0, stop: Optional[int] = None, *, chunk: Optional[int] = None,
+                  dtype=torch.float32) -> torch.Tensor:
+    """``fn(bits)`` of elements [start, stop) (default all) of one key's (2,)
+    32-bit draw over ``shape``, flat, without making the rest: ``chunk``
+    elements at a time (default 2**24 on a card, 2**18 elsewhere: a CPU
+    keeps a smaller chunk's temporaries in its caches).  Partitionable:
+    element i hashes the count pair (i >> 32, i & 0xffffffff).  Legacy: in
+    each block of the draw (one below 2**32 - 1 elements), chunks of
+    ``chunk // 2`` count pairs, each giving its y0 words to the first half of
+    the block and its y1 words to the second; a pair that no element of the
+    window needs is not hashed.  ``fn`` must act elementwise."""
+    n = math.prod(int(d) for d in shape)
+    stop = n if stop is None else stop
+    if not 0 <= start <= stop <= n:
+        raise ValueError(f"window [{start}, {stop}) of a draw of {n} elements")
+    out = torch.empty(stop - start, dtype=dtype, device=key.device)
+    chunk = chunk or (1 << 24 if key.device.type == "cuda" else 1 << 18)
+    if partitionable():
+        if n > 2**64:
+            raise ValueError(f"a draw of {n} elements: jax's counts are 64-bit")
+        for s in range(start, stop, chunk):
+            counts = torch.arange(s, min(stop, s + chunk), dtype=torch.int64, device=key.device)
+            y0, y1 = _hash_counts(key, counts, s + counts.numel())
+            out[s - start : s - start + counts.numel()] = fn(y0 ^ y1)
+        return out
+    step = max(chunk // 2, 1)
+    for base, m, k in _legacy_spans(key, n, start, stop):
+        lo, hi = max(start - base, 0), min(stop - base, m)  # the window's elements in this block
+        h = (m + 1) // 2
+        a0, a1 = lo, min(hi, h)  # y0 of these pairs: elements [a0, a1)
+        b0, b1 = max(lo, h) - h, max(hi - h, 0)  # y1 of these pairs: elements h + [b0, b1)
+        spans = [(a0, a1), (b0, b1)]
+        if a0 < a1 and b0 < b1 and max(a0, b0) <= min(a1, b1):
+            spans = [(min(a0, b0), max(a1, b1))]  # overlapping: hash each pair once
+        for p0, p1 in spans:
+            for p in range(p0, p1, step):
+                q = min(p1, p + step)
+                x0, x1 = _legacy_blocks(m, key.device, p, q)
+                y0, y1 = threefry2x32(k[..., 0], k[..., 1], x0, x1)
+                i0, i1 = max(p, a0), min(q, a1)
+                if i0 < i1:
+                    out[base + i0 - start : base + i1 - start] = fn(y0[i0 - p : i1 - p])
+                j0, j1 = max(p, b0), min(q, b1)
+                if j0 < j1:
+                    out[base + h + j0 - start : base + h + j1 - start] = fn(y1[j0 - p : j1 - p])
+    return out
+
+
+def _normal_fn():
+    """``normal``'s float32 map of 32 random bits."""
+    lo = float(np.nextafter(np.float32(-1), np.float32(0)))
+    sqrt2 = float(np.float32(np.sqrt(2)))
+    return lambda bits: erf_inv(uniform_from_bits(bits, lo, 1.0)) * sqrt2
+
+
+def normal(key, shape: Sequence[int], *, chunk: Optional[int] = None) -> torch.Tensor:
     """``jax.random.normal(key, shape, float32)`` for one key (2,), bit for
     bit: the uniform on ``[nextafter(-1, 0), 1)`` from the key's 32-bit
     draws, then ``sqrt2 * erf_inv(u)`` (XLA fuses neither step into
     another).  The draws run ``chunk`` elements at a time."""
-    lo = float(np.nextafter(np.float32(-1), np.float32(0)))
-    sqrt2 = float(np.float32(np.sqrt(2)))
-    return _chunked_draw(key, shape, chunk, "normal", lambda bits: erf_inv(uniform_from_bits(bits, lo, 1.0)) * sqrt2)
+    shape = tuple(int(d) for d in shape)
+    return _chunked_draw(key, shape, _normal_fn(), chunk=chunk).reshape(shape)

@@ -204,10 +204,9 @@ def named_specs(model: LM) -> Dict[str, P]:
 def param_specs(cfg: ArchConfig, dtype=torch.float32):
     """(the reference's tree of ``meta`` tensors, its tree of logical specs)
     for ``cfg``, from an ``init_lm`` on the ``meta`` device: no draw and no
-    allocation (kimi-k2's expert leaves hold 5.6 B elements, more than
-    ``prng.truncated_normal`` takes).  A leaf stacked over layers takes a
-    leading None (the reference's ``_stack_init``); a hybrid's tail leaves
-    do not."""
+    allocation (all 61 layers of kimi-k2 hold 1.03 T parameters).  A leaf
+    stacked over layers takes a leading None (the reference's
+    ``_stack_init``); a hybrid's tail leaves do not."""
     from repro_torch import convert  # convert builds LMs: imported here, not at the top
 
     model = init_lm(prng.prng_key(0), cfg, dtype, device="meta")

@@ -191,10 +191,18 @@ def dense_init(key, name, shape, spec, dtype=torch.float32, scale=None) -> Param
     the ``meta`` device an empty tensor of the shape and no draw."""
     if key.device.type == "meta":
         return Param(torch.empty(shape, dtype=dtype, device="meta"), P(*spec))
+    return Param(_dense_draw(key, name, shape, scale).reshape(shape).to(dtype), P(*spec))
+
+
+def _dense_draw(key, name, shape, scale=None, start: int = 0, stop=None) -> torch.Tensor:
+    """``dense_init``'s float32 values at flat elements [start, stop) of the
+    leaf (default all), drawn without the rest: the truncated normal scaled
+    in place (the reference multiplies in float32; a second leaf-sized
+    buffer would not fit beside kimi-k2's expert leaves on the card)."""
     if scale is None:
         scale = 1.0 / np.sqrt(max(shape[0], 1))
-    v = prng.truncated_normal(name_key(key, name), -2.0, 2.0, shape)
-    return Param((v * float(np.float32(scale))).to(dtype), P(*spec))  # the reference multiplies in float32
+    v = prng._chunked_draw(name_key(key, name), shape, prng._truncated_normal_fn(-2.0, 2.0), start, stop)
+    return v.mul_(float(np.float32(scale)))
 
 
 def zeros_init(name, shape, spec, dtype=torch.float32, device=None) -> Param:

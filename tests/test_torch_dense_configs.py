@@ -178,8 +178,8 @@ def test_config_matches_the_reference(arch):
     assert cfg.param_count() == jcfg.param_count() and cfg.active_param_count() == jcfg.active_param_count()
     assert cfg.family == "dense" and cfg.head_dim == 128
     # the depths the card serves them at (chip_smoke.DENSE_LAYERS) and their parameters, reckoned
-    n = {"nemotron-4-15b": (32, 15_628_369_920), "qwen2.5-32b": (16, 9_358_819_328),
-         "command-r-35b": (12, 10_553_065_472)}[arch]
+    n = {"nemotron-4-15b": (16, 9_387_048_960), "qwen2.5-32b": (8, 5_457_977_344),
+         "command-r-35b": (6, 6_325_108_736)}[arch]
     assert dataclasses.replace(cfg, n_layers=n[0]).param_count() == n[1]
 
 

@@ -1,8 +1,8 @@
 """The port stands alone: ``src/repro_torch``, ``chip_smoke.py``,
-``scripts/torch_{kernel,legacy}_ab.py`` and the card's test file
-``tests/test_torch_cuda.py`` import neither JAX nor the JAX package, and
-the port loads and runs with both blocked: it serves, runs an RCC
-experiment and takes two training steps."""
+``scripts/torch_{kernel,legacy}_ab.py``, ``scripts/torch_{dense,kimi}_phase.py``
+and the card's test file ``tests/test_torch_cuda.py`` import neither JAX
+nor the JAX package, and the port loads and runs with both blocked: it
+serves, runs an RCC experiment and takes two training steps."""
 import ast
 import os
 import subprocess
@@ -15,8 +15,9 @@ BANNED = ("jax", "jaxlib", "repro")
 
 
 def _port_files():
-    files = [os.path.join(ROOT, "chip_smoke.py"), os.path.join(ROOT, "tests", "test_torch_cuda.py"),
-             os.path.join(ROOT, "scripts", "torch_kernel_ab.py"), os.path.join(ROOT, "scripts", "torch_legacy_ab.py")]
+    files = [os.path.join(ROOT, "chip_smoke.py"), os.path.join(ROOT, "tests", "test_torch_cuda.py")]
+    files += [os.path.join(ROOT, "scripts", f"torch_{name}.py") for name in ("kernel_ab", "legacy_ab", "dense_phase",
+                                                                             "kimi_phase")]
     for d, _, names in os.walk(os.path.join(ROOT, "src", "repro_torch")):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     return sorted(files)

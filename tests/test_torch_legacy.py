@@ -192,11 +192,18 @@ def test_normal_and_truncated_normal_match(seed, shape, chunk):
 
 
 def test_chunked_draw_size_error_in_both_modes():
+    """Draws past 2**32 (partitionable) and 2**32 - 1 (legacy) elements are
+    jax's (``tests/test_torch_kimi.py`` holds their windows to it); a draw
+    past jax's 64-bit counts and a window outside the draw raise."""
     key = prng.prng_key(0)
-    with pytest.raises(ValueError, match="64-bit counts"):
-        prng.normal(key, (2**16, 2**16))
-    with prng.threefry_partitionable(False), pytest.raises(ValueError, match="64-bit counts"):
-        prng.normal(key, (2**32 - 1,))
+    fn = prng._normal_fn()
+    with pytest.raises(ValueError, match="64-bit"):
+        prng._chunked_draw(key, (2**33, 2**31 + 1), fn, 0, 4)
+    for flag, n in ((True, 2**32), (False, 2**32 - 1)):
+        with prng.threefry_partitionable(flag):
+            assert torch.isfinite(prng._chunked_draw(key, (n + 5,), fn, n - 3, n + 5)).all()
+            with pytest.raises(ValueError, match="window"):
+                prng._chunked_draw(key, (n,), fn, n - 3, n + 5)
 
 
 def test_modes_differ_in_every_primitive():
