@@ -30,8 +30,8 @@ Run from a checkout of the repository on a machine with one CUDA card and
    and no other device operation (read from a CUDA graph of one call), beside the earlier packed-table sequence for the same
    call rebuilt op for op with this tree's kernels; then batched ticks of each
    RCC main path (kernel plane: NOWAIT/SmallBank at G = 1, 4 and 64
-   configs, MVCC/YCSB at G = 1 and 4) timed bare and traced with
-   torch.profiler: wall time, device busy time, device operations,
+   configs, MVCC/YCSB at G = 1 and 4; 10 ticks after 10 of warm-up) timed
+   bare and traced with torch.profiler: wall time, device busy time, device operations,
    ``torch.cat`` launches and top-level host operations per batched tick;
 4. the RCC main paths: ``repro_torch.api.run`` at the full ExperimentSpec
    defaults (4 nodes x 60 co-routines, 65536 records per node, 400 + 80
@@ -57,7 +57,7 @@ Run from a checkout of the repository on a machine with one CUDA card and
    rows with requests at the shard boundaries; ``multi_read`` per shard
    with local keys outside [0, R_l) over G*R_l rows) against its plain
    version and the dense result, and times it there; the profile phase
-   traces 20 node-layout ticks beside the dense tick at G = 1;
+   traces 10 node-layout ticks beside the dense tick at G = 1;
 8. the legacy PRNG mode (``prng.threefry_partitionable(False)``, jax's
    ``jax_threefry_partitionable=False``) through the deprecated sweep entry
    points on the kernel plane: ``run_grid`` over the reference's pinned
@@ -66,8 +66,8 @@ Run from a checkout of the repository on a machine with one CUDA card and
    MVCC/YCSB at the full spec on CODES against ``golden_legacy_prng.json``
    with the torch plane's counters equal, and ``run_cell_sharded`` on four
    node shards of the one card for NOWAIT/SmallBank hybrid 63; each run's
-   launches per tick checked and its wall printed beside the same run in
-   the default mode;
+   launches per tick checked and its wall printed, the full-size ones
+   beside the same run in the default mode;
 9. the LM serving path, stablelm-1.6b at full width in float32 with TF32
    off: ``init_lm`` from seed 0 on the card (checked against the reference's
    weights), a 2 x 256-token, 8-step run against the JAX reference's
@@ -140,9 +140,9 @@ Run from a checkout of the repository on a machine with one CUDA card and
    ``serve`` (4 x 2048 tokens, 32 each, the reference's text-only positions)
    on both planes beside its float32 bounds;
 16. the last three dense configs at full width, one after another, TF32
-   off: nemotron-4-15b (16 of 32 layers, 9.39 B float32 parameters; squared
-   ReLU, half of each head rotated), qwen2.5-32b (8 of 64 layers, 5.46 B;
-   QKV biases, theta 1e6) and command-r-35b (6 of 40 layers, 6.33 B;
+   off: nemotron-4-15b (8 of 32 layers, 6.27 B float32 parameters; squared
+   ReLU, half of each head rotated), qwen2.5-32b (4 of 64 layers, 3.51 B;
+   QKV biases, theta 1e6) and command-r-35b (3 of 40 layers, 4.21 B;
    parallel block, the head tied to the embedding, theta 8e6), each as
    phase 15: ``init_lm`` from seed 0 on the card (its parameter count
    against the config's, leaf corners against the reference's), the
@@ -184,7 +184,21 @@ Run from a checkout of the repository on a machine with one CUDA card and
    shd=...)`` at B = 2 x 2048 (ms per step, tokens/s, peak memory beside
    the reckoned state, one profiled step's device busy time, idle share and
    operations, each beside the (1, 1) mesh's; no hand-written kernel may
-   launch).
+   launch);
+20. the user entry points at their own defaults, in process:
+   ``examples/torch_quickstart.py`` (six protocol pairs and the hybrid MVCC
+   at 4 nodes x 16 co-routines, 300 + 60 ticks; reduced qwen2.5-32b's
+   forward and AdamW step), ``examples/torch_hybrid_search.py`` (SUNDIAL/
+   SmallBank's 64 codes as one bucket, 160 + 80 ticks, and its ranking),
+   ``examples/torch_txn_serving.py`` (the user-written admission workload
+   under NOWAIT, then the reduced serve), ``examples/torch_train_lm.py`` (120
+   reduced steps; ``--full`` for 300 steps with a failure at 170, held
+   bitwise to the same run without it) and ``scripts/torch_dev_smoke.py
+   --fast`` (the protocol matrix and all ten reduced archs), each against
+   ``golden_examples.json``, the JAX reference's outputs at the same knobs;
+   each path's launches counted and checked, the first calls of each input
+   signature held to the kernels' plain versions (``KernelSpy``) and the
+   most frequent one timed.
 
 Every path's kernel launches are counted from 0 just before it runs and
 read just after.  It prints each phase's wall seconds (``phase walls``),
@@ -276,6 +290,9 @@ STAGE_CELLS = tuple((p, "smallbank", CODES) for p in ("nowait", "waitdie", "occ"
 # try_lock, one multi_read per gather_many
 LEGACY_PER_TICK = dict(PER_TICK, **{p: {"lock_arbiter": 1, "multi_read": n, "mvcc_version_select": 0,
                                         "flash_attention": 0} for p, n in (("waitdie", 3), ("occ", 3), ("sundial", 8))})
+# the tick profiles' windows: warm-up ticks, then this many ticks timed bare and as many traced (40 and 20 through
+# PR 28; cut for the smoke's time limit when the examples phase came in)
+PROFILE_WARMUP, PROFILE_TICKS = 10, 10
 # H100 SXM peaks: the HBM3 rate (NVIDIA data sheet), and the INT32 issue rate
 # that bounds integer compares and selects: 132 SMs x 64 INT32 lanes per SM x
 # 1.98 GHz boost clock = 16.7e12 ops/s (the data sheet's 67 TFLOP/s float32
@@ -323,10 +340,11 @@ WHISPER_PARAMS = 278_143_488
 VLM_ARCH = "qwen2-vl-72b"
 VLM_LAYERS = 6
 VLM_SERVE_PATH = "serve/qwen2-vl-72b"
-# the last three dense serving main paths, at full width, each at half the depth that fits the card in float32, for
-# the smoke's time limit (layers of the config's: nemotron-4-15b 16 of 32, 9.39 B parameters; qwen2.5-32b 8 of 64,
-# 5.46 B; command-r-35b 6 of 40, 6.33 B), the same requests as SERVE, and each one's golden file (the first 2 layers)
-DENSE_LAYERS = {"nemotron-4-15b": 16, "qwen2.5-32b": 8, "command-r-35b": 6}
+# the last three dense serving main paths, at full width, each at a quarter of the depth that fits the card in float32,
+# for the smoke's time limit (layers of the config's: nemotron-4-15b 8 of 32, 6.27 B parameters; qwen2.5-32b 4 of 64,
+# 3.51 B; command-r-35b 3 of 40, 4.21 B; twice these through PR 28), the same requests as SERVE, and each one's golden
+# file (the first 2 layers)
+DENSE_LAYERS = {"nemotron-4-15b": 8, "qwen2.5-32b": 4, "command-r-35b": 3}
 DENSE_GOLDEN = {"nemotron-4-15b": "golden_serve_nemotron.json", "qwen2.5-32b": "golden_serve_qwen2_5.json",
                 "command-r-35b": "golden_serve_command_r.json"}
 # kimi-k2-1t-a32b at full width, the depth cut to 1 of 61 layers (19.38 B float32 parameters, 77.5 GB: a second layer
@@ -476,7 +494,7 @@ def phase_kernels():
     from repro_torch.kernels.lock_arbiter import lock_arbiter
 
     gen = torch.Generator().manual_seed(0)
-    rows = []
+    rows, t0 = [], time.perf_counter()
 
     # lock_arbiter: the main paths' (G, M = N*K) over G*262144 store rows, then edge cases
     worst = 0
@@ -523,9 +541,11 @@ def phase_kernels():
         replaces="src/repro/kernels/lock_arbiter.py:41", max_abs_err=float(worst), by_path=by_path,
     ))
 
-    rows.append(phase_multi_read(gen))
-    rows.append(phase_version_select(gen))
-    rows.append(phase_flash(gen))
+    for phase in (phase_multi_read, phase_version_select, phase_flash):
+        log(f"kernel phase: {rows[-1]['name']} checked and timed in {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        rows.append(phase(gen))
+    log(f"kernel phase: {rows[-1]['name']} checked and timed in {time.perf_counter() - t0:.1f} s")
     return rows
 
 
@@ -1020,7 +1040,7 @@ def phase_flash(gen):
     )
 
 
-def phase_profile(protocol, workload, codes=(63,), n_ticks=20, devices=None):
+def phase_profile(protocol, workload, codes=(63,), n_ticks=PROFILE_TICKS, devices=None):
     """Where one batched main-path tick's time goes: ``n_ticks`` ticks of
     one bucket of ``codes`` (kernel plane; node-sharded over ``devices``
     when given) timed bare, then traced with torch.profiler for the
@@ -1035,6 +1055,7 @@ def phase_profile(protocol, workload, codes=(63,), n_ticks=20, devices=None):
     from repro_torch.core.registry import get_protocol, protocol_family
     from repro_torch.core.sweep import GridSpec, engine_config, make_knobs
 
+    t_start = time.perf_counter()
     gs = GridSpec(protocol=protocol, workload=workload, kernel_plane="kernel", device="cuda")
     ec, cm, wl = engine_config(gs, make_knobs(workload, [{"hybrid": c} for c in codes]))
     if devices is not None:
@@ -1043,7 +1064,7 @@ def phase_profile(protocol, workload, codes=(63,), n_ticks=20, devices=None):
     st = init_state(ec, wl)
     store = init_run_store(ec, protocol_family(protocol), wl.rw, wl.init_value)
     t = 0
-    for _ in range(40):  # past warm-up allocations
+    for _ in range(PROFILE_WARMUP):  # past warm-up allocations
         st, store = tick(ec, cm, wl, st, store, t)
         t += 1
     torch.cuda.synchronize()
@@ -1114,6 +1135,7 @@ def phase_profile(protocol, workload, codes=(63,), n_ticks=20, devices=None):
         prof_line["dedup_device_ops"] = len(d_dev) / n_ticks
         prof_line["dedup_host_top_level_ops"] = d_host
         prof_line["dedup_device_busy_ms"] = sum(e.time_range.elapsed_us() for e in d_dev) / 1e3 / n_ticks
+    prof_line["profile_wall_s"] = time.perf_counter() - t_start
     log("profile: " + json.dumps(prof_line))
 
 
@@ -3312,8 +3334,9 @@ def phase_legacy(counted, default_walls):
     node shards of the one card for NOWAIT/SmallBank hybrid 63 against the
     same file; each run's launches per tick checked, its wall beside the
     same run in the default mode (``default_walls``: the full-size paths'
-    walls from earlier phases of this run; the stage-graph runs are run
-    again here).  Returns the launches by path."""
+    walls from earlier phases of this run; the stage-graph runs have no
+    default-mode wall: their re-runs were cut for the smoke's time limit).
+    Returns the launches by path."""
     from repro_torch.api import ExperimentSpec
     from repro_torch.core import sweep
 
@@ -3337,12 +3360,10 @@ def phase_legacy(counted, default_walls):
             if (r["commits"], r["aborts"]) != (want["commits"], want["aborts"]):
                 raise AssertionError(f"{LEGACY_STAGE_PATH} {protocol}/{workload}/{r['hybrid']}: "
                                      f"{r['commits']}/{r['aborts']} != golden {want}")
-        _, _, wall_default = legacy_call(sweep.run_grid, counted, protocol, workload, configs, kernel_plane="kernel",
-                                         legacy=False, **STAGE_KW)
-        walls[f"{protocol}/{workload} stage grid"] = (wall, wall_default)
+        walls[f"{protocol}/{workload} stage grid"] = (wall, None)
         log(f"{LEGACY_STAGE_PATH} {protocol}/{workload} (kernel plane, {len(codes)} config(s), {n_ticks} ticks): "
             f"{[(r['hybrid'], r['commits'], r['aborts']) for r in rows]} equal the golden rows; legacy "
-            f"{wall:.3f} s, default mode {wall_default:.3f} s; launches {got}")
+            f"{wall:.3f} s; launches {got}")
     log(f"{LEGACY_STAGE_PATH}: all {len(stage)} rows of tests/data/stage_graph_golden.json met on the kernel plane")
     launches[LEGACY_STAGE_PATH] = total
 
@@ -3389,6 +3410,397 @@ def phase_legacy(counted, default_walls):
     return launches
 
 
+
+def ranking_swaps(got, want, rtol):
+    """The hybrid search's ranking (``(throughput, latency, code)`` tuples,
+    best first) against the reference's: the same code at every position,
+    but where two neighbours of the reference's have equal throughputs and
+    latencies within ``rtol`` of each other, which may come in either
+    order.  Returns the code pairs that came swapped; raises on any other
+    difference."""
+    order, ref = [c for _, _, c in got], [c for _, _, c in want]
+    if sorted(order) != sorted(ref):
+        raise AssertionError(f"hybrid ranking: codes {sorted(order)} != {sorted(ref)}")
+    swaps, i = [], 0
+    while i < len(ref):
+        if order[i] == ref[i]:
+            i += 1
+            continue
+        a, b = want[i], want[i + 1] if i + 1 < len(want) else None
+        close = b is not None and a[0] == b[0] and abs(a[1] - b[1]) <= rtol * max(abs(a[1]), abs(b[1]))
+        if not (close and order[i] == ref[i + 1] and order[i + 1] == ref[i]):
+            raise AssertionError(f"hybrid ranking differs at position {i}: {order[i]} where the reference has "
+                                 f"{ref[i]} ({want[i]})")
+        swaps.append((ref[i], ref[i + 1]))
+        i += 2
+    return swaps
+
+
+def _checkout_module(name, rel):
+    """A module of the checkout by path (examples/ and scripts/ are no packages)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(name, os.path.join(ROOT, rel))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+class KernelSpy:
+    """Samples the kernel calls of a run.  Inside ``with``, every
+    ``kernels.ops`` name that launches a hand-written kernel is wrapped:
+    every call counts under its input signature (shapes, strides, dtypes,
+    flags), and the first ``KEEP`` calls of a signature keep a copy of
+    their inputs and of the output the run got, for :meth:`check`, which
+    holds each kept output against the kernel's plain version on the kept
+    inputs and times the signature most called per kernel.  Copies launch
+    no kernel of ours, so the run's launch counts stay its own."""
+
+    KERNELS = {"lock_arbiter": "lock_arbiter", "multi_read_many": "multi_read",
+               "mvcc_version_read": "mvcc_version_select", "mvcc_version_select": "mvcc_version_select",
+               "flash_attention": "flash_attention"}
+    KEEP = 2
+
+    def __init__(self):
+        self.calls, self._saved = {}, {}
+
+    @staticmethod
+    def _copy(x):
+        import torch
+
+        if isinstance(x, torch.Tensor):
+            return x.clone()  # keeps a dense view's strides
+        if isinstance(x, (list, tuple)):
+            return type(x)(KernelSpy._copy(t) for t in x)
+        return x
+
+    @staticmethod
+    def _sig(x):
+        import torch
+
+        if isinstance(x, torch.Tensor):
+            return (tuple(x.shape), tuple(x.stride()), str(x.dtype))
+        if isinstance(x, (list, tuple)):
+            return tuple(KernelSpy._sig(t) for t in x)
+        return x
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+
+        for entry in self.KERNELS:
+            orig = self._saved[entry] = getattr(ops, entry)
+
+            def spy(*args, _entry=entry, _orig=orig, **kw):
+                out = _orig(*args, **kw)
+                rec = self.calls.setdefault((_entry, self._sig(args), tuple(sorted(kw.items()))), [0, []])
+                rec[0] += 1
+                if len(rec[1]) < self.KEEP:
+                    rec[1].append((self._copy(args), dict(kw), self._copy(out)))
+                return out
+
+            setattr(ops, entry, spy)
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import ops
+
+        for entry, orig in self._saved.items():
+            setattr(ops, entry, orig)
+
+    def check(self, path):
+        """Every kept call against the plain version (the RCC kernels
+        exactly, flash_attention within 1e-5 + 1e-5 |want|), then the most
+        called signature of each kernel timed: {kernel: timing row} with
+        ``calls``, ``signatures`` and ``max_abs_err``."""
+        import torch
+        import torch.nn.functional as F
+
+        from repro_torch.kernels import ops
+        from repro_torch.kernels.ref import flash_attention_ref, gather_many_ref, mvcc_version_select_ref, \
+            version_read_ref
+
+        def plain(entry, args, kw):
+            if entry == "lock_arbiter":
+                return arbiter_ref(args)
+            if entry == "multi_read_many":
+                arrs, keys = args
+                return tuple(r.reshape(tuple(keys.shape) + tuple(a.shape[1:]))
+                             for r, a in zip(gather_many_ref(arrs, keys.reshape(-1)), arrs))
+            if entry == "mvcc_version_read":
+                return version_read_ref(*args)
+            if entry == "mvcc_version_select":
+                return mvcc_version_select_ref(*args)
+            return flash_attention_ref(*args, **kw)
+
+        def flat(x):
+            return [t for t in (x if isinstance(x, (list, tuple)) else (x,)) if t is not None]
+
+        rows, best = {}, {}
+        for (entry, _, _), (n, kept) in self.calls.items():
+            kernel = self.KERNELS[entry]
+            err = 0.0
+            for args, kw, got in kept:
+                want = plain(entry, args, kw)
+                torch.cuda.synchronize()
+                for g, w in zip(flat(got), flat(want)):
+                    if g.shape != w.shape:
+                        raise AssertionError(f"{path}: {kernel} output {tuple(g.shape)} != plain {tuple(w.shape)}")
+                    if kernel == "flash_attention":
+                        d = (g.float() - w.float()).abs()
+                        if not bool((d <= 1e-5 + 1e-5 * w.float().abs()).all()):
+                            raise AssertionError(f"{path}: flash_attention misses its plain version by {d.max()}")
+                        err = max(err, float(d.max()))
+                    elif not torch.equal(g, w):
+                        shapes = [tuple(t.shape) for t in flat(args[1] if entry == "multi_read_many" else args)]
+                        raise AssertionError(f"{path}: {kernel} ({entry}) disagrees with its plain version at {shapes}")
+            r = rows.setdefault(kernel, {"calls": 0, "signatures": 0, "max_abs_err": 0.0})
+            r["calls"] += n
+            r["signatures"] += 1
+            r["max_abs_err"] = max(r["max_abs_err"], err)
+            if n > best.get(kernel, (0, None))[0]:
+                best[kernel] = (n, entry, kept[0])
+        for kernel, (n, entry, (args, kw, _)) in best.items():
+            fn = lambda: self._saved[entry](*args, **kw)  # noqa: E731
+            if entry == "lock_arbiter":
+                G, M = args[0].shape
+                t = timed(fn, lambda: arbiter_ref(args))
+                t["bound_ms"], t["bound_by"] = bound_ms(G * M * 14, 0)
+                shape = f"G={G}, M={M}"
+            elif entry == "multi_read_many":
+                arrs, keys = args
+                M, words = keys.numel(), sum(math.prod(a.shape[1:]) for a in arrs)
+                t = timed(fn, lambda: plain(entry, args, kw), lambda: ops.gather_many(arrs, keys, plane=ops.TORCH))
+                t["bound_ms"], t["bound_by"] = bound_ms(M * 4 + 2 * M * words * 4, 0)
+                shape = f"{len(arrs)} arrays of {arrs[0].shape[0]} rows, {words} words a row, M={M}"
+            elif entry == "mvcc_version_read":
+                wh, _, keys = args[:3]
+                (N, K), S, lock = keys.shape, wh.shape[1], args[5] is not None
+                M = N * K
+                t = timed(fn, lambda: plain(entry, args, kw))
+                n_io = M * 4 + N * 8 + M * 2 * S * 4 + (M * 8 if lock else 0) + M * (5 + lock) + M * 2 * S * 4
+                t["bound_ms"], t["bound_by"] = bound_ms(n_io, M * (12 * S + 6))
+                shape = f"fused read N={N}, K={K}, S={S}, {'with' if lock else 'without'} the lock"
+            elif entry == "mvcc_version_select":
+                M, S = args[0].shape
+                t = timed(fn, lambda: plain(entry, args, kw))
+                t["bound_ms"], t["bound_by"] = bound_ms(M * (16 * S + 24), M * (12 * S + 6))
+                shape = f"per-op M={M}, S={S}"
+            else:
+                q, k, v = args
+                B, H, Sq, Dh = q.shape
+                causal = kw.get("causal", True)
+                qc, kc, vc = (x.contiguous() for x in (q, k, v))
+                t = timed(fn, lambda: plain(entry, args, kw),
+                          lambda: F.scaled_dot_product_attention(qc, kc, vc, is_causal=causal))
+                n_bytes, n_flops = attn_work(B, H, Sq, k.shape[2], Dh, causal, q.element_size())
+                t["bound_ms"], t["bound_by"] = bound_ms(n_bytes, n_flops, FP32_FLOPS_PER_S)
+                shape = f"B={B}, H={H}, S={Sq}, Dh={Dh}, {'causal' if causal else 'not causal'}"
+            rows[kernel].update(t, timed_signature=shape, timed_calls=n)
+            log(f"{kernel} ({path}: {shape}, {n} of {rows[kernel]['calls']} calls): {t['ms']:.6f} ms/call on the "
+                f"device ({t['host_ms']:.6f} issued eagerly), plain {t['plain_ms']:.6f} ({t['plain_host_ms']:.6f})"
+                + (f", library {t['library_ms']:.6f}" if t.get("library_ms") is not None else "")
+                + f", bound {t['bound_ms']:.9f} ms ({t['bound_by']}); {rows[kernel]['signatures']} signature(s), "
+                f"{sum(len(k) for (e, _, _), (_, k) in self.calls.items() if self.KERNELS[e] == kernel)} calls "
+                f"held to the plain version, max |err| {rows[kernel]['max_abs_err']:.3e}")
+        return rows
+
+
+# the examples phase: each user entry point at its own defaults, its launches counted from 0
+EX_QUICKSTART, EX_SEARCH, EX_TXN = "examples/quickstart", "examples/hybrid_search", "examples/txn_serving"
+EX_TRAIN, EX_TRAIN_FULL, EX_DEV = "examples/train_lm", "examples/train_lm --full", "examples/dev_smoke --fast"
+FULL_ARGV = ["--full", "--steps", "300", "--fail-at", "170"]
+FULL_RESUME = 150  # the newest checkpoint before the failure: every 50 steps
+EX_RTOL = 1e-5  # RCC float latencies (PERF.md §2)
+EX_EXACT = ("commits", "aborts", "abort_rate", "throughput_mtps", "avg_round_trips")
+EX_CALVIN_EXACT = ("commits", "aborts", "abort_rate", "avg_round_trips", "avg_waves")
+
+
+def example_rows(path, got, want):
+    """RCC rows against the golden file's: counters bitwise, float latencies
+    (CALVIN: also its float32 throughput) to EX_RTOL."""
+    for a, b in zip(want, got):
+        calvin = a.get("protocol") == "calvin"
+        for k in EX_CALVIN_EXACT if calvin else EX_EXACT:
+            if a[k] != b[k]:
+                raise AssertionError(f"{path} {a.get('protocol', '')} {a['hybrid']}: {k} {b[k]} != golden {a[k]}")
+        for k in ("avg_latency_us", "throughput_mtps") if calvin else ("avg_latency_us",):
+            if not math.isclose(b[k], a[k], rel_tol=EX_RTOL):
+                raise AssertionError(f"{path} {a['hybrid']}: {k} {b[k]} vs golden {a[k]}")
+    if len(got) != len(want):
+        raise AssertionError(f"{path}: {len(got)} rows, the golden file {len(want)}")
+
+
+def rel_gap(got, want):
+    return max(abs(g - w) / abs(w) for g, w in zip(got, want))
+
+
+def token_shas(batches):
+    """sha256 of each token batch's int32 words (little-endian), as golden_examples.json holds them."""
+    import hashlib
+
+    return [hashlib.sha256(t.cpu().numpy().astype("<i4").tobytes()).hexdigest() for t in batches]
+
+
+def phase_examples(counted):
+    """The user entry points on the card at their own defaults, in process:
+    examples/torch_quickstart.py, torch_hybrid_search.py (SUNDIAL/SmallBank,
+    64 codes, 160 ticks), torch_txn_serving.py, torch_train_lm.py at its
+    default and at ``--full --steps 300 --fail-at 170`` (beside the same run
+    without the failure, bitwise), and scripts/torch_dev_smoke.py
+    ``--fast`` for every arch; each against golden_examples.json (the JAX
+    reference's outputs at the same knobs), its launches counted from 0 and
+    checked against the paths' launches per tick and per layer, a sample of
+    them held to the plain versions (``KernelSpy``).  Returns (launches by
+    path, kernel timing rows by path, walls by path)."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    with open(os.path.join(ROOT, "src", "repro_torch", "data", "golden_examples.json")) as f:
+        golden = json.load(f)
+    tol = golden["tolerance"]
+    tq = _checkout_module("torch_quickstart", "examples/torch_quickstart.py")
+    th = _checkout_module("torch_hybrid_search", "examples/torch_hybrid_search.py")
+    tt = _checkout_module("torch_txn_serving", "examples/torch_txn_serving.py")
+    ttl = _checkout_module("torch_train_lm", "examples/torch_train_lm.py")
+    tds = _checkout_module("torch_dev_smoke", "scripts/torch_dev_smoke.py")
+    launches, timing, walls = {}, {}, {}
+
+    def counted_call(path, fn, spy=True):
+        for f in counted:
+            f.launches = 0
+        torch.cuda.synchronize()
+        with KernelSpy() as sp:
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            walls[path] = time.perf_counter() - t0
+        launches[path] = {f.__name__: f.launches for f in counted}
+        log(f"{path}: {walls[path]:.3f} s, launches {launches[path]}")
+        timing[path] = sp.check(path) if spy else {}
+        return out
+
+    def expect(path, want):
+        if launches[path] != want:
+            raise AssertionError(f"{path}: kernel launches {launches[path]} != {want}")
+
+    def rcc(protocols, n_ticks):
+        out = {"lock_arbiter": 0, "multi_read": 0, "mvcc_version_select": 0, "flash_attention": 0}
+        for p in protocols:
+            for name, n in LEGACY_PER_TICK.get(p, {}).items():
+                out[name] += n * n_ticks
+        return out
+
+    # quickstart: six protocol pairs, the hybrid MVCC, the LM section
+    q = counted_call(EX_QUICKSTART, lambda: tq.main([]))
+    kw, g = tq.KW, golden["quickstart"]
+    want = rcc(("nowait", "waitdie", "occ", "mvcc", "sundial", "mvcc"), kw["ticks"] + kw["warmup"])
+    expect(EX_QUICKSTART, dict(want, flash_attention=q["lm"]["cfg"].n_layers))
+    rows = [dict(m, protocol=p) for p, _, m in q["pairs"]] + [dict(q["hybrid"], protocol="mvcc")]
+    example_rows(EX_QUICKSTART, rows, g["rows"])
+    rcc_wall = sum(m["wall_s"] for _, impl, m in q["pairs"] if impl == "rpc") + q["hybrid"]["wall_s"]
+    logits = q["lm"]["logits"].double().cpu()
+    lm = g["lm"]
+    head = float((logits[:, :, : lm["head"]] - torch.tensor(lm["logits_head"], dtype=torch.float64)).abs().max())
+    total = abs(float(logits.sum()) - lm["logits_sum"]) / lm["logits_abs_sum"]
+    loss = abs(q["lm"]["loss"] - lm["loss"]) / abs(lm["loss"])
+    if list(logits.shape) != lm["logits_shape"] or max(head, total) > tol["quickstart_logits"] or \
+            loss > tol["quickstart_loss"]:
+        raise AssertionError(f"{EX_QUICKSTART} LM: logits gap {head}, sum gap {total}, loss gap {loss} against "
+                             f"{tol['quickstart_logits']}, {tol['quickstart_loss']}")
+    log(f"{EX_QUICKSTART} golden: 13 rows equal the reference's; LM logits within {max(head, total):.3e}, loss "
+        f"within {loss:.3e} (tolerances {tol['quickstart_logits']:.3e}, {tol['quickstart_loss']:.3e}); "
+        f"{len(rows)} configs in {rcc_wall:.3f} s of RCC buckets, {len(rows) / rcc_wall:.3f} configs/s")
+
+    # hybrid search: the 64 codes as one bucket
+    hrows = counted_call(EX_SEARCH, lambda: th.main([]))
+    g = golden["hybrid_search"]
+    expect(EX_SEARCH, rcc(("sundial",), g["spec"]["ticks"] + g["spec"]["warmup"]))
+    example_rows(EX_SEARCH, hrows, g["rows"])
+    want_rank = [(r["throughput_mtps"], r["avg_latency_us"], r["hybrid"])
+                 for r in sorted(g["rows"], key=lambda r: g["ranking"].index(r["hybrid"]))]
+    swaps = ranking_swaps(th.rank(hrows), want_rank, EX_RTOL)
+    log(f"{EX_SEARCH} golden: 64 rows equal the reference's, its ranking held"
+        + (f" but for neighbours within rtol {EX_RTOL}: {swaps}" if swaps else "")
+        + f"; {64 / hrows[0]['wall_s']:.3f} configs/s")
+
+    # txn_serving: the admission run, then the reduced serve
+    m, store = counted_call(EX_TXN, lambda: tt.main([]))
+    a = golden["admission"]
+    expect(EX_TXN, dict(rcc(("nowait",), a["ticks"] + a["warmup"]), flash_attention=4))
+    got = [m[k] for k in EX_EXACT] + [int(store["data"].sum())]
+    if got != [a[k] for k in EX_EXACT] + [a["page_sum"]] or not math.isclose(m["avg_latency_us"],
+                                                                             a["avg_latency_us"], rel_tol=EX_RTOL):
+        raise AssertionError(f"{EX_TXN}: admission {m}, page sum {got[-1]} against golden {a}")
+    log(f"{EX_TXN} golden: admissions {m['commits']}, aborts {m['aborts']}, page generations {got[-1]} equal the "
+        "reference's")
+
+    # train_lm: the reduced default, then --full with a failure beside the same run without it
+    out = counted_call(EX_TRAIN, lambda: ttl.main([]), spy=False)
+    g = golden["train_lm"]
+    expect(EX_TRAIN, rcc((), 0))
+    gap = rel_gap(out["losses"], g["losses"])
+    if token_shas(out["tokens"]) != g["tokens_sha256"] or gap > tol["train_lm_losses"]:
+        raise AssertionError(f"{EX_TRAIN}: tokens differ, or losses {gap} off (tolerance {tol['train_lm_losses']})")
+    log(f"{EX_TRAIN} golden: 120 token batches bitwise, losses within {gap:.3e} relative (tolerance "
+        f"{tol['train_lm_losses']:.3e})")
+    failed = counted_call(EX_TRAIN_FULL, lambda: ttl.main(FULL_ARGV), spy=False)
+    expect(EX_TRAIN_FULL, rcc((), 0))
+    t0 = time.perf_counter()
+    clean = ttl.train(300, full=True)
+    walls[f"{EX_TRAIN_FULL} without the failure"] = time.perf_counter() - t0
+    # where a --full step's time goes: two more steps of the run without the failure, the second profiled, beside
+    # the step's float32 bound (6 N T flops over the FMA rate)
+    from repro_torch.data.pipeline import DataState, make_pipeline
+    from repro_torch.train.steps import build_train_step
+
+    cfg_full, batch, seq = ttl.config(True)
+    step_fn, _ = build_train_step(cfg_full)
+    _, draw = make_pipeline(cfg_full.vocab_size, batch, seq, copy_frac=ttl.COPY_FRAC, device="cuda")
+    for i in (300, 301):
+        _, b = draw(DataState(i, 0))
+        _, wall, busy, n_ops, top, _ = device_busy(lambda: step_fn(clean["params"], clean["opt"], i, b))
+    n_params = sum(p.numel() for p in clean["params"].parameters())
+    bound = 6 * n_params * batch * seq / FP32_FLOPS_PER_S * 1e3
+    log(f"{EX_TRAIN_FULL} profile: " + json.dumps({
+        "step_wall_ms": wall, "device_busy_ms": busy, "device_idle_share": 1 - busy / wall, "device_ops": n_ops,
+        "bound_ms": bound, "bound_by": "operations (6 N T float32 flops)", "params": n_params, "top_ms": top}))
+    f, c, fail_at = failed["losses"], clean["losses"], int(FULL_ARGV[-1])
+    if f[:fail_at] != c[:fail_at] or f[fail_at:] != c[FULL_RESUME:] or \
+            token_shas(failed["tokens"][fail_at:]) != token_shas(clean["tokens"][FULL_RESUME:]):
+        raise AssertionError(f"{EX_TRAIN_FULL}: the run with the failure differs from the run without it")
+    g = golden["train_lm_full"]
+    gap = rel_gap(f[:3], g["losses"])
+    if token_shas(failed["tokens"][:3]) != g["tokens_sha256"] or gap > tol["train_lm_full_losses"]:
+        raise AssertionError(f"{EX_TRAIN_FULL}: first tokens differ, or losses {gap} off")
+    log(f"{EX_TRAIN_FULL} golden: the failure at {fail_at} replayed from step {FULL_RESUME}, its {len(f)} losses the "
+        f"run without it bitwise ({walls[EX_TRAIN_FULL]:.3f} s against "
+        f"{walls[EX_TRAIN_FULL + ' without the failure']:.3f} s), the first 3 within {gap:.3e} of the reference "
+        f"(tolerance {tol['train_lm_full_losses']:.3e}); loss {f[0]:.4f} -> {f[-1]:.4f}")
+
+    # dev smoke --fast, every arch
+    d = counted_call(EX_DEV, lambda: tds.main(["--fast"]))
+    g = golden["dev_smoke_matrix"]
+    n_ticks = g["kw"]["ticks"] + g["kw"]["warmup"]
+    want = rcc(("nowait", "waitdie", "occ", "mvcc", "sundial"), n_ticks)
+    got = launches[EX_DEV]
+    if {k: v for k, v in got.items() if k != "flash_attention"} != {k: v for k, v in want.items()
+                                                                     if k != "flash_attention"} \
+            or not got["flash_attention"]:
+        raise AssertionError(f"{EX_DEV}: kernel launches {got}, expected {want} and flash_attention")
+    if {k: list(v) for k, v in d["matrix"].items()} != g["commits"] or len(d["lm"]) != 10:
+        raise AssertionError(f"{EX_DEV}: matrix commits {d['matrix']} != golden {g['commits']}")
+    log(f"{EX_DEV} golden: matrix commits equal the reference's; {len(d['lm'])} archs' forward, step, prefill and "
+        f"decode ok, largest prefill/decode gap to the forward "
+        f"{max(max(r['err_prefill'], r['err_decode']) for r in d['lm'].values()):.3e}")
+    for kernel in ("lock_arbiter", "multi_read", "mvcc_version_select", "flash_attention"):
+        if not any(launches[p][kernel] for p in launches):
+            raise AssertionError(f"examples: {kernel} never launched")
+    log("examples walls_s: " + json.dumps(walls))
+    return launches, timing, walls
+
 def main() -> int:
     import torch
 
@@ -3434,13 +3846,15 @@ def main() -> int:
     lap("build")
 
     kernels = phase_kernels()
+    lap("kernels")
     phase_shard_kernels(torch.Generator().manual_seed(1), kernels)
+    lap("node kernels")
     for protocol, workload in (("nowait", "smallbank"), ("mvcc", "ycsb")):
         for codes in ((63,), CODES):
             phase_profile(protocol, workload, codes)
         phase_profile(protocol, workload, (63,), devices=NODE_DEVICES)
     phase_profile("nowait", "smallbank", tuple(range(64)))
-    lap("kernels and profiles")
+    lap("profiles")
 
     launches = {k["name"]: {} for k in kernels}
     configs_per_s, default_walls = {}, {}
@@ -3569,6 +3983,18 @@ def main() -> int:
         for name, n in got.items():
             launches[name][path] = n
 
+    lap("train moe mesh")
+    # the user entry points: the four examples and the dev smoke, at their own defaults
+    ex_launches, ex_timing, _ = phase_examples(counted)
+    log(card)
+    for path, got in ex_launches.items():
+        for name, n in got.items():
+            launches[name][path] = n
+    for k in kernels:  # the examples' calls of each kernel, timed on the calls the run made
+        for path, rows in ex_timing.items():
+            if k["name"] in rows:
+                k["by_path"][path] = rows[k["name"]]
+
     for k in kernels:  # launches summed over the main paths' runs; times weighted by them
         k["launches"] = sum(launches[k["name"]].values())
         k["launches_by_path"] = launches[k["name"]]
@@ -3580,7 +4006,7 @@ def main() -> int:
         lib = [(n, r) for n, r in weighted if r.get("library_ms") is not None]
         k.update({key: mix(lib)[key] if lib else None for key in ("library_ms", "library_host_ms")})
         k["ms_library_paths"] = mix(lib)["ms"] if lib else None
-    lap("train moe mesh")
+    lap("examples")
     log("phase walls (s): " + json.dumps(walls))
     log(card)  # again, so that the card and its power limit stand beside the numbers in a tail of the output
     log(f"smoke wall: {time.perf_counter() - t_start:.1f} s")
