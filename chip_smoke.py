@@ -76,15 +76,15 @@ Run from a checkout of the repository on a machine with one CUDA card and
    tokens, 32 tokens each) on the ``"kernel"`` plane, whose prefill must
    launch ``flash_attention`` once per layer, and on the ``"torch"`` plane,
    whose prefill logits and decided greedy tokens must agree;
-10. the MoE serving path, llama4-scout-17b-a16e at full width, 6 of its 48
-   layers (14.52 B float32 parameters), TF32 off: ``init_lm`` from seed 0
+10. the MoE serving path, llama4-scout-17b-a16e at full width, 3 of its 48
+   layers (8.30 B float32 parameters), TF32 off: ``init_lm`` from seed 0
    on the card (checked against the reference's weights), the golden-file
    run on the first two layers of the same model (expert loads and dropped
    assignments per layer where the reference's router margin allows,
    logits and greedy tokens within 10x the port's CPU gap), a profiled
    prefill and decode step with the MoE layer's device time split into
    router, dispatch, expert products and combine, then the main path
-   ``serve`` (4 x 2048 tokens, 32 each) on both planes, 6
+   ``serve`` (4 x 2048 tokens, 32 each) on both planes, 3
    ``flash_attention`` launches per prefill, each plane's routing per layer;
 11. the same model on a 1 x 4 mesh of shards on the one card, on phase 10's
    parameters (``sharding.AxisRules`` over ``launch.mesh.make_host_mesh(1,
@@ -93,12 +93,12 @@ Run from a checkout of the repository on a machine with one CUDA card and
    the golden-file run on its first two layers through the mesh (routing,
    logits and decided tokens), then 4 x 2048 tokens x 32 with and without
    the mesh in turns (prefill and decode times, a profiled prefill and
-   decode step's device busy and idle share, peak memory, 6
+   decode step's device busy and idle share, peak memory, 3
    ``flash_attention`` launches per prefill, the paths' logits; the mesh
    may not hold a second copy of a weight), then the dry run's 80 (arch x
    shape x mesh) cells on the logical production meshes;
-12. the SSM serving path, falcon-mamba-7b at full width, 32 of its 64
-   layers (3.90 B float32 parameters), TF32 off: ``init_lm`` from seed 0 on the
+12. the SSM serving path, falcon-mamba-7b at full width, 16 of its 64
+   layers (2.22 B float32 parameters), TF32 off: ``init_lm`` from seed 0 on the
    card (checked against the reference's weights), the golden-file run on
    the first two layers of the same model (one 2048-token prompt, 8 greedy
    tokens, logits within 10x the port's CPU gap), a profiled prefill and
@@ -128,21 +128,21 @@ Run from a checkout of the repository on a machine with one CUDA card and
    not causal in the encoder, and never in decode), then the main path
    ``serve`` (4 x 1500 frames x 224 + 224 tokens) on both planes beside its
    float32 bounds;
-15. the M-RoPE VLM serving path, qwen2-vl-72b at full width, 6 of its 80
-   layers (7.76 B float32 parameters), TF32 off: ``init_lm`` from seed 0 on
+15. the M-RoPE VLM serving path, qwen2-vl-72b at full width, 3 of its 80
+   layers (5.12 B float32 parameters), TF32 off: ``init_lm`` from seed 0 on
    the card (its parameter count against the config's, checked against the
    reference's weights), the golden-file run on the first two layers of the
    same model (one 2048-token request holding a 1 x 32 x 32 image grid at
    Qwen2-VL's three position ids, 8 greedy tokens whose positions run behind
    the cache length, logits within 10x the port's CPU gap, every decided
    token equal), a profiled prefill and decode step (``flash_attention``
-   launched 6 times in the prefill and never in decode), then the main path
+   launched 3 times in the prefill and never in decode), then the main path
    ``serve`` (4 x 2048 tokens, 32 each, the reference's text-only positions)
    on both planes beside its float32 bounds;
 16. the last three dense configs at full width, one after another, TF32
-   off: nemotron-4-15b (8 of 32 layers, 6.27 B float32 parameters; squared
-   ReLU, half of each head rotated), qwen2.5-32b (4 of 64 layers, 3.51 B;
-   QKV biases, theta 1e6) and command-r-35b (3 of 40 layers, 4.21 B;
+   off: nemotron-4-15b (4 of 32 layers, 4.71 B float32 parameters; squared
+   ReLU, half of each head rotated), qwen2.5-32b (2 of 64 layers, 2.53 B;
+   QKV biases, theta 1e6) and command-r-35b (2 of 40 layers, 3.51 B;
    parallel block, the head tied to the embedding, theta 8e6), each as
    phase 15: ``init_lm`` from seed 0 on the card (its parameter count
    against the config's, leaf corners against the reference's), the
@@ -172,7 +172,20 @@ Run from a checkout of the repository on a machine with one CUDA card and
    kernel may launch: training takes the reference's XLA attention route),
    and a reduced ``TrainRunner`` whose injected failure leaves the loss
    stream of the run without it, bitwise;
-19. the MoE training path on meshes of shards on the one card,
+19. the SSM, hybrid and encoder-decoder training paths at full width in
+   float32 with TF32 off (``train families``): for falcon-mamba-7b,
+   recurrentgemma-2b and whisper-small, each family's golden-file run (3
+   AdamW steps at the cut its file states: tokens and whisper's frames
+   bitwise, losses, grad_norms and leaf sums within 10x the port's CPU
+   gap), then the main path, ``build_train_step`` for 4 AdamW steps under
+   the config's ``remat`` (whisper-small whole at B = 8 x 448 with 1500
+   frames; recurrentgemma-2b whole at 1 x 4096; falcon-mamba-7b cut to
+   ``TRAIN_FAMILIES``' depth at 1 x 4096: ms per step, tokens/s, peak
+   memory, one step profiled beside its bound, step 0's loss against a
+   torch-plane forward; no hand-written kernel may launch), then
+   whisper-small through ``python -m repro_torch.launch.train`` twice, the
+   second run's injected failure leaving the first's losses, bitwise;
+20. the MoE training path on meshes of shards on the one card,
    llama4-scout-17b-a16e at full width, 1 of its 48 layers (4.15 B float32
    parameters), TF32 off: ``init_lm`` from seed 0 on the card, the mesh
    golden file's gradient of ``lm_loss`` (B = 2 x 512) on (1, 1), (1, 4)
@@ -185,14 +198,14 @@ Run from a checkout of the repository on a machine with one CUDA card and
    the reckoned state, one profiled step's device busy time, idle share and
    operations, each beside the (1, 1) mesh's; no hand-written kernel may
    launch);
-20. the user entry points at their own defaults, in process:
+21. the user entry points at their own defaults, in process:
    ``examples/torch_quickstart.py`` (six protocol pairs and the hybrid MVCC
    at 4 nodes x 16 co-routines, 300 + 60 ticks; reduced qwen2.5-32b's
    forward and AdamW step), ``examples/torch_hybrid_search.py`` (SUNDIAL/
    SmallBank's 64 codes as one bucket, 160 + 80 ticks, and its ranking),
    ``examples/torch_txn_serving.py`` (the user-written admission workload
    under NOWAIT, then the reduced serve), ``examples/torch_train_lm.py`` (120
-   reduced steps; ``--full`` for 300 steps with a failure at 170, held
+   reduced steps; ``--full`` for 120 steps with a failure at 70, held
    bitwise to the same run without it) and ``scripts/torch_dev_smoke.py
    --fast`` (the protocol matrix and all ten reduced archs), each against
    ``golden_examples.json``, the JAX reference's outputs at the same knobs;
@@ -213,6 +226,7 @@ exits 1 at once.  It imports neither JAX nor the JAX package.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 import json
 import math
@@ -305,20 +319,21 @@ FP32_FLOPS_PER_S = 67e12
 # the LM serving main path: stablelm-1.6b at full width, float32
 SERVE = dict(batch=4, prompt_len=2048, gen_len=32, page_size=16)
 SERVE_PATH = "serve/stablelm-1.6b"
-# the MoE serving main path: llama4-scout-17b-a16e at full width, depth cut to MOE_LAYERS of 48 (14.52 B float32
-# parameters, 58.1 GB), the same requests as SERVE
+# the MoE serving main path: llama4-scout-17b-a16e at full width, depth cut to MOE_LAYERS of 48 (8.30 B float32
+# parameters, 33.2 GB; 6 layers, 58.1 GB, through PR 29: cut for the smoke's time limit), the same requests as SERVE
 MOE_ARCH = "llama4-scout-17b-a16e"
-MOE_LAYERS = 6
+MOE_LAYERS = 3
 MOE_SERVE_PATH = "serve/llama4-scout-17b-a16e"
 # the same model and requests on a 1 x 4 mesh of shards on the one card (sharding.AxisRules over
 # launch.mesh.make_host_mesh(1, 4, devices=("cuda",) * 4)): the expert-parallel MoE (16 experts, 4 a shard) and
 # the sequence-sharded KV cache (S = prompt + generated tokens, 4 | S), through train.steps' builders
 MESH_SERVE_PATH = "serve/llama4-scout-17b-a16e@1x4"
 MESH_SHAPE = (1, 4)
-# the SSM serving main path: falcon-mamba-7b at full width, depth cut to SSM_LAYERS of 64 (3.90 B float32
-# parameters, 15.6 GB; all 64, 29.1 GB, fit the card: cut for the smoke's time limit), the same requests as SERVE
+# the SSM serving main path: falcon-mamba-7b at full width, depth cut to SSM_LAYERS of 64 (2.22 B float32
+# parameters, 8.9 GB; all 64, 29.1 GB, fit the card, and 32 ran through PR 29: cut for the smoke's time limit), the
+# same requests as SERVE
 SSM_ARCH = "falcon-mamba-7b"
-SSM_LAYERS = 32
+SSM_LAYERS = 16
 SSM_SERVE_PATH = "serve/falcon-mamba-7b"
 SSM_STEPS = ("in_proj", "conv", "x_proj/dt", "scan", "out_proj")  # ssm.Record's profiler ranges
 # the hybrid serving main path: recurrentgemma-2b at full width and all 26 layers (3.31 B float32 parameters,
@@ -334,17 +349,17 @@ WHISPER_ARCH = "whisper-small"
 WHISPER_SERVE = dict(batch=4, prompt_len=224, gen_len=224, page_size=16)
 WHISPER_SERVE_PATH = "serve/whisper-small"
 WHISPER_PARAMS = 278_143_488
-# the M-RoPE VLM serving main path: qwen2-vl-72b at full width, depth cut to VLM_LAYERS of 80 (7,757,524,992
-# float32 parameters, 31.0 GB; 12 fit the card: cut for the smoke's time limit), the same requests as SERVE
-# (text-only positions, as the reference's serve passes them)
+# the M-RoPE VLM serving main path: qwen2-vl-72b at full width, depth cut to VLM_LAYERS of 80 (5,124,478,976
+# float32 parameters, 20.5 GB; 12 fit the card, and 6 ran through PR 29: cut for the smoke's time limit), the same
+# requests as SERVE (text-only positions, as the reference's serve passes them)
 VLM_ARCH = "qwen2-vl-72b"
-VLM_LAYERS = 6
+VLM_LAYERS = 3
 VLM_SERVE_PATH = "serve/qwen2-vl-72b"
-# the last three dense serving main paths, at full width, each at a quarter of the depth that fits the card in float32,
-# for the smoke's time limit (layers of the config's: nemotron-4-15b 8 of 32, 6.27 B parameters; qwen2.5-32b 4 of 64,
-# 3.51 B; command-r-35b 3 of 40, 4.21 B; twice these through PR 28), the same requests as SERVE, and each one's golden
-# file (the first 2 layers)
-DENSE_LAYERS = {"nemotron-4-15b": 8, "qwen2.5-32b": 4, "command-r-35b": 3}
+# the last three dense serving main paths, at full width, each cut for the smoke's time limit (layers of the config's:
+# nemotron-4-15b 4 of 32, 4.71 B parameters; qwen2.5-32b 2 of 64, 2.53 B; command-r-35b 2 of 40, 3.51 B; 8, 4 and 3
+# through PR 29, twice those through PR 28), the same requests as SERVE, and each one's golden file (the first 2
+# layers)
+DENSE_LAYERS = {"nemotron-4-15b": 4, "qwen2.5-32b": 2, "command-r-35b": 2}
 DENSE_GOLDEN = {"nemotron-4-15b": "golden_serve_nemotron.json", "qwen2.5-32b": "golden_serve_qwen2_5.json",
                 "command-r-35b": "golden_serve_command_r.json"}
 # kimi-k2-1t-a32b at full width, the depth cut to 1 of 61 layers (19.38 B float32 parameters, 77.5 GB: a second layer
@@ -1221,18 +1236,21 @@ def check_golden(res, golden, tol=LOGIT_TOL):
     return worst
 
 
-def device_busy(fn, prefix="moe:"):
+def device_busy(fn, prefix="moe:", cpu=True):
     """Wall ms of one synchronised call, the device's busy ms in it
     (torch.profiler: the sum of the device operations' durations), their
     count, the largest kernel families: name -> [launches, ms], and the
     launches and ms of the layer steps named ``prefix``* (``range_split``:
     empty without the layer's ``Record`` open: ``moe:``, ``ssm:`` or
-    ``rglru:``)."""
+    ``rglru:``).  ``cpu=False`` traces the device alone: no host operation
+    and no range is recorded, which cuts the trace's cost for a call of
+    many operations."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA] if cpu else [ProfilerActivity.CUDA]
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
@@ -2646,117 +2664,86 @@ MOE_TRAIN = dict(layers=1, batch=2, seq=2048, steps=3, optimizer="momentum_bf16"
 MOE_TRAIN_PATH = "train/llama4-scout-17b-a16e@"  # + the mesh
 
 
+# 2-D leaves that no product multiplies: the depthwise conv's taps, the SSM's decay rates
+NOT_PRODUCTS = ("conv_w", "A_log")
+# a decoder layer's products over the encoder's states, one row per frame
+FRAME_PRODUCTS = ("xattn.wk", "xattn.wv")
+# operations of the sequential recurrence per state element and token, forward: the SSM's dA and dBx products,
+# h's multiply-add and the readout's multiply-add (6); the RG-LRU's h multiply-add (2); as much again recomputed
+# under remat and twice that in the backward (x 4)
+SSM_SCAN_OPS, RGLRU_SCAN_OPS = 4 * 6, 4 * 2
+
+
 def train_bound_ms(cfg, params, B, S):
-    """The least time of one training step at (B, S) under remat "full", and
-    what bounds it.  Operations: 2 flops per weight per token for each
-    product of the forward, twice that in the backward, and once more for
-    the recomputed products (each block's but the down projection, whose
-    output the backward does not need; the head, whose loss chunks are
-    checkpointed); attention 4 Dh flops per causal (query, key) pair
-    forward, as much recomputed, twice that backward.  Bytes: the
-    parameters, gradients, m and v read once and written once (float32)."""
-    n_param = sum(p.numel() for p in params.parameters())
-    head = params.lm_head.numel()
-    blocks = sum(p.numel() for n, p in params.named_parameters() if n.startswith("layers.") and p.dim() == 2)
-    down = sum(lp.mlp.wd.numel() for lp in params.layers)
-    T = B * S
-    pairs = B * cfg.n_heads * S * (S + 1) // 2
-    flops = 2 * T * (3 * (blocks + head) + (blocks - down) + head) + 16 * cfg.head_dim * pairs * cfg.n_layers
-    n_bytes = 4 * n_param * 8  # p, g, m, v: each read once and written once
+    """The least time of one float32 training step at (B, S) under remat
+    "full", and what bounds it.  Operations: 2 flops per weight per row
+    for each product (a token's row; a frame's for the encoder's products
+    and a decoder's cross k and v), 4 times: the forward, twice that in the
+    backward, and the recomputation, but for each block's last product,
+    whose output the backward does not need; the head over the S - 1
+    positions the loss reads, 4 times (its loss chunks are checkpointed);
+    attention 4 Dh flops per (query, key) pair and head forward, 16 Dh in
+    all (causal pairs; at most the window's W keys for a local layer; T x T
+    in the encoder, S x T across); the SSM's and RG-LRU's recurrence as the
+    sequential one (``SSM_SCAN_OPS`` per token, channel and state,
+    ``RGLRU_SCAN_OPS`` per token and channel), not the reference's tree of
+    products.  Bytes: the parameters, gradients, m and v read once and
+    written once (float32).  Returns (ms, "operations" or "bytes", flops)."""
+    T = cfg.enc_seq_len
+    rows = {"layers": B * S, "dec_layers": B * S, "enc_layers": B * T}
+    named = dict(params.named_parameters())
+    flops = 0
+    for name, p in named.items():
+        parts = name.split(".")
+        if parts[0] in rows and p.dim() == 2 and parts[-1] not in NOT_PRODUCTS:
+            r = B * T if ".".join(parts[-2:]) in FRAME_PRODUCTS else rows[parts[0]]
+            flops += 4 * 2 * r * p.numel()
+    layer_names = {".".join(n.split(".")[:2]) for n in named if n.split(".")[0] in rows}
+    for layer in layer_names:  # the last product of each block is not recomputed
+        last = named.get(f"{layer}.mlp.wd", named.get(f"{layer}.ssm.out_proj"))
+        flops -= 2 * rows[layer.split(".")[0]] * last.numel()
+    head = params.embed if cfg.tie_embeddings else params.lm_head
+    flops += 4 * 2 * B * (S - 1) * head.numel()
+
+    def pairs(n, window=0):
+        return n * (n + 1) // 2 if not window else sum(min(q + 1, window) for q in range(n))
+
+    att = 16 * cfg.head_dim * B * cfg.n_heads
+    if cfg.encoder_decoder:
+        flops += att * (cfg.n_enc_layers * T * T + cfg.n_layers * (pairs(S) + S * T))
+    else:
+        kinds = cfg.layer_kinds()
+        flops += att * kinds.count("attn") * pairs(S, cfg.local_window)
+        flops += SSM_SCAN_OPS * kinds.count("ssm") * B * S * cfg.d_inner * cfg.ssm_state
+        flops += RGLRU_SCAN_OPS * kinds.count("rglru") * B * S * cfg.rnn_width
+    n_bytes = 4 * sum(p.numel() for p in named.values()) * 8  # p, g, m, v: each read once and written once
     ms = max(n_bytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S) * 1e3
     return ms, ("operations" if flops / FP32_FLOPS_PER_S >= n_bytes / HBM_BYTES_PER_S else "bytes"), flops
 
 
 def phase_train(counted):
     """The LM training path on the card: the golden-file run (full width,
-    depth cut as the file says, 3 AdamW steps) against the JAX reference;
-    the main path at full width and depth (B x S = TRAIN, 5 AdamW steps,
-    launches counted from 0: none, the path runs no hand-written kernel)
-    timed, its peak memory, one step profiled, its step-0 loss against a
-    torch-plane forward; then a reduced fault-tolerant run with an injected
-    failure against the same run without it.  Returns the main path's
-    launches by kernel."""
+    depth cut as the file says, 3 AdamW steps) against the JAX reference
+    (``train_golden``); the main path at full width and depth (B x S =
+    TRAIN, 5 AdamW steps, ``train_main``: none of the counted kernels may
+    launch); then a reduced fault-tolerant run with an injected failure
+    against the same run without it.  Returns the main path's launches by
+    kernel."""
     import shutil
     import tempfile
 
     import torch
 
-    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.configs import reduced_config
     from repro_torch.core import prng
     from repro_torch.data.pipeline import make_pipeline
     from repro_torch.ft.runner import TrainRunner
-    from repro_torch.models.lm import init_lm, lm_apply, xent_loss
-    from repro_torch.train.golden import GOLDEN_TRAIN, port_run, rel_gaps
+    from repro_torch.models.lm import init_lm
+    from repro_torch.train.golden import GOLDEN_TRAIN
     from repro_torch.train.steps import build_train_step
 
-    with open(GOLDEN_TRAIN) as f:
-        golden = json.load(f)
-    full, _ = get_config("stablelm-1.6b")
-
-    # (a, b) the golden-file run
-    t0 = time.perf_counter()
-    record, tokens = port_run(golden, device="cuda")
-    for step, (got, want) in enumerate(zip(tokens, golden["tokens"])):
-        if got != want:
-            raise AssertionError(f"train golden: step {step}: the card's pipeline tokens differ from the reference's")
-    losses, gnorms = record["losses"], record["grad_norms"]
-    gaps = rel_gaps(record, golden)
-    log(f"train golden ({golden['arch']} width, {golden['n_layers']} layers, B={golden['batch']} x S={golden['seq']}, "
-        f"{golden['steps']} {golden['optimizer']} steps, {time.perf_counter() - t0:.3f} s): losses {losses} "
-        f"(reference {golden['losses']}), grad_norms {gnorms}; relative gaps {gaps}, tolerances "
-        f"{golden['tolerance']} (10x the port's CPU gaps {golden['port_cpu_gap']}); pipeline tokens bitwise")
-    for key, gap in gaps.items():
-        if not gap <= golden["tolerance"][key]:
-            raise AssertionError(f"train golden: {key} off by {gap} > {golden['tolerance'][key]}")
-
-    # (c) the main path: full width and depth
-    B, S = TRAIN["batch"], TRAIN["seq"]
-    params = init_lm(prng.prng_key(0), full, torch.float32, device="cuda")
-    init, nxt = make_pipeline(full.vocab_size, B, S, seed=0, device="cuda")
-    batches, ds = [], init()
-    for _ in range(TRAIN["steps"] + 1):
-        ds, b = nxt(ds)
-        batches.append(b)
-    with torch.inference_mode():  # step 0's loss from a torch-plane forward of the same batch and weights
-        logits = lm_apply(params, full, {"tokens": batches[0]["tokens"]}, plane="torch")
-        ref_loss = float(xent_loss(logits[:, :-1], batches[0]["labels"][:, 1:]))
-        del logits
-    step_fn, opt = build_train_step(full, "adamw")
-    state = opt.init(dict(params.named_parameters()))
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    for fn in counted:
-        fn.launches = 0
-    step_ms, losses, gnorms = [], [], []
-    for step in range(TRAIN["steps"]):
-        t0 = time.perf_counter()
-        params, state, m = step_fn(params, state, step, batches[step])
-        losses.append(float(m["loss"]))
-        gnorms.append(float(m["grad_norm"]))
-        step_ms.append((time.perf_counter() - t0) * 1e3)
-    got = {fn.__name__: fn.launches for fn in counted}
-    peak = torch.cuda.max_memory_allocated() / 1e9
-    _, p_wall, p_busy, p_ops, p_top, _ = device_busy(
-        lambda: step_fn(params, state, TRAIN["steps"], batches[TRAIN["steps"]]))
-    bound, bound_by, flops = train_bound_ms(full, params, B, S)
-    ms = sum(step_ms[1:]) / (len(step_ms) - 1)
-    log(f"main path {TRAIN_PATH} ({full.n_layers} layers, B={B} x S={S}, AdamW, float32, remat {full.remat}): "
-        f"{ms:.3f} ms/step over steps 1-{TRAIN['steps'] - 1} (step 0 {step_ms[0]:.3f}; all {step_ms}), "
-        f"{B * S / ms * 1e3:.1f} tokens/s, peak {peak:.3f} GB allocated, losses {losses}, grad_norms {gnorms}, "
-        f"launches {got}")
-    log("train profile: " + json.dumps({
-        "step_wall_ms": p_wall, "step_device_busy_ms": p_busy, "step_idle_share": 1 - p_busy / p_wall,
-        "step_device_ops": p_ops, "bound_ms": bound, "bound_by": bound_by, "flops": flops,
-        "bound_share_of_step": bound / ms, "top_launches_and_ms": p_top}))
-    if not all(map(math.isfinite, losses + gnorms)):
-        raise AssertionError(f"{TRAIN_PATH}: a loss or grad_norm is not finite")
-    if abs(losses[0] - ref_loss) > TRAIN_LOSS_TOL:
-        raise AssertionError(f"{TRAIN_PATH}: step-0 loss {losses[0]} vs torch-plane forward {ref_loss}")
-    log(f"{TRAIN_PATH}: step-0 loss {losses[0]} within {abs(losses[0] - ref_loss):.3e} of the torch-plane "
-        f"forward's {ref_loss} (tolerance {TRAIN_LOSS_TOL})")
-    if any(got.values()):
-        raise AssertionError(f"{TRAIN_PATH}: launched {got}; the training route runs no hand-written kernel")
-    del params, state, batches
+    train_golden(GOLDEN_TRAIN)
+    got, _ = train_main("stablelm-1.6b", counted, dict(layers=None, **TRAIN))
 
     # (d) the fault-tolerant runner, reduced, with and without an injected failure
     r = TRAIN_RUNNER
@@ -2782,6 +2769,219 @@ def phase_train(counted):
     log(f"train runner ({red.name} reduced, {r['steps']} steps, failure at {r['fail_at']}, checkpoints every "
         f"{r['ckpt_every']}): losses equal to the run without the failure, bitwise ({c[-1]} last)")
     return got
+
+
+# the SSM, hybrid and encoder-decoder training main paths: full width, float32, AdamW, the config's remat ("full");
+# layers None: the whole model.  falcon-mamba-7b's 64 layers with AdamW need about 145 GB: cut to 32, the largest
+# depth whose five float32 copies of the parameters (p, g, the clipped g, m, v: 78.1 GB) and the update's
+# temporaries fit the card (36 layers ran out of memory); recurrentgemma-2b's whole 66.3 GB fit
+TRAIN_FAMILIES = {
+    "whisper-small": dict(layers=None, batch=8, seq=448, steps=4),
+    "recurrentgemma-2b": dict(layers=None, batch=1, seq=4096, steps=4),
+    "falcon-mamba-7b": dict(layers=32, batch=1, seq=4096, steps=4),
+}
+TRAIN_FAMILY_PATH = "train/"  # + the arch
+# whisper-small through its training launcher: checkpoints every 3 steps, a failure injected at step 4, which
+# restores step 3's checkpoint and replays steps 3 and 4
+WHISPER_LAUNCH = dict(batch=8, seq=448, steps=5, ckpt_every=3, fail_at=4)
+WHISPER_LAUNCH_PATH = "train/whisper-small launcher"
+
+
+def train_golden(path):
+    """A training golden file's run on the card (``golden.port_run``): its
+    draws bitwise, every gap within the file's tolerance.  Returns the
+    gaps."""
+    import torch
+
+    from repro_torch.train.golden import draw_mismatches, port_run, rel_gaps
+
+    with open(path) as f:
+        golden = json.load(f)
+    name = f"train golden {golden['arch']}"
+    t0 = time.perf_counter()
+    record, draws = port_run(golden, device="cuda")
+    bad = draw_mismatches(draws, golden)
+    if bad:
+        raise AssertionError(f"{name}: the card's draws differ from the reference's: {bad}")
+    gaps = rel_gaps(record, golden)
+    cut = golden.get("cut") or f"{golden['n_layers']} layers"
+    log(f"{name} ({cut}; B={golden['batch']} x S={golden['seq']}, {golden['steps']} {golden['optimizer']} steps, "
+        f"{time.perf_counter() - t0:.3f} s): "
+        f"losses {record['losses']} (reference {golden['losses']}), grad_norms {record['grad_norms']}; relative "
+        f"gaps {gaps}, tolerances {golden['tolerance']} (10x the port's CPU gaps {golden['port_cpu_gap']}); "
+        f"{' and '.join(k for k in ('tokens', 'frames_sha256') if k in golden)} bitwise")
+    for key, gap in gaps.items():
+        if not gap <= golden["tolerance"][key]:
+            raise AssertionError(f"{name}: {key} off by {gap} > {golden['tolerance'][key]}")
+    del record
+    torch.cuda.empty_cache()
+    return gaps
+
+
+def train_main(arch, counted, run):
+    """An arch's training main path at full width (``run``: the depth,
+    B, S and steps): ``init_lm`` from seed 0, the launcher's batches
+    (``train_batches``), step 0's loss from a torch-plane forward, then
+    ``run["steps"]`` AdamW steps of ``build_train_step`` with every
+    launch counted from 0 (none may launch), timed, their peak memory, one
+    more step profiled beside its bound.  Returns (the launches, a
+    summary)."""
+    import gc
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import prng
+    from repro_torch.models.lm import init_lm, lm_apply, xent_loss
+    from repro_torch.train.steps import build_train_step, train_batches
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    full = get_config(arch)[0]
+    cfg = dataclasses.replace(full, n_layers=run["layers"] or full.n_layers)
+    cut = f"{cfg.n_layers} of {full.n_layers} layers" if cfg.n_layers < full.n_layers else "whole"
+    if cfg.encoder_decoder:
+        cut += f" ({cfg.n_enc_layers} encoder layers over {cfg.enc_seq_len} frames)"
+    B, S, n = run["batch"], run["seq"], run["steps"]
+    path = TRAIN_FAMILY_PATH + arch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = init_lm(prng.prng_key(0), cfg, torch.float32, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in params.parameters())
+    init, nxt = train_batches(cfg, B, S, seed=0, device="cuda")
+    batches, ds = [], init()
+    for _ in range(n + 1):
+        ds, b = nxt(ds)
+        batches.append(b)
+    with torch.inference_mode():  # step 0's loss from a torch-plane forward of the same batch and weights
+        logits = lm_apply(params, cfg, {k: v for k, v in batches[0].items() if k != "labels"}, plane="torch")
+        ref_loss = float(xent_loss(logits[:, :-1], batches[0]["labels"][:, 1:]))
+        del logits
+    step_fn, opt = build_train_step(cfg, "adamw")
+    state = opt.init(dict(params.named_parameters()))
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counted:
+        fn.launches = 0
+    step_ms, losses, gnorms = [], [], []
+    for step in range(n):
+        t0 = time.perf_counter()
+        params, state, m = step_fn(params, state, step, batches[step])
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    got = {fn.__name__: fn.launches for fn in counted}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    t0 = time.perf_counter()
+    _, p_wall, p_busy, p_ops, p_top, _ = device_busy(lambda: step_fn(params, state, n, batches[n]), cpu=False)
+    profile_s = time.perf_counter() - t0
+    bound, bound_by, flops = train_bound_ms(cfg, params, B, S)
+    ms = sum(step_ms[1:]) / (n - 1)
+    res = {"cut": cut, "n_params": n_params, "init_s": init_s, "ms_per_step": ms, "step_ms": step_ms,
+           "tokens_per_s": B * S / ms * 1e3, "peak_gb": peak, "five_copies_gb": 20 * n_params / 1e9,
+           "step_wall_ms": p_wall, "step_device_busy_ms": p_busy, "step_idle_share": 1 - p_busy / p_wall,
+           "step_device_ops": p_ops, "bound_ms": bound, "bound_by": bound_by, "flops": flops,
+           "step_over_bound": ms / bound, "losses": losses, "grad_norms": gnorms, "ref_loss": ref_loss,
+           "profile_s": profile_s, "top_launches_and_ms": p_top}
+    log(f"main path {path} ({cut}, {n_params:,} parameters, B={B} x S={S}, AdamW, float32, remat {cfg.remat}): "
+        f"{ms:.3f} ms/step over steps 1-{n - 1} (step 0 {step_ms[0]:.3f}), {B * S / ms * 1e3:.1f} tokens/s, peak "
+        f"{peak:.3f} GB allocated (five float32 copies of the parameters {20 * n_params / 1e9:.3f}), profiled step: "
+        f"busy {p_busy:.3f} of {p_wall:.3f} ms, idle {1 - p_busy / p_wall:.4f}, {p_ops} device operations; bound "
+        f"{bound:.3f} ms by {bound_by} ({flops / 1e12:.2f} TFLOP), the step {ms / bound:.2f}x it; init "
+        f"{init_s:.3f} s; losses {losses}, grad_norms {gnorms}, launches {got}")
+    log(f"train family profile {arch}: " + json.dumps(res))
+    if not all(map(math.isfinite, losses + gnorms)):
+        raise AssertionError(f"{path}: a loss or grad_norm is not finite")
+    if abs(losses[0] - ref_loss) > TRAIN_LOSS_TOL:
+        raise AssertionError(f"{path}: step-0 loss {losses[0]} vs torch-plane forward {ref_loss}")
+    log(f"{path}: step-0 loss {losses[0]} within {abs(losses[0] - ref_loss):.3e} of the torch-plane forward's "
+        f"{ref_loss} (tolerance {TRAIN_LOSS_TOL})")
+    if any(got.values()):
+        raise AssertionError(f"{path}: launched {got}; the training route runs no hand-written kernel")
+    del params, state, batches, step_fn, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return got, res
+
+
+def train_whisper_launcher(counted):
+    """whisper-small through its training launcher (``repro_torch.launch.
+    train.main``) at WHISPER_LAUNCH's batch, twice: without checkpoints,
+    then with checkpoints under ``build/`` and a failure injected between
+    two of them; the second run's losses must be the first's, bitwise, as
+    the restore replays the steps since the checkpoint.  Returns the two
+    runs' launches (none may launch)."""
+    import gc
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.launch import train as launch_train
+
+    r = WHISPER_LAUNCH
+    argv = ["--arch", WHISPER_ARCH, "--batch", str(r["batch"]), "--seq", str(r["seq"]), "--steps", str(r["steps"]),
+            "--device", "cuda"]
+    for fn in counted:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    clean = launch_train.main(argv)["losses"]
+    clean_s = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    ckpt = tempfile.mkdtemp(dir=os.path.join(ROOT, "build"), prefix="train_whisper_ckpt_")
+    try:
+        t0 = time.perf_counter()
+        failed = launch_train.main(argv + ["--ckpt", ckpt, "--ckpt-every", str(r["ckpt_every"]),
+                                           "--fail-at", str(r["fail_at"])])["losses"]
+        failed_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    got = {fn.__name__: fn.launches for fn in counted}
+    gc.collect()
+    torch.cuda.empty_cache()
+    F, K = r["fail_at"], r["ckpt_every"] * (r["fail_at"] // r["ckpt_every"])
+    if failed[:F] != clean[:F] or failed[F:] != clean[K:]:
+        raise AssertionError(f"{WHISPER_LAUNCH_PATH}: the failure-injected losses {failed} differ from the clean "
+                             f"run's {clean}")
+    log(f"{WHISPER_LAUNCH_PATH} (python -m repro_torch.launch.train {' '.join(argv)}): clean {clean_s:.3f} s, "
+        f"losses {clean}; with --ckpt-every {r['ckpt_every']} --fail-at {F} {failed_s:.3f} s, losses {failed}: "
+        f"steps {K}-{F - 1} replayed from step {K}'s checkpoint, every loss equal to the clean run's, bitwise; "
+        f"launches {got}")
+    if any(got.values()):
+        raise AssertionError(f"{WHISPER_LAUNCH_PATH}: launched {got}; the training route runs no hand-written kernel")
+    return got
+
+
+def phase_train_families(counted):
+    """The SSM, hybrid and encoder-decoder training paths on the card: for
+    each of TRAIN_FAMILIES, its golden file (``train_golden``) and its main
+    path (``train_main``); then whisper-small through its
+    launcher with and without an injected failure
+    (``train_whisper_launcher``).  Returns each path's launches."""
+    from repro_torch.train.golden import GOLDEN_TRAIN_FAMILIES
+
+    got_by_path, summary = {}, {}
+    for arch, run in TRAIN_FAMILIES.items():
+        t0 = time.perf_counter()
+        gaps = train_golden(GOLDEN_TRAIN_FAMILIES[arch])
+        golden_s = time.perf_counter() - t0
+        got, res = train_main(arch, counted, run)
+        got_by_path[TRAIN_FAMILY_PATH + arch] = got
+        keys = ("cut", "ms_per_step", "tokens_per_s", "peak_gb", "step_idle_share", "step_device_ops", "bound_ms",
+                "bound_by", "step_over_bound", "profile_s")
+        summary[arch] = {"golden_gaps": gaps, "golden_s": golden_s, "main_s": time.perf_counter() - t0 - golden_s,
+                         **{k: res[k] for k in keys}}
+    t0 = time.perf_counter()
+    got_by_path[WHISPER_LAUNCH_PATH] = train_whisper_launcher(counted)
+    summary["launcher_s"] = time.perf_counter() - t0
+    log("train families: " + json.dumps(summary))
+    return got_by_path
 
 
 def phase_train_moe_mesh(counted):
@@ -2810,7 +3010,7 @@ def phase_train_moe_mesh(counted):
     torch.cuda.empty_cache()
     with open(tg.GOLDEN_TRAIN_MESH) as f:
         golden = json.load(f)
-    cfg = tg.mesh_config(golden)
+    cfg = tg.file_config(golden)
     if cfg.n_layers != MOE_TRAIN["layers"]:
         raise AssertionError(f"{tg.GOLDEN_TRAIN_MESH} holds {cfg.n_layers} layers, the phase {MOE_TRAIN['layers']}")
     tol, router_gap = golden["tolerance"], golden["port_cpu_gap"]["router_logits"]
@@ -3608,8 +3808,10 @@ class KernelSpy:
 # the examples phase: each user entry point at its own defaults, its launches counted from 0
 EX_QUICKSTART, EX_SEARCH, EX_TXN = "examples/quickstart", "examples/hybrid_search", "examples/txn_serving"
 EX_TRAIN, EX_TRAIN_FULL, EX_DEV = "examples/train_lm", "examples/train_lm --full", "examples/dev_smoke --fast"
-FULL_ARGV = ["--full", "--steps", "300", "--fail-at", "170"]
-FULL_RESUME = 150  # the newest checkpoint before the failure: every 50 steps
+# the example's --full run, cut to 120 steps (300 through PR 29) for the smoke's time limit
+FULL_STEPS = 120
+FULL_ARGV = ["--full", "--steps", str(FULL_STEPS), "--fail-at", "70"]
+FULL_RESUME = 50  # the newest checkpoint before the failure: every 50 steps
 EX_RTOL = 1e-5  # RCC float latencies (PERF.md §2)
 EX_EXACT = ("commits", "aborts", "abort_rate", "throughput_mtps", "avg_round_trips")
 EX_CALVIN_EXACT = ("commits", "aborts", "abort_rate", "avg_round_trips", "avg_waves")
@@ -3645,7 +3847,7 @@ def phase_examples(counted):
     """The user entry points on the card at their own defaults, in process:
     examples/torch_quickstart.py, torch_hybrid_search.py (SUNDIAL/SmallBank,
     64 codes, 160 ticks), torch_txn_serving.py, torch_train_lm.py at its
-    default and at ``--full --steps 300 --fail-at 170`` (beside the same run
+    default and at ``--full --steps 120 --fail-at 70`` (beside the same run
     without the failure, bitwise), and scripts/torch_dev_smoke.py
     ``--fast`` for every arch; each against golden_examples.json (the JAX
     reference's outputs at the same knobs), its launches counted from 0 and
@@ -3749,7 +3951,7 @@ def phase_examples(counted):
     failed = counted_call(EX_TRAIN_FULL, lambda: ttl.main(FULL_ARGV), spy=False)
     expect(EX_TRAIN_FULL, rcc((), 0))
     t0 = time.perf_counter()
-    clean = ttl.train(300, full=True)
+    clean = ttl.train(FULL_STEPS, full=True)
     walls[f"{EX_TRAIN_FULL} without the failure"] = time.perf_counter() - t0
     # where a --full step's time goes: two more steps of the run without the failure, the second profiled, beside
     # the step's float32 bound (6 N T flops over the FMA rate)
@@ -3759,7 +3961,7 @@ def phase_examples(counted):
     cfg_full, batch, seq = ttl.config(True)
     step_fn, _ = build_train_step(cfg_full)
     _, draw = make_pipeline(cfg_full.vocab_size, batch, seq, copy_frac=ttl.COPY_FRAC, device="cuda")
-    for i in (300, 301):
+    for i in (FULL_STEPS, FULL_STEPS + 1):
         _, b = draw(DataState(i, 0))
         _, wall, busy, n_ops, top, _ = device_busy(lambda: step_fn(clean["params"], clean["opt"], i, b))
     n_params = sum(p.numel() for p in clean["params"].parameters())
@@ -3978,6 +4180,12 @@ def main() -> int:
         launches[name][TRAIN_PATH] = n
 
     lap("train")
+    # the SSM, hybrid and encoder-decoder training paths (falcon-mamba-7b, recurrentgemma-2b, whisper-small)
+    for path, got in phase_train_families(counted).items():
+        for name, n in got.items():
+            launches[name][path] = n
+
+    lap("train families")
     # the MoE training path on meshes of shards (llama4-scout-17b-a16e at full width, 1 of 48 layers)
     for path, got in phase_train_moe_mesh(counted).items():
         for name, n in got.items():

@@ -11,7 +11,7 @@ as the reference's ``make_optimizer`` sets it), all through the
 fault-tolerant runner.  An encoder-decoder's batches also hold frames
 (``train.steps.frames_batch``, the reference's draw), and an M-RoPE
 model's (``--arch qwen2-vl-72b``) the reference's text-only positions,
-0..seq-1 for each of the three ids.  The reference also
+0..seq-1 for each of the three ids (``train.steps.train_batches``).  The reference also
 parses ``--lr`` and never uses it (ROADMAP.md C.7); the port leaves it out.  Runs on ``"cuda"`` unless
 ``--device cpu`` is given.
 """
@@ -23,10 +23,9 @@ import torch
 
 from repro_torch.configs import ARCH_IDS, get_config, reduced_config
 from repro_torch.core import prng
-from repro_torch.data.pipeline import make_pipeline
 from repro_torch.ft.runner import TrainRunner
-from repro_torch.models.lm import default_positions, init_lm, resolve_device
-from repro_torch.train.steps import build_train_step, frames_batch
+from repro_torch.models.lm import init_lm, resolve_device
+from repro_torch.train.steps import build_train_step, train_batches
 
 
 def parse_args(argv=None):
@@ -56,17 +55,7 @@ def main(argv=None):
         params = init_lm(prng.prng_key(0), cfg, torch.float32, device=dev)
         return params, optimizer.init(dict(params.named_parameters()))
 
-    init_data, next_batch = make_pipeline(cfg.vocab_size, args.batch, args.seq, device=dev)
-    if cfg.encoder_decoder:
-        def next_batch(ds, _tokens=next_batch):
-            ds, b = _tokens(ds)
-            b["frames"] = frames_batch(cfg, args.batch, ds.step, dev)
-            return ds, b
-    if cfg.mrope_sections is not None:
-        def next_batch(ds, _tokens=next_batch):
-            ds, b = _tokens(ds)
-            b["positions"] = default_positions(cfg, b["tokens"])
-            return ds, b
+    init_data, next_batch = train_batches(cfg, args.batch, args.seq, device=dev)
 
     runner = TrainRunner(train_step, init_state, next_batch, init_data,
                          ckpt_dir=args.ckpt, ckpt_every=args.ckpt_every, fail_at=args.fail_at)

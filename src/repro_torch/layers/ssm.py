@@ -6,7 +6,9 @@ Train and prefill run a parallel associative scan over time
 (B, K - 1, d_inner).  The recurrence ``h_t = dA_t * h_{t-1} + dBx_t`` runs on
 (B, S, d_inner, N) float32 tensors, 4.3 GB each at falcon-mamba's B = 4 x
 2048 tokens, so ``_ssm_core`` runs it over chunks of d_inner channels: the
-channels are independent, so a chunked run is bitwise the whole one.
+channels are independent, so a chunked run is bitwise the whole one.  Under
+autograd each chunk is checkpointed, so a chunk's tree of products exists
+only while that chunk runs or is differentiated (ROADMAP.md C.23).
 Plain PyTorch on both kernel planes: the reference runs this layer through
 XLA, with no Pallas kernel.  ``Record`` splits a call's device time by
 step in a profiler trace.
@@ -20,6 +22,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.profiler import record_function
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import prng
@@ -27,7 +30,8 @@ from repro_torch.layers.common import ParamSet
 from repro_torch.layers.scan import associative_scan
 from repro_torch.sharding import P, Param, dense_init, name_key, ones_init, zeros_init
 
-# elements of one (B, S, chunk, N) float32 tensor of the scan: 1 GiB; the scan holds about 7 of them at once
+# elements of one (B, S, chunk, N) float32 tensor of the scan: 1 GiB; the scan holds about 7 of them at once, and a
+# chunk's backward about 10 (its tree of products and their gradients)
 SCAN_CHUNK_ELEMS = 1 << 28
 
 
@@ -118,12 +122,29 @@ def _combine(c1, c2):
     return a1 * a2, b1 * a2 + b2
 
 
+def _scan_chunk(dt, x, B_ssm, C_ssm, A):
+    """The recurrence over one chunk of c channels: dt, x (B,S,c), B/C
+    (B,S,N) float32, A (c,N) -> (the readout y (B,S,c), the last state
+    (B,c,N))."""
+    dA = torch.exp(dt[..., None] * A)  # (B,S,c,N)
+    dBx = (dt * x)[..., None] * B_ssm[:, :, None, :]
+    _, h = associative_scan(_combine, (dA, dBx), dim=1)
+    del dA, dBx
+    # the readout ``bsdn,bsn->bsd`` as a product and a sum over n: a batched matmul's order of summation
+    # depends on the chunk's width, and a chunked run must be bitwise the whole one
+    return (h * C_ssm[:, :, None, :]).sum(-1), h[:, -1].clone()
+
+
 def _ssm_core(params: SSM, x_c, dt_r, B_ssm, C_ssm, chunk: Optional[int] = None):
     """Selective scan. x_c (B,S,di), dt_r (B,S,R), B/C (B,S,N) -> (y (B,S,di),
     h_last (B,di,N) float32), over ``chunk`` channels at a time (by default
-    as many as keep one (B,S,chunk,N) tensor within ``SCAN_CHUNK_ELEMS``)."""
+    as many as keep one (B,S,chunk,N) tensor within ``SCAN_CHUNK_ELEMS``).
+    Under autograd each chunk is checkpointed: its tree of products is made
+    again in the backward, one chunk at a time, and not kept from the
+    forward."""
     Bn, S, di = x_c.shape
     N = B_ssm.shape[-1]
+    grad = torch.is_grad_enabled()
     if chunk is None:
         chunk = max(1, SCAN_CHUNK_ELEMS // (Bn * S * N))
     with _step("x_proj/dt"):
@@ -135,16 +156,11 @@ def _ssm_core(params: SSM, x_c, dt_r, B_ssm, C_ssm, chunk: Optional[int] = None)
     with _step("scan"):
         for c0 in range(0, di, chunk):
             c1 = min(di, c0 + chunk)
-            dtc = dt[..., c0:c1]
-            dA = torch.exp(dtc[..., None] * A[c0:c1])  # (B,S,c,N)
-            dBx = (dtc * xf[..., c0:c1])[..., None] * Bf[:, :, None, :]
-            _, h = associative_scan(_combine, (dA, dBx), dim=1)
-            del dA, dBx
-            # the readout ``bsdn,bsn->bsd`` as a product and a sum over n: a batched matmul's order of summation
-            # depends on the chunk's width, and a chunked run must be bitwise the whole one
-            y[..., c0:c1] = (h * Cf[:, :, None, :]).sum(-1)
-            h_last[:, c0:c1] = h[:, -1]
-            del h
+            args = (dt[..., c0:c1], xf[..., c0:c1], Bf, Cf, A[c0:c1])
+            yc, hc = checkpoint(_scan_chunk, *args, use_reentrant=False) if grad else _scan_chunk(*args)
+            y[..., c0:c1] = yc
+            h_last[:, c0:c1] = hc
+            del yc, hc
         y = y + params.Dp * xf
     return y.to(x_c.dtype), h_last
 

@@ -9,6 +9,14 @@ spec through the port on a device, and ``rel_gaps`` is the one rule by
 which the port's record is held to the reference's, on the CPU and on the
 card, against the file's ``tolerance``.
 
+``data/golden_train_{falcon_mamba,recurrentgemma,whisper}.json`` hold the
+same record for the SSM, hybrid and encoder-decoder families
+(``GOLDEN_TRAIN_FAMILIES``; their writer is
+``tests/test_torch_train_families.py`` run as a script), each over leaves
+of its own family and each at the cut its file states.  An
+encoder-decoder's file also holds the sha256 of each step's frames
+(``batch_draws``), which are too many to keep.
+
 ``data/golden_train_llama4_scout_mesh.json`` holds the reference's
 gradient of ``lm_loss`` at llama4-scout's full width on several meshes
 (its writer is ``tests/test_torch_mesh_train.py`` run as a script):
@@ -18,6 +26,7 @@ gradient of ``lm_loss`` at llama4-scout's full width on several meshes
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import os
 from typing import Dict, Iterable, List, Sequence, Tuple
 
@@ -27,17 +36,18 @@ import torch
 from repro_torch import convert
 from repro_torch.configs import get_config
 from repro_torch.core import prng
-from repro_torch.data.pipeline import make_pipeline
 from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.layers import moe
 from repro_torch.models.lm import LM, init_lm, lm_loss
 from repro_torch.optim.optimizers import global_norm
 from repro_torch.sharding import AxisRules
-from repro_torch.train.steps import build_train_step
+from repro_torch.train.steps import build_train_step, train_batches
 
 DATA = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "data")
 GOLDEN_TRAIN = os.path.join(DATA, "golden_train_stablelm.json")
 GOLDEN_TRAIN_MESH = os.path.join(DATA, "golden_train_llama4_scout_mesh.json")
+GOLDEN_TRAIN_FAMILIES = {arch: os.path.join(DATA, f"golden_train_{stem}.json") for arch, stem in (
+    ("falcon-mamba-7b", "falcon_mamba"), ("recurrentgemma-2b", "recurrentgemma"), ("whisper-small", "whisper"))}
 # the mesh file's run: llama4-scout at full width, depth cut to n_layers, one value_and_grad of lm_loss at
 # batch x seq on each (data, model) mesh
 MESH_RUN = dict(seed=0, n_layers=1, batch=2, seq=512, meshes=((1, 1), (1, 4), (2, 2)))
@@ -89,38 +99,70 @@ def rel_gaps(got: Dict, want: Dict) -> Dict[str, float]:
     }
 
 
-def port_run(golden: Dict, device="cuda") -> Tuple[Dict, List]:
+def _host(a) -> np.ndarray:
+    """A tensor (on any device) or an array, as a numpy array."""
+    return a.detach().cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+
+
+def frames_sha256(frames) -> str:
+    """sha256 of a float32 frames tensor's (or array's) bytes, in C order."""
+    return hashlib.sha256(np.ascontiguousarray(_host(frames), np.float32).tobytes()).hexdigest()
+
+
+def batch_draws(batches: Sequence[Dict]) -> Dict[str, List]:
+    """What a file keeps of each step's batch: its tokens (lists), and for
+    an encoder-decoder the sha256 of its frames (``frames_sha256``)."""
+    out = {"tokens": [_host(b["tokens"]).tolist() for b in batches]}
+    if batches and "frames" in batches[0]:
+        out["frames_sha256"] = [frames_sha256(b["frames"]) for b in batches]
+    return out
+
+
+def draw_mismatches(draws: Dict[str, List], golden: Dict) -> List[str]:
+    """The steps at which a run's draws (``batch_draws``) differ from the
+    file's, as ``"<key> at step <i>"``; empty when every draw is bitwise."""
+    bad = []
+    for key in ("tokens", "frames_sha256"):
+        if key in golden:
+            got = draws.get(key, [])
+            bad += [f"{key} at step {i}" for i, want in enumerate(golden[key]) if i >= len(got) or got[i] != want]
+    return bad
+
+
+def file_config(golden: Dict, get=get_config):
+    """A training file's config: its arch at full width, depth cut to its
+    ``n_layers`` (an encoder-decoder's decoder; its encoder stays whole)."""
+    return dataclasses.replace(get(golden["arch"])[0], n_layers=golden["n_layers"])
+
+
+def port_run(golden: Dict, device="cuda", cfg=None) -> Tuple[Dict, Dict[str, List]]:
     """The golden file's run through the port on ``device``: its own
-    ``init_lm``, pipeline and train step at the file's config, batch and
-    steps.  Returns the run's record (over the file's leaves) and each
-    step's pipeline tokens, as lists."""
-    cfg = dataclasses.replace(get_config(golden["arch"])[0], n_layers=golden["n_layers"])
+    ``init_lm``, the training launcher's batches (``train_batches``) and
+    train step, at the file's config (or ``cfg``), batch and steps.
+    Returns the run's record (over the file's leaves) and its draws
+    (``batch_draws``)."""
+    cfg = cfg or file_config(golden)
     params = init_lm(prng.prng_key(golden["seed"]), cfg, torch.float32, device=device)
     step_fn, opt = build_train_step(cfg, golden["optimizer"])
     state = opt.init(dict(params.named_parameters()))
-    init, nxt = make_pipeline(cfg.vocab_size, golden["batch"], golden["seq"], seed=golden["seed"], device=device)
-    ds, losses, gnorms, tokens = init(), [], [], []
+    init, nxt = train_batches(cfg, golden["batch"], golden["seq"], seed=golden["seed"], device=device)
+    ds, losses, gnorms, batches = init(), [], [], []
     for step in range(golden["steps"]):
         ds, b = nxt(ds)
-        tokens.append(b["tokens"].cpu().tolist())
+        batches.append(b)
         params, state, m = step_fn(params, state, step, b)
         losses.append(float(m["loss"]))
         gnorms.append(float(m["grad_norm"]))
     names = sorted({k.split("/", 1)[1] for k in golden["leaf_sums"]})
     record = train_record(losses, gnorms, convert.stack_named(params.state_dict(), cfg),
                           convert.opt_state_to_tree(state, cfg), names)
-    return record, tokens
-
-
-def mesh_config(golden: Dict, get=get_config):
-    """The mesh file's config: its arch at full width, depth cut."""
-    return dataclasses.replace(get(golden["arch"])[0], n_layers=golden["n_layers"])
+    return record, batch_draws(batches)
 
 
 def mesh_tokens(golden: Dict, device) -> torch.Tensor:
     """The mesh file's tokens (and labels): ``randint(PRNGKey(seed + 1),
     (batch, seq), 0, vocab)``."""
-    V = mesh_config(golden).vocab_size
+    V = file_config(golden).vocab_size
     return prng.randint(prng.prng_key(golden["seed"] + 1, device), (golden["batch"], golden["seq"]), 0, V)
 
 

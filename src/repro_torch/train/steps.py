@@ -1,5 +1,6 @@
 """Step builders (port of ``repro.train.steps``): train (with gradient
-accumulation), prefill, decode; and an encoder-decoder's training frames."""
+accumulation), prefill, decode; and the training launcher's batches (an
+encoder-decoder's frames among them)."""
 from __future__ import annotations
 
 from typing import Optional
@@ -8,9 +9,10 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import prng
+from repro_torch.data.pipeline import make_pipeline
 from repro_torch.kernels import ops
 from repro_torch.models.decode import lm_decode_step, lm_prefill
-from repro_torch.models.lm import LM, check_ported, lm_loss
+from repro_torch.models.lm import LM, check_ported, default_positions, lm_loss
 from repro_torch.optim import make_optimizer
 from repro_torch.sharding import AxisRules
 
@@ -91,3 +93,23 @@ def frames_batch(cfg: ArchConfig, batch: int, step: int, device=None) -> torch.T
     them."""
     key = prng.fold_in(prng.prng_key(7, device), step)
     return prng.normal(key, (batch, cfg.enc_seq_len, cfg.d_model))
+
+
+def train_batches(cfg: ArchConfig, batch: int, seq: int, *, seed: int = 0, device=None):
+    """(init_state, next_batch) of the training launcher's batches: the
+    synthetic pipeline's ``tokens`` and ``labels`` (batch, seq), an
+    encoder-decoder's ``frames`` (``frames_batch`` at the pipeline's new
+    step, as the reference's launcher draws them after its pipeline's
+    step) and an M-RoPE model's text-only ``positions``, 0..seq-1 for each
+    of the three ids."""
+    init_state, next_tokens = make_pipeline(cfg.vocab_size, batch, seq, seed=seed, device=device)
+
+    def next_batch(ds):
+        ds, b = next_tokens(ds)
+        if cfg.encoder_decoder:
+            b["frames"] = frames_batch(cfg, batch, ds.step, b["tokens"].device)
+        if cfg.mrope_sections is not None:
+            b["positions"] = default_positions(cfg, b["tokens"])
+        return ds, b
+
+    return init_state, next_batch

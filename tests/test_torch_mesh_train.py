@@ -474,7 +474,7 @@ def test_golden_mesh_file_matches_the_port():
     CPU gaps (no tighter than 1e-6)."""
     with open(tgolden.GOLDEN_TRAIN_MESH) as f:
         g = json.load(f)
-    cfg = tgolden.mesh_config(g, get_config)
+    cfg = tgolden.file_config(g, get_config)
     assert g["arch"] == LLAMA4 and cfg.d_model == 5120 and cfg.vocab_size == 202048 and cfg.n_layers == 1
     assert g["capacity_factor"] == cfg.capacity_factor == 1.25
     np.testing.assert_array_equal(tgolden.mesh_tokens(g, "cpu").numpy(), np.array(g["tokens"]))
@@ -611,7 +611,7 @@ def write_golden():
     import tempfile
 
     r = tgolden.MESH_RUN
-    cfg_j = tgolden.mesh_config({"arch": LLAMA4, **r}, jget_config)
+    cfg_j = tgolden.file_config({"arch": LLAMA4, **r}, jget_config)
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"), JAX_PLATFORMS="cpu")
     meshes, left_out, tokens = {}, {}, None
     tmp = tempfile.mkdtemp(prefix="golden_mesh_")
@@ -688,9 +688,9 @@ def _port_cpu_gap(tmp):
     over the meshes sets the card's tolerance at 10x."""
     with open(tgolden.GOLDEN_TRAIN_MESH) as f:
         g = json.load(f)
-    cfg = tgolden.mesh_config(g)
+    cfg = tgolden.file_config(g)
     t0 = time.time()
-    model = _reference_weights_in_the_port(tgolden.mesh_config(g, jget_config), cfg, g["seed"])
+    model = _reference_weights_in_the_port(tgolden.file_config(g, jget_config), cfg, g["seed"])
     print(f"reference weights in the port: {time.time() - t0:.1f} s", flush=True)
     tokens = tgolden.mesh_tokens(g, "cpu")
     assert tokens.tolist() == g["tokens"]
