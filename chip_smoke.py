@@ -51,8 +51,8 @@ Run from a checkout of the repository on a machine with one CUDA card and
    card (``devices=("cuda",) * 4``): NOWAIT/SmallBank, MVCC/YCSB and
    CALVIN/SmallBank hybrid 63 on ``layout="node"`` and the four codes on a
    2 x 2 ``config_node`` mesh, each against its golden file with the
-   kernels' launches per tick, and one NOWAIT final store against the
-   dense run's.  Before them, the kernel phase holds each RCC kernel at the
+   kernels' launches per tick, and the NOWAIT path's final store against
+   the dense run's.  Before them, the kernel phase holds each RCC kernel at the
    node path's calls (``lock_arbiter`` on the coordinator over G*R global
    rows with requests at the shard boundaries; ``multi_read`` per shard
    with local keys outside [0, R_l) over G*R_l rows) against its plain
@@ -76,15 +76,15 @@ Run from a checkout of the repository on a machine with one CUDA card and
    tokens, 32 tokens each) on the ``"kernel"`` plane, whose prefill must
    launch ``flash_attention`` once per layer, and on the ``"torch"`` plane,
    whose prefill logits and decided greedy tokens must agree;
-10. the MoE serving path, llama4-scout-17b-a16e at full width, 3 of its 48
-   layers (8.30 B float32 parameters), TF32 off: ``init_lm`` from seed 0
+10. the MoE serving path, llama4-scout-17b-a16e at full width, 2 of its 48
+   layers (6.22 B float32 parameters), TF32 off: ``init_lm`` from seed 0
    on the card (checked against the reference's weights), the golden-file
    run on the first two layers of the same model (expert loads and dropped
    assignments per layer where the reference's router margin allows,
    logits and greedy tokens within 10x the port's CPU gap), a profiled
    prefill and decode step with the MoE layer's device time split into
    router, dispatch, expert products and combine, then the main path
-   ``serve`` (4 x 2048 tokens, 32 each) on both planes, 3
+   ``serve`` (4 x 2048 tokens, 32 each) on both planes, 2
    ``flash_attention`` launches per prefill, each plane's routing per layer;
 11. the same model on a 1 x 4 mesh of shards on the one card, on phase 10's
    parameters (``sharding.AxisRules`` over ``launch.mesh.make_host_mesh(1,
@@ -93,12 +93,12 @@ Run from a checkout of the repository on a machine with one CUDA card and
    the golden-file run on its first two layers through the mesh (routing,
    logits and decided tokens), then 4 x 2048 tokens x 32 with and without
    the mesh in turns (prefill and decode times, a profiled prefill and
-   decode step's device busy and idle share, peak memory, 3
+   decode step's device busy and idle share, peak memory, 2
    ``flash_attention`` launches per prefill, the paths' logits; the mesh
    may not hold a second copy of a weight), then the dry run's 80 (arch x
    shape x mesh) cells on the logical production meshes;
-12. the SSM serving path, falcon-mamba-7b at full width, 16 of its 64
-   layers (2.22 B float32 parameters), TF32 off: ``init_lm`` from seed 0 on the
+12. the SSM serving path, falcon-mamba-7b at full width, 8 of its 64
+   layers (1.38 B float32 parameters), TF32 off: ``init_lm`` from seed 0 on the
    card (checked against the reference's weights), the golden-file run on
    the first two layers of the same model (one 2048-token prompt, 8 greedy
    tokens, logits within 10x the port's CPU gap), a profiled prefill and
@@ -128,19 +128,19 @@ Run from a checkout of the repository on a machine with one CUDA card and
    not causal in the encoder, and never in decode), then the main path
    ``serve`` (4 x 1500 frames x 224 + 224 tokens) on both planes beside its
    float32 bounds;
-15. the M-RoPE VLM serving path, qwen2-vl-72b at full width, 3 of its 80
-   layers (5.12 B float32 parameters), TF32 off: ``init_lm`` from seed 0 on
+15. the M-RoPE VLM serving path, qwen2-vl-72b at full width, 2 of its 80
+   layers (4.25 B float32 parameters), TF32 off: ``init_lm`` from seed 0 on
    the card (its parameter count against the config's, checked against the
-   reference's weights), the golden-file run on the first two layers of the
+   reference's weights), the golden-file run on the two layers of the
    same model (one 2048-token request holding a 1 x 32 x 32 image grid at
    Qwen2-VL's three position ids, 8 greedy tokens whose positions run behind
    the cache length, logits within 10x the port's CPU gap, every decided
    token equal), a profiled prefill and decode step (``flash_attention``
-   launched 3 times in the prefill and never in decode), then the main path
+   launched twice in the prefill and never in decode), then the main path
    ``serve`` (4 x 2048 tokens, 32 each, the reference's text-only positions)
    on both planes beside its float32 bounds;
 16. the last three dense configs at full width, one after another, TF32
-   off: nemotron-4-15b (4 of 32 layers, 4.71 B float32 parameters; squared
+   off: nemotron-4-15b (2 of 32 layers, 3.93 B float32 parameters; squared
    ReLU, half of each head rotated), qwen2.5-32b (2 of 64 layers, 2.53 B;
    QKV biases, theta 1e6) and command-r-35b (2 of 40 layers, 3.51 B;
    parallel block, the head tied to the embedding, theta 8e6), each as
@@ -185,7 +185,18 @@ Run from a checkout of the repository on a machine with one CUDA card and
    torch-plane forward; no hand-written kernel may launch), then
    whisper-small through ``python -m repro_torch.launch.train`` twice, the
    second run's injected failure leaving the first's losses, bitwise;
-20. the MoE training path on meshes of shards on the one card,
+20. the M-RoPE VLM training path (``train vlm``), qwen2-vl-72b at full
+   width, 1 of its 80 layers (3.37 B float32 parameters), TF32 off:
+   ``init_lm`` from seed 0 on the card, the golden file's gradient of
+   ``lm_loss`` on one 2048-token request holding a 1 x 32 x 32 image grid
+   (M-RoPE's backward with three distinct position ids; loss, gradient norm
+   and every leaf's sums within 10x the port's CPU gap, each gap printed
+   beside its tolerance), then gradient accumulation: 3 AdamW steps of 2
+   microbatches of 1 x 2048 (``TRAIN_VLM``) and one profiled beside its
+   bound, step 0's loss against the mean of torch-plane forwards of the
+   microbatches, ms per step, tokens/s, peak memory beside the float32
+   copies the step holds; no hand-written kernel may launch;
+21. the MoE training path on meshes of shards on the one card,
    llama4-scout-17b-a16e at full width, 1 of its 48 layers (4.15 B float32
    parameters), TF32 off: ``init_lm`` from seed 0 on the card, the mesh
    golden file's gradient of ``lm_loss`` (B = 2 x 512) on (1, 1), (1, 4)
@@ -193,12 +204,12 @@ Run from a checkout of the repository on a machine with one CUDA card and
    data shard routing at its own capacity; loss, gradient norm and the sums
    of every gradient leaf within 10x the port's CPU gap, each data shard's
    loads and drops where the reference's router margin allows), then on
-   each mesh 3 ``momentum_bf16`` steps of ``build_train_step(cfg, ...,
+   each mesh 4 ``momentum_bf16`` steps of ``build_train_step(cfg, ...,
    shd=...)`` at B = 2 x 2048 (ms per step, tokens/s, peak memory beside
    the reckoned state, one profiled step's device busy time, idle share and
    operations, each beside the (1, 1) mesh's; no hand-written kernel may
    launch);
-21. the user entry points at their own defaults, in process:
+22. the user entry points at their own defaults, in process:
    ``examples/torch_quickstart.py`` (six protocol pairs and the hybrid MVCC
    at 4 nodes x 16 co-routines, 300 + 60 ticks; reduced qwen2.5-32b's
    forward and AdamW step), ``examples/torch_hybrid_search.py`` (SUNDIAL/
@@ -319,21 +330,22 @@ FP32_FLOPS_PER_S = 67e12
 # the LM serving main path: stablelm-1.6b at full width, float32
 SERVE = dict(batch=4, prompt_len=2048, gen_len=32, page_size=16)
 SERVE_PATH = "serve/stablelm-1.6b"
-# the MoE serving main path: llama4-scout-17b-a16e at full width, depth cut to MOE_LAYERS of 48 (8.30 B float32
-# parameters, 33.2 GB; 6 layers, 58.1 GB, through PR 29: cut for the smoke's time limit), the same requests as SERVE
+# the MoE serving main path: llama4-scout-17b-a16e at full width, depth cut to MOE_LAYERS of 48 (6.22 B float32
+# parameters, 24.9 GB; 6 layers, 58.1 GB, fit the card: cut for the smoke's time limit, PERF.md section 4), the
+# same requests as SERVE
 MOE_ARCH = "llama4-scout-17b-a16e"
-MOE_LAYERS = 3
+MOE_LAYERS = 2
 MOE_SERVE_PATH = "serve/llama4-scout-17b-a16e"
 # the same model and requests on a 1 x 4 mesh of shards on the one card (sharding.AxisRules over
 # launch.mesh.make_host_mesh(1, 4, devices=("cuda",) * 4)): the expert-parallel MoE (16 experts, 4 a shard) and
 # the sequence-sharded KV cache (S = prompt + generated tokens, 4 | S), through train.steps' builders
 MESH_SERVE_PATH = "serve/llama4-scout-17b-a16e@1x4"
 MESH_SHAPE = (1, 4)
-# the SSM serving main path: falcon-mamba-7b at full width, depth cut to SSM_LAYERS of 64 (2.22 B float32
-# parameters, 8.9 GB; all 64, 29.1 GB, fit the card, and 32 ran through PR 29: cut for the smoke's time limit), the
-# same requests as SERVE
+# the SSM serving main path: falcon-mamba-7b at full width, depth cut to SSM_LAYERS of 64 (1.38 B float32
+# parameters, 5.5 GB; all 64, 29.1 GB, fit the card: cut for the smoke's time limit, PERF.md section 4), the same
+# requests as SERVE
 SSM_ARCH = "falcon-mamba-7b"
-SSM_LAYERS = 16
+SSM_LAYERS = 8
 SSM_SERVE_PATH = "serve/falcon-mamba-7b"
 SSM_STEPS = ("in_proj", "conv", "x_proj/dt", "scan", "out_proj")  # ssm.Record's profiler ranges
 # the hybrid serving main path: recurrentgemma-2b at full width and all 26 layers (3.31 B float32 parameters,
@@ -349,17 +361,17 @@ WHISPER_ARCH = "whisper-small"
 WHISPER_SERVE = dict(batch=4, prompt_len=224, gen_len=224, page_size=16)
 WHISPER_SERVE_PATH = "serve/whisper-small"
 WHISPER_PARAMS = 278_143_488
-# the M-RoPE VLM serving main path: qwen2-vl-72b at full width, depth cut to VLM_LAYERS of 80 (5,124,478,976
-# float32 parameters, 20.5 GB; 12 fit the card, and 6 ran through PR 29: cut for the smoke's time limit), the same
+# the M-RoPE VLM serving main path: qwen2-vl-72b at full width, depth cut to VLM_LAYERS of 80 (4,246,794,240
+# float32 parameters, 17.0 GB; 12 fit the card: cut for the smoke's time limit, PERF.md section 4), the same
 # requests as SERVE (text-only positions, as the reference's serve passes them)
 VLM_ARCH = "qwen2-vl-72b"
-VLM_LAYERS = 3
+VLM_LAYERS = 2
 VLM_SERVE_PATH = "serve/qwen2-vl-72b"
-# the last three dense serving main paths, at full width, each cut for the smoke's time limit (layers of the config's:
-# nemotron-4-15b 4 of 32, 4.71 B parameters; qwen2.5-32b 2 of 64, 2.53 B; command-r-35b 2 of 40, 3.51 B; 8, 4 and 3
-# through PR 29, twice those through PR 28), the same requests as SERVE, and each one's golden file (the first 2
-# layers)
-DENSE_LAYERS = {"nemotron-4-15b": 4, "qwen2.5-32b": 2, "command-r-35b": 2}
+# the last three dense serving main paths, at full width, each cut for the smoke's time limit to the depth of its
+# golden file (2 layers of the config's: nemotron-4-15b 2 of 32, 3.93 B parameters; qwen2.5-32b 2 of 64, 2.53 B;
+# command-r-35b 2 of 40, 3.51 B; 16, 8 and 6 fit the card, PERF.md section 4), the same requests as SERVE, and each
+# one's golden file
+DENSE_LAYERS = {"nemotron-4-15b": 2, "qwen2.5-32b": 2, "command-r-35b": 2}
 DENSE_GOLDEN = {"nemotron-4-15b": "golden_serve_nemotron.json", "qwen2.5-32b": "golden_serve_qwen2_5.json",
                 "command-r-35b": "golden_serve_command_r.json"}
 # kimi-k2-1t-a32b at full width, the depth cut to 1 of 61 layers (19.38 B float32 parameters, 77.5 GB: a second layer
@@ -2658,9 +2670,10 @@ TRAIN_PATH = "train/stablelm-1.6b"
 TRAIN_LOSS_TOL = 1e-4
 TRAIN_RUNNER = dict(batch=4, seq=32, steps=14, ckpt_every=5, fail_at=9)  # reduced config, tests/test_substrate.py
 # the MoE training path on meshes of shards on the one card: llama4-scout-17b-a16e at full width, depth cut to 1 of
-# 48 layers (4.15 B float32 parameters, 16.6 GB), bf16 momentum (an AdamW step's five float32 copies, 83 GB, do not
-# fit the card), B x S = 2 x 2048, on each (data, model) mesh with every shard on the card
-MOE_TRAIN = dict(layers=1, batch=2, seq=2048, steps=3, optimizer="momentum_bf16", meshes=("1x1", "1x4", "2x2"))
+# 48 layers (4.15 B float32 parameters, 16.6 GB), bf16 momentum (an AdamW step's four float32 copies, 66.4 GB, and
+# the activations, about 17 GB, do not fit the card), B x S = 2 x 2048, on each (data, model) mesh with every shard
+# on the card
+MOE_TRAIN = dict(layers=1, batch=2, seq=2048, steps=4, optimizer="momentum_bf16", meshes=("1x1", "1x4", "2x2"))
 MOE_TRAIN_PATH = "train/llama4-scout-17b-a16e@"  # + the mesh
 
 
@@ -2772,19 +2785,26 @@ def phase_train(counted):
 
 
 # the SSM, hybrid and encoder-decoder training main paths: full width, float32, AdamW, the config's remat ("full");
-# layers None: the whole model.  falcon-mamba-7b's 64 layers with AdamW need about 145 GB: cut to 32, the largest
-# depth whose five float32 copies of the parameters (p, g, the clipped g, m, v: 78.1 GB) and the update's
-# temporaries fit the card (36 layers ran out of memory); recurrentgemma-2b's whole 66.3 GB fit
+# layers None: the whole model.  falcon-mamba-7b's 64 layers with AdamW need about 116 GB: cut to 16 layers (2.22 B
+# parameters, four float32 copies 35.5 GB) for the smoke's time limit; 32 layers fit (four copies: p, g clipped in
+# place, m, v, 62.4 GB; peak 72.4 GB, the backward's, ROADMAP.md C.23; with a clipped copy, five, 36 layers ran out of
+# memory); recurrentgemma-2b's whole 53.0 GB fit
 TRAIN_FAMILIES = {
     "whisper-small": dict(layers=None, batch=8, seq=448, steps=4),
     "recurrentgemma-2b": dict(layers=None, batch=1, seq=4096, steps=4),
-    "falcon-mamba-7b": dict(layers=32, batch=1, seq=4096, steps=4),
+    "falcon-mamba-7b": dict(layers=16, batch=1, seq=4096, steps=4),
 }
 TRAIN_FAMILY_PATH = "train/"  # + the arch
 # whisper-small through its training launcher: checkpoints every 3 steps, a failure injected at step 4, which
 # restores step 3's checkpoint and replays steps 3 and 4
 WHISPER_LAUNCH = dict(batch=8, seq=448, steps=5, ckpt_every=3, fail_at=4)
 WHISPER_LAUNCH_PATH = "train/whisper-small launcher"
+# the M-RoPE VLM training main path: qwen2-vl-72b at full width, float32, AdamW, remat "full", cut to 1 of 80 layers
+# (3.37 B parameters, 13.5 GB; its microbatch of train_4k's 8, each cut from 32 x 4096 to 1 x 2048, 2 of them):
+# the step holds five float32 copies of the parameters (p, m, v, the accumulated g and one microbatch's g: 67.4 GB)
+# at the second microbatch's backward; with the update's clipped copy and an out-of-place division it would hold
+# six, 80.9 GB, more than the card
+TRAIN_VLM = dict(layers=1, batch=1, seq=2048, steps=3, micro=2)
 
 
 def train_golden(path):
@@ -2820,12 +2840,15 @@ def train_golden(path):
 
 def train_main(arch, counted, run):
     """An arch's training main path at full width (``run``: the depth,
-    B, S and steps): ``init_lm`` from seed 0, the launcher's batches
-    (``train_batches``), step 0's loss from a torch-plane forward, then
-    ``run["steps"]`` AdamW steps of ``build_train_step`` with every
-    launch counted from 0 (none may launch), timed, their peak memory, one
-    more step profiled beside its bound.  Returns (the launches, a
-    summary)."""
+    B, S, steps and, optionally, ``micro`` microbatches of B x S a step):
+    ``init_lm`` from seed 0, the launcher's batches (``train_batches`` of
+    micro x B rows, reshaped to (micro, B, ...) for gradient accumulation),
+    step 0's loss from torch-plane forwards (the mean over the
+    microbatches), then ``run["steps"]`` AdamW steps of
+    ``build_train_step`` with every launch counted from 0 (none may
+    launch), timed, their peak memory beside the float32 copies of the
+    parameters the step holds, one more step profiled beside its bound.
+    Returns (the launches, a summary)."""
     import gc
 
     import torch
@@ -2842,7 +2865,7 @@ def train_main(arch, counted, run):
     cut = f"{cfg.n_layers} of {full.n_layers} layers" if cfg.n_layers < full.n_layers else "whole"
     if cfg.encoder_decoder:
         cut += f" ({cfg.n_enc_layers} encoder layers over {cfg.enc_seq_len} frames)"
-    B, S, n = run["batch"], run["seq"], run["steps"]
+    B, S, n, micro = run["batch"], run["seq"], run["steps"], run.get("micro", 1)
     path = TRAIN_FAMILY_PATH + arch
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2850,15 +2873,21 @@ def train_main(arch, counted, run):
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     n_params = sum(p.numel() for p in params.parameters())
-    init, nxt = train_batches(cfg, B, S, seed=0, device="cuda")
+    init, nxt = train_batches(cfg, micro * B, S, seed=0, device="cuda")
     batches, ds = [], init()
     for _ in range(n + 1):
         ds, b = nxt(ds)
+        if micro > 1:  # (micro x B, ...) rows -> (micro, B, ...): microbatch i holds rows i B .. (i + 1) B - 1
+            b = {k: v.reshape(micro, B, *v.shape[1:]) for k, v in b.items()}
         batches.append(b)
-    with torch.inference_mode():  # step 0's loss from a torch-plane forward of the same batch and weights
-        logits = lm_apply(params, cfg, {k: v for k, v in batches[0].items() if k != "labels"}, plane="torch")
-        ref_loss = float(xent_loss(logits[:, :-1], batches[0]["labels"][:, 1:]))
-        del logits
+    with torch.inference_mode():  # step 0's loss from torch-plane forwards of the same batch and weights
+        mbs = [batches[0]] if micro == 1 else [{k: v[i] for k, v in batches[0].items()} for i in range(micro)]
+        mb_losses = []
+        for mb in mbs:
+            logits = lm_apply(params, cfg, {k: v for k, v in mb.items() if k != "labels"}, plane="torch")
+            mb_losses.append(float(xent_loss(logits[:, :-1], mb["labels"][:, 1:])))
+            del logits
+        ref_loss = sum(mb_losses) / micro
     step_fn, opt = build_train_step(cfg, "adamw")
     state = opt.init(dict(params.named_parameters()))
     gc.collect()
@@ -2879,17 +2908,23 @@ def train_main(arch, counted, run):
     t0 = time.perf_counter()
     _, p_wall, p_busy, p_ops, p_top, _ = device_busy(lambda: step_fn(params, state, n, batches[n]), cpu=False)
     profile_s = time.perf_counter() - t0
-    bound, bound_by, flops = train_bound_ms(cfg, params, B, S)
+    bound, bound_by, flops = train_bound_ms(cfg, params, micro * B, S)
     ms = sum(step_ms[1:]) / (n - 1)
+    # float32 copies of the parameters a step holds besides activations: p, m, v and the gradients (clipped in place);
+    # under accumulation the sum beside one microbatch's gradients
+    copies = 4 + (micro > 1)
     res = {"cut": cut, "n_params": n_params, "init_s": init_s, "ms_per_step": ms, "step_ms": step_ms,
-           "tokens_per_s": B * S / ms * 1e3, "peak_gb": peak, "five_copies_gb": 20 * n_params / 1e9,
+           "micro": micro, "tokens_per_s": micro * B * S / ms * 1e3, "peak_gb": peak, "copies": copies,
+           "copies_gb": 4 * copies * n_params / 1e9,
            "step_wall_ms": p_wall, "step_device_busy_ms": p_busy, "step_idle_share": 1 - p_busy / p_wall,
            "step_device_ops": p_ops, "bound_ms": bound, "bound_by": bound_by, "flops": flops,
            "step_over_bound": ms / bound, "losses": losses, "grad_norms": gnorms, "ref_loss": ref_loss,
-           "profile_s": profile_s, "top_launches_and_ms": p_top}
-    log(f"main path {path} ({cut}, {n_params:,} parameters, B={B} x S={S}, AdamW, float32, remat {cfg.remat}): "
-        f"{ms:.3f} ms/step over steps 1-{n - 1} (step 0 {step_ms[0]:.3f}), {B * S / ms * 1e3:.1f} tokens/s, peak "
-        f"{peak:.3f} GB allocated (five float32 copies of the parameters {20 * n_params / 1e9:.3f}), profiled step: "
+           "profile_s": profile_s, "top_launches_and_ms": p_top, "microbatch_ref_losses": mb_losses}
+    shape = f"B={B} x S={S}" if micro == 1 else f"{micro} microbatches of B={B} x S={S}"
+    log(f"main path {path} ({cut}, {n_params:,} parameters, {shape}, AdamW, float32, remat {cfg.remat}): "
+        f"{ms:.3f} ms/step over steps 1-{n - 1} (step 0 {step_ms[0]:.3f}), {micro * B * S / ms * 1e3:.1f} tokens/s, "
+        f"peak {peak:.3f} GB allocated ({copies} float32 copies of the parameters held {res['copies_gb']:.3f}: p, m, "
+        f"v, g{', one microbatch g' if micro > 1 else ''}), profiled step: "
         f"busy {p_busy:.3f} of {p_wall:.3f} ms, idle {1 - p_busy / p_wall:.4f}, {p_ops} device operations; bound "
         f"{bound:.3f} ms by {bound_by} ({flops / 1e12:.2f} TFLOP), the step {ms / bound:.2f}x it; init "
         f"{init_s:.3f} s; losses {losses}, grad_norms {gnorms}, launches {got}")
@@ -2898,8 +2933,9 @@ def train_main(arch, counted, run):
         raise AssertionError(f"{path}: a loss or grad_norm is not finite")
     if abs(losses[0] - ref_loss) > TRAIN_LOSS_TOL:
         raise AssertionError(f"{path}: step-0 loss {losses[0]} vs torch-plane forward {ref_loss}")
-    log(f"{path}: step-0 loss {losses[0]} within {abs(losses[0] - ref_loss):.3e} of the torch-plane forward's "
-        f"{ref_loss} (tolerance {TRAIN_LOSS_TOL})")
+    log(f"{path}: step-0 loss {losses[0]} within {abs(losses[0] - ref_loss):.3e} of the torch-plane "
+        f"forward{'s' if micro > 1 else ''}' {ref_loss}{f' (mean of {mb_losses})' if micro > 1 else ''} "
+        f"(tolerance {TRAIN_LOSS_TOL})")
     if any(got.values()):
         raise AssertionError(f"{path}: launched {got}; the training route runs no hand-written kernel")
     del params, state, batches, step_fn, opt
@@ -2984,6 +3020,65 @@ def phase_train_families(counted):
     return got_by_path
 
 
+def phase_train_vlm(counted):
+    """The M-RoPE VLM training path on the card: qwen2-vl-72b at full
+    width, TRAIN_VLM's layers, ``init_lm`` from seed 0; (a) the golden
+    file's gradient of ``lm_loss`` on its request, whose image grid gives
+    the three position ids distinct values (loss, gradient norm and every
+    leaf's sums within its tolerances, each gap printed beside its
+    tolerance); (b) the accumulation path: ``train_main`` at TRAIN_VLM's
+    microbatches, launches counted from 0 (none: the training route runs no
+    hand-written kernel).  Returns the main path's launches by kernel."""
+    import gc
+
+    import torch
+
+    from repro_torch.core import prng
+    from repro_torch.models.lm import init_lm
+    from repro_torch.train import golden as tg
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    with open(tg.GOLDEN_TRAIN_VLM) as f:
+        golden = json.load(f)
+    cfg = tg.file_config(golden)
+    if cfg.n_layers != TRAIN_VLM["layers"]:
+        raise AssertionError(f"{tg.GOLDEN_TRAIN_VLM} holds {cfg.n_layers} layers, the phase {TRAIN_VLM['layers']}")
+    t0 = time.perf_counter()
+    params = init_lm(prng.prng_key(golden["seed"]), cfg, torch.float32, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    batch = tg.vlm_batch(golden, "cuda")
+    if batch["tokens"].tolist() != golden["tokens"] or batch["positions"].tolist() != golden["positions"]:
+        raise AssertionError("train vlm golden: the card's tokens or positions differ from the reference's")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    rec, _ = tg.grad_record(params, cfg, batch)
+    grad_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    gaps, tol = tg.grad_gaps(rec, golden, cfg), golden["tolerance"]
+    log(f"train vlm golden ({cfg.name}, {golden['cut'].split(':')[0]}, B={golden['batch']} x S={golden['seq']}, image "
+        f"{golden['image']}; init {init_s:.3f} s, value_and_grad and leaf sums {grad_s:.3f} s, peak {peak:.3f} GB): "
+        f"loss {rec['loss']} (reference {golden['loss']}), grad_norm {rec['grad_norm']} (reference "
+        f"{golden['grad_norm']}); tokens and positions bitwise")
+    for key, gap in gaps.items():
+        log(f"  train vlm golden {key}: relative gap {gap:.3e}, tolerance {tol[key]:.3e} (10x the port's CPU gap "
+            f"{golden['port_cpu_gap'][key]:.3e}, no tighter than 1e-6)")
+    for key, gap in gaps.items():
+        if not gap <= tol[key]:
+            raise AssertionError(f"train vlm golden: {key} off by {gap} > {tol[key]}")
+    del params, batch, rec
+    gc.collect()
+    torch.cuda.empty_cache()
+    got, res = train_main(VLM_ARCH, counted, TRAIN_VLM)
+    log("train vlm: " + json.dumps({"golden_gaps": gaps, "golden_s": grad_s, "golden_peak_gb": peak,
+                                    **{k: res[k] for k in ("cut", "micro", "ms_per_step", "tokens_per_s", "peak_gb",
+                                                           "copies_gb", "step_device_busy_ms", "step_idle_share",
+                                                           "step_device_ops", "bound_ms", "bound_by",
+                                                           "step_over_bound")}}))
+    return got
+
+
 def phase_train_moe_mesh(counted):
     """The MoE training path on meshes of shards on the one card:
     llama4-scout at full width, MOE_TRAIN's layers, init_lm from seed 0;
@@ -2993,7 +3088,7 @@ def phase_train_moe_mesh(counted):
     build_train_step(cfg, "momentum_bf16", shd=...) for MOE_TRAIN's steps,
     launches counted from 0 (none: the training route runs no hand-written
     kernel), ms per step, tokens/s, peak memory beside the reckoning of
-    parameters, gradients, clipped gradients and momentum, and one step
+    parameters, gradients (clipped in place) and momentum, and one step
     profiled, each beside the (1, 1) mesh's.  The meshes train the same
     parameters in turn.  Returns each mesh path's launches by kernel."""
     import gc
@@ -3030,8 +3125,8 @@ def phase_train_moe_mesh(counted):
         raise AssertionError("train moe mesh golden: the card's tokens differ from the reference's")
     for mesh, want in golden["meshes"].items():
         t0 = time.perf_counter()
-        rec, _ = tg.mesh_record(params, cfg, tg.mesh_rules(golden, mesh, "cuda"), tokens)
-        gaps = tg.mesh_gaps(rec, want, cfg)
+        rec, _ = tg.grad_record(params, cfg, {"tokens": tokens, "labels": tokens}, tg.mesh_rules(golden, mesh, "cuda"))
+        gaps = tg.grad_gaps(rec, want, cfg)
         log(f"train moe mesh golden {mesh} (B={golden['batch']} x S={golden['seq']}, {time.perf_counter() - t0:.3f} "
             f"s): loss {rec['loss']} (reference {want['loss']}), grad_norm {rec['grad_norm']} (reference "
             f"{want['grad_norm']}); relative gaps {gaps}, tolerances {tol}")
@@ -3054,8 +3149,8 @@ def phase_train_moe_mesh(counted):
     for _ in range(n + 1):
         ds, b = nxt(ds)
         batches.append(b)
-    # what a step holds besides its activations: parameters, gradients and their clipped copies (float32), momentum
-    reckoned = n_params * (4 + 4 + 4 + 2) / 1e9
+    # what a step holds besides its activations: parameters and gradients (float32, clipped in place), momentum (bf16)
+    reckoned = n_params * (4 + 4 + 2) / 1e9
     got_by_path, res = {}, {}
     for mesh in MOE_TRAIN["meshes"]:
         shd = tg.mesh_rules(golden, mesh, "cuda")
@@ -3085,8 +3180,8 @@ def phase_train_moe_mesh(counted):
         log(f"main path {MOE_TRAIN_PATH}{mesh} ({cfg.n_layers} layer, B={B} x S={S}, {MOE_TRAIN['optimizer']}, "
             f"float32, remat {cfg.remat}): {ms:.3f} ms/step over steps 1-{n - 1} (step 0 {step_ms[0]:.3f}; "
             f"{MOE_TRAIN['meshes'][0]}: {base['ms_per_step']:.3f}), {B * S / ms * 1e3:.1f} tokens/s, peak "
-            f"{peak:.3f} GB allocated ({MOE_TRAIN['meshes'][0]}: {base['peak_gb']:.3f}; parameters, gradients, "
-            f"clipped gradients and momentum reckoned {reckoned:.3f}), profiled step: busy {p_busy:.3f} of "
+            f"{peak:.3f} GB allocated ({MOE_TRAIN['meshes'][0]}: {base['peak_gb']:.3f}; parameters, gradients "
+            f"and momentum reckoned {reckoned:.3f}), profiled step: busy {p_busy:.3f} of "
             f"{p_wall:.3f} ms, idle {1 - p_busy / p_wall:.4f}, {p_ops} device operations ({MOE_TRAIN['meshes'][0]}: "
             f"busy {base['step_device_busy_ms']:.3f} of {base['step_wall_ms']:.3f}, {base['step_device_ops']}); "
             f"losses {losses}, grad_norms {gnorms}, launches {got}")
@@ -3413,27 +3508,39 @@ def phase_node(counted):
     node shards on the one card: NOWAIT/SmallBank and MVCC/YCSB hybrid 63
     and CALVIN/SmallBank hybrid 63 (``layout="node"``), and the four codes
     on a 2 x 2 ``config_node`` mesh, each against its golden file, with
-    launches per tick counted from 0; then one NOWAIT final store, node
-    against dense.  Returns the launches by path and the wall s by path."""
+    launches per tick counted from 0; then the NOWAIT path's own final
+    store (kept from its ``engine.run_sharded``) against a dense
+    ``engine.run`` of the same config and ticks.  Returns the launches by
+    path and the wall s by path."""
     import torch
 
     from repro_torch.api import ExperimentSpec
     from repro_torch.core import engine
     from repro_torch.core.protocols import calvin
-    from repro_torch.core.registry import get_protocol
-    from repro_torch.core.sweep import GridSpec, engine_config, make_knobs
 
     def load(name):
         with open(os.path.join(ROOT, "src", "repro_torch", "data", name)) as f:
             return json.load(f)
 
     launches, walls = {}, {}
+    run_sharded, kept = engine.run_sharded, []
+
+    def keep_store(tick, ec, cm, wl, n_ticks, warmup=0, **kw):
+        out = run_sharded(tick, ec, cm, wl, n_ticks, warmup=warmup, **kw)
+        kept.append(((tick, ec, cm, wl, n_ticks, warmup), out[1], out[2]))
+        return out
+
     for path, protocol, workload, golden_file in ((NODE_NOWAIT, "nowait", "smallbank",
                                                    "golden_nowait_smallbank_sweep64.json"),
                                                   (NODE_MVCC, "mvcc", "ycsb", "golden_mvcc_ycsb.json")):
         spec = ExperimentSpec(protocol=protocol, workload=workload, configs=[{"hybrid": 63}], kernel_plane="kernel",
                               layout="node", devices=NODE_DEVICES)
-        res, got = counted_run(spec, counted)
+        if path == NODE_NOWAIT:  # keep the run's arguments and final global store (the node_run hook's call)
+            engine.run_sharded = keep_store
+        try:
+            res, got = counted_run(spec, counted)
+        finally:
+            engine.run_sharded = run_sharded
         if path == NODE_NOWAIT:
             log(res.plan.summary())
         row, n_ticks = res.row, spec.ticks + spec.warmup
@@ -3478,25 +3585,23 @@ def phase_node(counted):
     golden_counters(CONFIG_NODE_PATH, res, "golden_nowait_smallbank.json")
     launches[CONFIG_NODE_PATH], walls[CONFIG_NODE_PATH] = got, res.wall_s
 
-    # one final store: NOWAIT/SmallBank hybrid 63 node-sharded against the dense run's
-    gs = GridSpec(protocol="nowait", workload="smallbank", kernel_plane="kernel", device="cuda")
-    ec, cm, wl = engine_config(gs, make_knobs("smallbank", [{"hybrid": 63}]))
-    tick = get_protocol("nowait").tick
+    # the NOWAIT path's final store against a dense run of the same config and ticks
+    if len(kept) != 1:
+        raise AssertionError(f"{NODE_NOWAIT}: engine.run_sharded ran {len(kept)} times, not once")
+    (tick, ec, cm, wl, n_ticks, warmup), node_store, node_m = kept[0]
+    torch.cuda.synchronize()
     t0 = time.perf_counter()
-    _, node_store, node_m = engine.run_sharded(tick, ec, cm, wl, gs.ticks, warmup=gs.warmup, devices=NODE_DEVICES)
+    _, dense_store, dense_m = engine.run(tick, ec, cm, wl, n_ticks, warmup=warmup)
     torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    _, dense_store, dense_m = engine.run(tick, ec, cm, wl, gs.ticks, warmup=gs.warmup)
-    torch.cuda.synchronize()
-    t2 = time.perf_counter()
+    wall = time.perf_counter() - t0
     if set(node_store) != set(dense_store) or not all(torch.equal(node_store[k], dense_store[k]) for k in dense_store):
         raise AssertionError("nowait/smallbank: the node-sharded final store differs from the dense run's")
     if int(node_m["commits"][0]) != int(dense_m["commits"][0]):
         raise AssertionError("nowait/smallbank: node-sharded and dense commits differ")
     words = sum(v.numel() for v in dense_store.values())
-    log(f"{NODE_NOWAIT} final store: {len(dense_store)} arrays, {words} int32 words, equal to the dense run's "
-        f"(engine.run_sharded {t1 - t0:.3f} s, engine.run {t2 - t1:.3f} s)")
-    walls["nowait/smallbank/node4 engine.run_sharded"], walls["nowait/smallbank/g1 engine.run"] = t1 - t0, t2 - t1
+    log(f"{NODE_NOWAIT} final store after {n_ticks} + {warmup} ticks: {len(dense_store)} arrays, {words} int32 words, "
+        f"equal to the dense run's (engine.run {wall:.3f} s)")
+    walls["nowait/smallbank/g1 engine.run"] = wall
     log("node walls_s: " + json.dumps(walls))
     return launches, walls
 
@@ -4133,7 +4238,7 @@ def main() -> int:
         launches[name][SERVE_PATH] = n
 
     lap("serve stablelm")
-    # the MoE serving path (llama4-scout-17b-a16e at full width, 6 layers)
+    # the MoE serving path (llama4-scout-17b-a16e at full width, MOE_LAYERS of 48 layers)
     got, moe_params = phase_serve_moe(counted)
     for name, n in got.items():
         launches[name][MOE_SERVE_PATH] = n
@@ -4144,7 +4249,7 @@ def main() -> int:
         launches[name][MESH_SERVE_PATH] = n
     del moe_params
     lap("serve moe 1x4")
-    # the SSM serving path (falcon-mamba-7b at full width and depth)
+    # the SSM serving path (falcon-mamba-7b at full width, SSM_LAYERS of 64 layers)
     for name, n in phase_serve_ssm(counted).items():
         launches[name][SSM_SERVE_PATH] = n
 
@@ -4159,7 +4264,7 @@ def main() -> int:
         launches[name][WHISPER_SERVE_PATH] = n
 
     lap("serve whisper")
-    # the M-RoPE VLM serving path (qwen2-vl-72b at full width, 6 of 80 layers)
+    # the M-RoPE VLM serving path (qwen2-vl-72b at full width, VLM_LAYERS of 80 layers)
     for name, n in phase_serve_vlm(counted).items():
         launches[name][VLM_SERVE_PATH] = n
 
@@ -4186,6 +4291,11 @@ def main() -> int:
             launches[name][path] = n
 
     lap("train families")
+    # the M-RoPE VLM training path (qwen2-vl-72b at full width, 1 of 80 layers, 2 microbatches a step)
+    for name, n in phase_train_vlm(counted).items():
+        launches[name][TRAIN_FAMILY_PATH + VLM_ARCH] = n
+
+    lap("train vlm")
     # the MoE training path on meshes of shards (llama4-scout-17b-a16e at full width, 1 of 48 layers)
     for path, got in phase_train_moe_mesh(counted).items():
         for name, n in got.items():

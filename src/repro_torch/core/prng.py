@@ -36,7 +36,8 @@ A key is an int64 tensor ``(..., 2)`` holding two uint32 words; every
 function is vectorised over the leading batch dimensions.  torch has no
 full uint32 arithmetic, so words live in int64 and every sum, product and
 shift is masked back to 32 bits (an int64 product that wraps keeps its low
-32 bits exact).
+32 bits exact).  The one exception is the weight draws on a card
+(``_chunked_draw``): their counts hash in int32, whose sums wrap.
 """
 from __future__ import annotations
 
@@ -91,6 +92,39 @@ def threefry2x32(k1, k2, x0, x1) -> Tuple[torch.Tensor, torch.Tensor]:
         x0 = (x0 + ks[(i + 1) % 3]) & _M
         x1 = (x1 + ks[(i + 2) % 3] + (i + 1)) & _M
     return x0, x1
+
+
+def _i32(v):
+    """uint32 words (int64 tensor or int) as int32 of the same bits."""
+    if torch.is_tensor(v):
+        return torch.where(v >= 2**31, v - 2**32, v).to(torch.int32)
+    return v - 2**32 if v >= 2**31 else v
+
+
+def _threefry2x32_i32(k1, k2, x0, x1) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``threefry2x32`` on int32 tensors of the uint32 words' bits (every
+    sum wraps mod 2**32, every right shift is masked to a logical one): the
+    same words in half the int64 form's bytes, written in place after the
+    first sums.  ``x1`` is the full shape; ``x0`` may broadcast to it."""
+    ks = (k1, k2, k1 ^ k2 ^ _i32(0x1BD11BDA))
+    x0 = x0 + k1
+    x1 = x1 + k2
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x0 = x0 + x1 if x0.shape != x1.shape else x0.add_(x1)
+            low = (x1 >> (32 - r)).bitwise_and_((1 << r) - 1)
+            x1.bitwise_left_shift_(r).bitwise_or_(low).bitwise_xor_(x0)
+        x0.add_(ks[(i + 1) % 3])
+        x1.add_(ks[(i + 2) % 3] + (i + 1))
+    return x0, x1
+
+
+def _count_words_i32(start: int, stop: int, device):
+    """The 64-bit counts [start, stop) as int32 (high word, low word)."""
+    if stop <= 2**31:
+        return 0, torch.arange(start, stop, dtype=torch.int32, device=device)
+    counts = torch.arange(start, stop, dtype=torch.int64, device=device)
+    return _i32(counts >> 32), _i32(counts & _M)
 
 
 # jax's legacy draw hashes ``iota(n)`` in uint32: from this many elements on it runs in blocks of this size
@@ -598,14 +632,31 @@ def _erf32(x) -> np.float32:
     return np.float32(torch.erf(torch.tensor(x, dtype=torch.float32)).item())
 
 
+@functools.lru_cache(maxsize=None)
 def _truncated_normal_fn(lower: float, upper: float):
-    """``truncated_normal``'s float32 map of 32 random bits onto (lower, upper)."""
+    """``truncated_normal``'s float32 map of 32 random bits onto (lower,
+    upper); it reads only their top 23 (``uniform_from_bits``)."""
     sqrt2 = np.float32(np.sqrt(2))
     lo, hi = np.float32(lower), np.float32(upper)
     a, b = _erf32(lo / sqrt2), _erf32(hi / sqrt2)
     clip_lo = float(np.nextafter(lo, np.float32(np.inf)))
     clip_hi = float(np.nextafter(hi, np.float32(-np.inf)))
-    return lambda bits: torch.clamp(erf_inv(uniform_from_bits(bits, a, b)) * float(sqrt2), clip_lo, clip_hi)
+    return _reads_top23(lambda bits: torch.clamp(erf_inv(uniform_from_bits(bits, a, b)) * float(sqrt2), clip_lo,
+                                                 clip_hi))
+
+
+def _reads_top23(fn):
+    """Mark a map of 32 random bits that reads only their top 23."""
+    fn.reads_top23 = True
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _top23_table(fn, device: str) -> torch.Tensor:
+    """``fn`` at every value of the top 23 of 32 random bits (the low 9
+    zero), (2**23,): ``fn(bits) == table[bits >> 9]`` bitwise for a map
+    that reads only those bits (``_reads_top23``)."""
+    return fn(torch.arange(1 << 23, dtype=torch.int64, device=device) << 9)
 
 
 def truncated_normal(key, lower: float, upper: float, shape: Sequence[int], *,
@@ -624,7 +675,7 @@ def truncated_normal(key, lower: float, upper: float, shape: Sequence[int], *,
 
 
 def _chunked_draw(key, shape, fn, start: int = 0, stop: Optional[int] = None, *, chunk: Optional[int] = None,
-                  dtype=torch.float32) -> torch.Tensor:
+                  dtype=torch.float32, table: Optional[bool] = None) -> torch.Tensor:
     """``fn(bits)`` of elements [start, stop) (default all) of one key's (2,)
     32-bit draw over ``shape``, flat, without making the rest: ``chunk``
     elements at a time (default 2**24 on a card, 2**18 elsewhere: a CPU
@@ -633,13 +684,33 @@ def _chunked_draw(key, shape, fn, start: int = 0, stop: Optional[int] = None, *,
     each block of the draw (one below 2**32 - 1 elements), chunks of
     ``chunk // 2`` count pairs, each giving its y0 words to the first half of
     the block and its y1 words to the second; a pair that no element of the
-    window needs is not hashed.  ``fn`` must act elementwise."""
+    window needs is not hashed.  ``fn`` must act elementwise.  With
+    ``table`` (default: on a card, for a ``fn`` that reads only the top 23
+    bits, in the partitionable mode) the counts hash in int32
+    (``_threefry2x32_i32``) and each element is looked up in ``fn``'s table
+    of those bits (``_top23_table``): the same values in about a quarter of
+    the bytes moved."""
     n = math.prod(int(d) for d in shape)
     stop = n if stop is None else stop
     if not 0 <= start <= stop <= n:
         raise ValueError(f"window [{start}, {stop}) of a draw of {n} elements")
     out = torch.empty(stop - start, dtype=dtype, device=key.device)
     chunk = chunk or (1 << 24 if key.device.type == "cuda" else 1 << 18)
+    if table is None:
+        table = key.device.type == "cuda" and getattr(fn, "reads_top23", False)
+    elif table and not getattr(fn, "reads_top23", False):
+        raise ValueError("_chunked_draw(table=True): fn is not marked as reading only the top 23 bits")
+    if table and partitionable():
+        if n > 2**64:
+            raise ValueError(f"a draw of {n} elements: jax's counts are 64-bit")
+        values = _top23_table(fn, str(key.device)).to(dtype)
+        k1, k2 = _i32(key[0:1]), _i32(key[1:2])
+        for s in range(start, stop, chunk):
+            e = min(stop, s + chunk)
+            y0, y1 = _threefry2x32_i32(k1, k2, *_count_words_i32(s, e, key.device))
+            top = y0.bitwise_xor_(y1).bitwise_right_shift_(9).bitwise_and_(0x7FFFFF)
+            torch.index_select(values, 0, top, out=out[s - start : e - start])
+        return out
     if partitionable():
         if n > 2**64:
             raise ValueError(f"a draw of {n} elements: jax's counts are 64-bit")
@@ -671,11 +742,13 @@ def _chunked_draw(key, shape, fn, start: int = 0, stop: Optional[int] = None, *,
     return out
 
 
+@functools.lru_cache(maxsize=None)
 def _normal_fn():
-    """``normal``'s float32 map of 32 random bits."""
+    """``normal``'s float32 map of 32 random bits; it reads only their top
+    23 (``uniform_from_bits``)."""
     lo = float(np.nextafter(np.float32(-1), np.float32(0)))
     sqrt2 = float(np.float32(np.sqrt(2)))
-    return lambda bits: erf_inv(uniform_from_bits(bits, lo, 1.0)) * sqrt2
+    return _reads_top23(lambda bits: erf_inv(uniform_from_bits(bits, lo, 1.0)) * sqrt2)
 
 
 def normal(key, shape: Sequence[int], *, chunk: Optional[int] = None) -> torch.Tensor:

@@ -6,8 +6,10 @@ by the LM's parameter names (``layers.3.attn.wq``, ``dict(model.
 named_parameters())``); a state is ``{"m": {name: t}, "v": {name: t}}``,
 the reference's tree with its layers unstacked (``convert`` stacks them).
 ``update`` writes the parameters and the state **in place** and returns
-them, so a step holds no second copy of the model.  Scalars (the schedule,
-the bias corrections) are float32, as the reference computes them.
+them, and clips the gradients it is given in place, so a step holds no
+second copy of the model or of its gradients: a caller that reads the
+gradients after ``update`` copies them first.  Scalars (the schedule, the
+bias corrections) are float32, as the reference computes them.
 """
 from __future__ import annotations
 
@@ -67,9 +69,32 @@ def global_norm(grads: Tree) -> torch.Tensor:
 def clip_by_global_norm(grads: Tree, max_norm: float):
     """(grads scaled to a global norm of at most ``max_norm``, the norm
     before clipping); new tensors, in each gradient's dtype."""
+    return clip_by_global_norm_({n: g.clone() for n, g in grads.items()}, max_norm)
+
+
+@torch.no_grad()
+def clip_by_global_norm_(grads: Tree, max_norm: float):
+    """Each gradient scaled by ``min(max_norm / global_norm, 1)``, written
+    into the given gradients: the float32 product by the 0-dim scale,
+    rounded to the gradient's dtype.
+    Returns (the clipped gradients, the norm before clipping); a gradient
+    that cannot be written in place (an expanded one, whose elements
+    share memory, or one that another entry of ``grads`` also holds) is
+    replaced by a copy."""
     gn = global_norm(grads)
     scale = torch.clamp(float(np.float32(max_norm)) / torch.clamp(gn, min=1e-9), max=1.0)
-    return {n: (g.float() * scale).to(g.dtype) for n, g in grads.items()}, gn
+    out, seen = {}, set()
+    for n, g in grads.items():  # every copy taken before any gradient is written
+        if any(st == 0 and k > 1 for st, k in zip(g.stride(), g.shape)) or g.data_ptr() in seen:
+            g = g.clone()
+        seen.add(g.data_ptr())
+        out[n] = g
+    for g in out.values():
+        if g.dtype == torch.float32:
+            g.mul_(scale)
+        else:
+            g.copy_(g.float().mul_(scale))
+    return out, gn
 
 
 def _zeros(params: Tree, dtype) -> Tree:
@@ -85,19 +110,34 @@ def adamw(lr: Callable, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8, we
 
     @torch.no_grad()
     def update(grads: Tree, state, params: Tree, step):
-        grads, gnorm = clip_by_global_norm(grads, max_grad_norm)
+        grads, gnorm = clip_by_global_norm_(grads, max_grad_norm)
         t = f(int(step)) + f(1)
         bc1 = float(f(1) - f(b1) ** t)
         bc2 = float(f(1) - f(b2) ** t)
         lr_t = float(lr(step))
         c1, c2 = float(f(1 - b1)), float(f(1 - b2))
         for n, p in params.items():
+            # the same products and sums, in the same order, as the out-of-place
+            #   m = b1 m + c1 g;  v = b2 v + c2 g^2;  p = p - lr ((m / bc1) / (sqrt(v / bc2) + eps) + wd p)
+            # with two leaf-sized temporaries
             g = grads[n].float()
             m, v = state["m"][n], state["v"][n]
-            m.mul_(float(f(b1))).add_(c1 * g)
-            v.mul_(float(f(b2))).add_(c2 * g.square())
-            u = (m / bc1) / (torch.sqrt(v / bc2) + float(f(eps))) + float(f(weight_decay)) * p.float()
-            p.copy_((p.float() - lr_t * u).to(p.dtype))
+            tmp = c1 * g
+            m.mul_(float(f(b1))).add_(tmp)
+            torch.square(g, out=tmp)
+            v.mul_(float(f(b2))).add_(tmp.mul_(c2))
+            del g
+            u = m / bc1
+            torch.div(v, bc2, out=tmp)
+            u.div_(tmp.sqrt_().add_(float(f(eps))))
+            pf = p.float()
+            torch.mul(pf, float(f(weight_decay)), out=tmp)
+            u.add_(tmp).mul_(lr_t)
+            del tmp
+            if p.dtype == torch.float32:
+                p.sub_(u)
+            else:
+                p.copy_(pf.sub_(u))
         return params, state, gnorm
 
     return OptimizerSpec(init, update)
@@ -114,13 +154,20 @@ def momentum_bf16(lr: Callable, beta: float = 0.9, weight_decay: float = 0.0,
 
     @torch.no_grad()
     def update(grads: Tree, state, params: Tree, step):
-        grads, gnorm = clip_by_global_norm(grads, max_grad_norm)
+        grads, gnorm = clip_by_global_norm_(grads, max_grad_norm)
         lr_t = float(lr(step))
         for n, p in params.items():
+            # m = bf16(beta m + g);  p = p - lr (m + wd p), in float32
             m = state["m"][n]
-            m.copy_((float(f(beta)) * m.float() + grads[n].float()).to(torch.bfloat16))
-            u = m.float() + float(f(weight_decay)) * p.float()
-            p.copy_((p.float() - lr_t * u).to(p.dtype))
+            u = m.float().mul_(float(f(beta))).add_(grads[n])
+            m.copy_(u)
+            u.copy_(m)
+            pf = p.float()
+            u.add_(pf * float(f(weight_decay))).mul_(lr_t)
+            if p.dtype == torch.float32:
+                p.sub_(u)
+            else:
+                p.copy_(pf.sub_(u))
         return params, state, gnorm
 
     return OptimizerSpec(init, update)

@@ -19,12 +19,16 @@ encoder-decoder's file also holds the sha256 of each step's frames
 
 ``data/golden_train_llama4_scout_mesh.json`` holds the reference's
 gradient of ``lm_loss`` at llama4-scout's full width on several meshes
-(its writer is ``tests/test_torch_mesh_train.py`` run as a script):
-``mesh_record`` is the port's counterpart on a mesh, ``mesh_gaps`` and
+(its writer is ``tests/test_torch_mesh_train.py`` run as a script), and
+``data/golden_train_qwen2_vl.json`` its gradient at qwen2-vl-72b's full
+width on one request holding an image (``VLM_RUN``; its writer is
+``tests/test_torch_vlm_train.py`` run as a script): ``grad_record`` is the
+port's counterpart of either, on one device or a mesh, ``grad_gaps`` and
 ``routing_checks`` the rules it is held by.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import hashlib
 import os
@@ -37,6 +41,7 @@ from repro_torch import convert
 from repro_torch.configs import get_config
 from repro_torch.core import prng
 from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.launch.serve import vlm_layout
 from repro_torch.layers import moe
 from repro_torch.models.lm import LM, init_lm, lm_loss
 from repro_torch.optim.optimizers import global_norm
@@ -46,11 +51,16 @@ from repro_torch.train.steps import build_train_step, train_batches
 DATA = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "data")
 GOLDEN_TRAIN = os.path.join(DATA, "golden_train_stablelm.json")
 GOLDEN_TRAIN_MESH = os.path.join(DATA, "golden_train_llama4_scout_mesh.json")
+GOLDEN_TRAIN_VLM = os.path.join(DATA, "golden_train_qwen2_vl.json")
 GOLDEN_TRAIN_FAMILIES = {arch: os.path.join(DATA, f"golden_train_{stem}.json") for arch, stem in (
     ("falcon-mamba-7b", "falcon_mamba"), ("recurrentgemma-2b", "recurrentgemma"), ("whisper-small", "whisper"))}
 # the mesh file's run: llama4-scout at full width, depth cut to n_layers, one value_and_grad of lm_loss at
 # batch x seq on each (data, model) mesh
 MESH_RUN = dict(seed=0, n_layers=1, batch=2, seq=512, meshes=((1, 1), (1, 4), (2, 2)))
+# the VLM file's run: qwen2-vl-72b at full width, depth cut to n_layers, one value_and_grad of lm_loss on batch x seq
+# tokens holding an image grid (offset, (t, h, w)) of the reserved last id at Qwen2-VL's M-RoPE positions (the
+# serving golden file's layout: 64 text tokens, a 1 x 32 x 32 grid, 960 text tokens)
+VLM_RUN = dict(seed=0, n_layers=1, batch=1, seq=2048, image=(64, (1, 32, 32)))
 # leaves in the reference's tree (layers stacked): both embeddings, a norm, a projection of each sublayer
 LEAVES = ("embed", "lm_head", "final_norm/scale", "layers/attn/wq", "layers/mlp/wd", "layers/norm1/bias")
 
@@ -166,41 +176,56 @@ def mesh_tokens(golden: Dict, device) -> torch.Tensor:
     return prng.randint(prng.prng_key(golden["seed"] + 1, device), (golden["batch"], golden["seq"]), 0, V)
 
 
+def vlm_batch(golden: Dict, device) -> Dict[str, torch.Tensor]:
+    """The VLM file's batch: ``mesh_tokens`` with the image's tokens set to
+    the last vocabulary id, as labels too, and the (batch, 3, seq) M-RoPE
+    positions of ``launch.serve.vlm_layout`` for the file's image."""
+    V = file_config(golden).vocab_size
+    offset, grid = golden["image"]
+    ids, mask, _ = vlm_layout(golden["seq"], (offset, tuple(grid)), device=device)
+    tokens = mesh_tokens(golden, device).masked_fill(mask, V - 1)
+    positions = ids.expand(golden["batch"], 3, golden["seq"]).contiguous()
+    return {"tokens": tokens, "labels": tokens, "positions": positions}
+
+
 def mesh_rules(golden: Dict, mesh: str, device) -> AxisRules:
     """The arch's rules on a ``"dxm"`` mesh whose every shard is on ``device``."""
     d, m = map(int, mesh.split("x"))
     return AxisRules(make_host_mesh(d, m, devices=(device,) * (d * m)), get_config(golden["arch"])[1])
 
 
-def mesh_record(params: LM, cfg, shd: AxisRules, tokens) -> Tuple[Dict, List]:
-    """The port's counterpart of one of the file's records: ``lm_loss`` and
-    its gradient on ``shd``, the global norm (``optimizers.global_norm``),
-    the float64 sum and |sum| of each of the reference's leaves (a layer's
-    leaf summed over the layers), and per layer and data shard the MoE's
-    ``route_stats``.  Also returns the recorded calls (their router
-    logits).  The gradients are dropped before it returns."""
+def grad_record(params: LM, cfg, batch: Dict, shd: AxisRules = None) -> Tuple[Dict, List]:
+    """The port's counterpart of a gradient file's record: ``lm_loss`` of
+    ``batch`` and its gradient on ``shd``'s mesh (None: one device), the
+    global norm (``optimizers.global_norm``), the float64 sum and |sum| of
+    each of the reference's leaves (a layer's leaf summed over the layers),
+    and, for an MoE config, per layer and data shard the MoE's
+    ``route_stats``.  Also returns the recorded MoE calls (their router
+    logits; none without experts).  The gradients are dropped before it
+    returns."""
     params.requires_grad_(True)
     named = dict(params.named_parameters())
-    with moe.Record() as rec, torch.enable_grad():
-        loss = lm_loss(params, cfg, {"tokens": tokens, "labels": tokens}, shd=shd)
+    with (moe.Record() if cfg.is_moe else contextlib.nullcontext()) as rec, torch.enable_grad():
+        loss = lm_loss(params, cfg, batch, shd=shd)
         grads = dict(zip(named, torch.autograd.grad(loss, list(named.values()))))
-    sums = {}
-    for name, g in grads.items():
+    record = {"loss": float(loss.detach()), "grad_norm": float(global_norm(grads)), "leaf_sums": {}}
+    for name in list(grads):
         leaf = "/".join(p for p in name.split(".") if not p.isdigit())
-        s, a = _sums(g)
-        acc = sums.setdefault(leaf, {"sum": 0.0, "abs_sum": 0.0})
+        s, a = _sums(grads.pop(name))
+        acc = record["leaf_sums"].setdefault(leaf, {"sum": 0.0, "abs_sum": 0.0})
         acc["sum"] += s
         acc["abs_sum"] += a
-    record = {"loss": float(loss.detach()), "grad_norm": float(global_norm(grads)), "leaf_sums": sums,
-              "routing": [[moe.route_stats(cfg, c) for c in moe.split_call(call)] for call in rec.calls]}
+    if not cfg.is_moe:
+        return record, []
+    record["routing"] = [[moe.route_stats(cfg, c) for c in moe.split_call(call)] for call in rec.calls]
     return record, rec.calls
 
 
 ROUTER_LEAF = "layers/moe/wr"
 
 
-def mesh_gaps(got: Dict, want: Dict, cfg) -> Dict[str, float]:
-    """``rel_gaps`` of one mesh's record against the file's.  At top-1 the
+def grad_gaps(got: Dict, want: Dict, cfg) -> Dict[str, float]:
+    """``rel_gaps`` of one ``grad_record`` against the file's.  At top-1 the
     router's gradient is rounding noise (the gate is p / p), so its leaf
     sums are held apart, absolutely (``router_leaf_abs``)."""
     noise = {ROUTER_LEAF} if cfg.is_moe and cfg.top_k == 1 else set()

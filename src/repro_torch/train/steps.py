@@ -27,7 +27,9 @@ def build_train_step(cfg: ArchConfig, opt_name: Optional[str] = None, *, shd: Op
     returned; ``batch`` ``{"tokens", "labels"}`` (B, S) (and an
     encoder-decoder's ``frames`` (B, T_enc, D)), or (n_micro,
     B_micro, S) for gradient accumulation: float32 for AdamW, bfloat16
-    otherwise, then divided by ``n_micro``.  ``metrics``: ``loss`` and
+    otherwise, summed in place into zeros, then divided by ``n_micro`` in
+    place; the optimizer clips the sum in place too, so a step holds one
+    copy of the gradients beside a microbatch's own.  ``metrics``: ``loss`` and
     ``grad_norm`` (float32 tensors on the model's device) and ``step + 1``.
     ``shd``: the ``AxisRules`` of a mesh that ``lm_loss`` runs on (None:
     one device), for a (B, S) batch and for each microbatch alike; the
@@ -56,10 +58,11 @@ def build_train_step(cfg: ArchConfig, opt_name: Optional[str] = None, *, shd: Op
             l_acc = torch.zeros((), dtype=torch.float32, device=tokens.device)
             for i in range(n_micro):
                 l, g = value_and_grad(params, named, {k: v[i] for k, v in batch.items()})
-                for n in named:
-                    g_acc[n] = g_acc[n] + g[n].to(acc_dtype)
+                for n in named:  # into the zeros: 0 + g, as the reference's first sum (-0.0 becomes +0.0)
+                    g_acc[n].add_(g[n].to(acc_dtype))
+                del g  # before the next microbatch's backward
                 l_acc = l_acc + l
-            grads = {n: g / n_micro for n, g in g_acc.items()}
+            grads = {n: g.div_(n_micro) for n, g in g_acc.items()}
             loss = l_acc / n_micro
         _, opt_state, gnorm = optimizer.update(grads, opt_state, named, step)
         return params, opt_state, {"loss": loss, "grad_norm": gnorm, "step": int(step) + 1}

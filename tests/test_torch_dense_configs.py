@@ -178,7 +178,7 @@ def test_config_matches_the_reference(arch):
     assert cfg.param_count() == jcfg.param_count() and cfg.active_param_count() == jcfg.active_param_count()
     assert cfg.family == "dense" and cfg.head_dim == 128
     # the depths the card serves them at (chip_smoke.DENSE_LAYERS) and their parameters, reckoned
-    n = {"nemotron-4-15b": (4, 4_706_058_240), "qwen2.5-32b": (2, 2_532_345_856),
+    n = {"nemotron-4-15b": (2, 3_925_893_120), "qwen2.5-32b": (2, 2_532_345_856),
          "command-r-35b": (2, 3_506_470_912)}[arch]
     assert dataclasses.replace(cfg, n_layers=n[0]).param_count() == n[1]
 

@@ -1,5 +1,6 @@
 """The port stands alone: ``src/repro_torch``, ``chip_smoke.py``,
-``scripts/torch_{kernel,legacy}_ab.py``, ``scripts/torch_{dense,kimi,examples,train_families}_phase.py``,
+``scripts/torch_{kernel,legacy,init_draw}_ab.py``,
+``scripts/torch_{dense,kimi,examples,train_families,train_vlm}_phase.py``,
 the port's user entry points (``examples/torch_{quickstart,hybrid_search,
 txn_serving,train_lm}.py``, ``scripts/torch_{dev_smoke,check_api_boundary}.py``)
 and the card's test file ``tests/test_torch_cuda.py`` import neither JAX,
@@ -22,9 +23,10 @@ ENTRY_POINTS = ("examples/torch_quickstart.py", "examples/torch_hybrid_search.py
 
 def _port_files():
     files = [os.path.join(ROOT, "chip_smoke.py"), os.path.join(ROOT, "tests", "test_torch_cuda.py")]
-    files += [os.path.join(ROOT, "scripts", f"torch_{name}.py") for name in ("kernel_ab", "legacy_ab", "dense_phase",
-                                                                             "kimi_phase", "examples_phase",
-                                                                             "train_families_phase")]
+    files += [os.path.join(ROOT, "scripts", f"torch_{name}.py") for name in ("kernel_ab", "legacy_ab", "init_draw_ab",
+                                                                             "dense_phase", "kimi_phase",
+                                                                             "examples_phase", "train_families_phase",
+                                                                             "train_vlm_phase")]
     files += [os.path.join(ROOT, *rel.split("/")) for rel in ENTRY_POINTS]
     for d, _, names in os.walk(os.path.join(ROOT, "src", "repro_torch")):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]

@@ -697,10 +697,11 @@ def _port_cpu_gap(tmp):
     per_mesh = {}
     for mesh, want in g["meshes"].items():
         t0 = time.time()
-        rec, calls = tgolden.mesh_record(model, cfg, tgolden.mesh_rules(g, mesh, "cpu"), tokens)
+        rec, calls = tgolden.grad_record(model, cfg, {"tokens": tokens, "labels": tokens},
+                                         tgolden.mesh_rules(g, mesh, "cpu"))
         ref_router = np.load(os.path.join(tmp, f"{mesh}_router.npy"))
         router_gap = max(float(np.abs(c["logits"].numpy() - ref_router[i]).max()) for i, c in enumerate(calls))
-        gaps = dict(tgolden.mesh_gaps(rec, want, cfg), router_logits=router_gap)
+        gaps = dict(tgolden.grad_gaps(rec, want, cfg), router_logits=router_gap)
         checks = tgolden.routing_checks(rec["routing"], want["routing"], router_gap)
         bad = [c for c in checks if c["held"] and not c["equal"]]
         assert not bad, bad
